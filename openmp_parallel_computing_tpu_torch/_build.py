@@ -1,0 +1,106 @@
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its
+own into ``build/torch_kernels/lib<name>-<hash>.so`` (the hash is of the
+source, so an edited kernel rebuilds and a cached one is reused). The
+build happens at first use, never at import. Flags: ``sm_90a``, ``-O3``,
+no fast math (the Sobel's floor(sqrt) must be exact), and ``-Xptxas -v``
+so the register and spill report of every kernel is kept in
+``lib<name>-<hash>.log`` beside the library.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_libs: dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def nvcc_path() -> str:
+    """The nvcc binary: on PATH, else under CUDA_HOME or /usr/local/cuda."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if not cand.exists():
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return str(cand)
+
+
+def _target(name: str) -> tuple[Path, Path]:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+                            ).hexdigest()[:12]
+    stem = BUILD_DIR / f"lib{name}-{digest}"
+    return stem.with_suffix(".so"), stem.with_suffix(".log")
+
+
+def _start(name: str):
+    """Start nvcc for ``csrc/<name>.cu`` unless it is built already.
+    Returns ``(process, tmp_path, so_path, log_path, log_file)``, or None
+    when the library exists."""
+    so, log = _target(name)
+    if so.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".so.tmp{os.getpid()}")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    logf = open(log, "w")
+    try:
+        proc = subprocess.Popen(cmd, stdout=logf, stderr=subprocess.STDOUT)
+    except OSError:
+        logf.close()
+        raise
+    return proc, tmp, so, log, logf
+
+
+def _finish(name: str, job) -> None:
+    proc, tmp, so, log, logf = job
+    try:
+        rc = proc.wait()
+    finally:
+        logf.close()
+    if rc != 0:
+        raise RuntimeError(
+            f"nvcc failed for csrc/{name}.cu (exit {rc}):\n{log.read_text()}")
+    os.replace(tmp, so)
+
+
+def build(*names: str) -> dict[str, str]:
+    """Compile the named kernels (all of ``csrc/*.cu`` when none are
+    named), in parallel nvcc processes. Returns each kernel's ptxas
+    report (empty for one that was already built)."""
+    names = names or tuple(sorted(p.stem for p in CSRC.glob("*.cu")))
+    with _lock:
+        jobs = {n: _start(n) for n in names}
+        for n, job in jobs.items():
+            if job is not None:
+                _finish(n, job)
+    return {n: _target(n)[1].read_text() if _target(n)[1].exists() else ""
+            for n in names}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built at first use."""
+    with _lock:
+        lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    build(name)
+    with _lock:
+        if name not in _libs:
+            _libs[name] = ctypes.CDLL(str(_target(name)[0]))
+        return _libs[name]

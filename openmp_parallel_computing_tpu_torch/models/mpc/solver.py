@@ -1,0 +1,355 @@
+"""The visual-servo MPC engine, sweep backend (PyTorch port of
+``openmp_parallel_computing_tpu.models.mpc.solver``).
+
+Solve structure, per scenario batch:
+
+    nominal rollout of the warm start
+    ADMM (admm_iters, plus admm_iters_extra when the batch-max primal
+    residual still exceeds admm_tol):
+        one multi_sweep kernel launch: ilqr_iters iLQR sweeps (Riccati
+        backward, 4-candidate line search, winner select) against a fixed
+        edge linearization
+        u^ = relax*us + (1-relax)*z;  z = clip(u^ + y);  y = y + u^ - z
+    feasible rollout of z and its cost
+
+The edge linearization is the analytic value + gradient of the pyramid
+edge cost (``costs.edge_vg_pyramid_xy``), taken once per ADMM iteration
+(``edge_refresh="admm"``) or once per solve at the warm-start trajectory
+(``"solve"``).
+
+Solver state stays in the kernels' lanes layout — batch last, state axis
+in split order — for the whole solve, and across control steps in the
+receding-horizon loops. The batch is not padded.
+
+The adaptive-budget gate is a host branch on ``resid.max().item()``: exact
+(the same predicate JAX evaluates inside ``lax.cond``), and settled steps
+skip the extra iterations' launches, at the cost of one device-to-host
+sync per solve.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from openmp_parallel_computing_tpu_torch.models.mpc import costs, sweep
+from openmp_parallel_computing_tpu_torch.models.mpc.dynamics import CONTROL_DIM
+from openmp_parallel_computing_tpu_torch.utils.config import MPCConfig
+
+
+def _to_split(a: torch.Tensor) -> torch.Tensor:
+    """Trailing state axis from interleaved [x0, y0, x1, y1, ...] to split
+    [x0..x_{m-1}, y0..y_{m-1}]."""
+    s = a.shape
+    return a.reshape(s[:-1] + (-1, 2)).transpose(-1, -2).reshape(s)
+
+
+def _from_split(a: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`_to_split`."""
+    s = a.shape
+    return a.reshape(s[:-1] + (2, -1)).transpose(-1, -2).reshape(s)
+
+
+def _shift_tail_zero(a: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """Receding-horizon shift: drop entry 0 along ``dim``, zero-fill the
+    tail."""
+    tail = a.narrow(dim, 1, a.shape[dim] - 1)
+    return torch.cat([tail, torch.zeros_like(a.narrow(dim, 0, 1))], dim=dim)
+
+
+def _pick_candidates(J: torch.Tensor, cand: torch.Tensor, a_axis: int,
+                     n_batch_dims: int) -> torch.Tensor:
+    """First-wins argmin-J candidate per scenario. J (A, *bshape); ``cand``
+    has the A axis at ``a_axis`` and ``n_batch_dims`` trailing batch dims.
+    Non-finite costs count as +inf; the select is a chain of masked
+    ``where`` (a one-hot product would let 0 * NaN poison the winner)."""
+    J = torch.where(torch.isfinite(J), J, torch.full_like(J, float("inf")))
+    Jmin = J.min(dim=0).values
+    cand = torch.movedim(cand, a_axis, 0)
+    mshape = [1] * (cand.dim() - 1)
+    mshape[len(mshape) - n_batch_dims:] = J.shape[1:]
+    out = cand[0]
+    taken = J[0] == Jmin
+    for a in range(1, cand.shape[0]):
+        hit = (J[a] == Jmin) & ~taken
+        taken = taken | hit
+        out = torch.where(hit.reshape(mshape), cand[a], out)
+    return out
+
+
+def _adaptive_extra(carry, us: torch.Tensor, z: torch.Tensor,
+                    cfg: MPCConfig, run_extra):
+    """Adaptive-budget gate: when the batch-max primal residual after the
+    base iterations exceeds ``cfg.admm_tol``, return ``run_extra(carry)``,
+    else the carry unchanged. A host branch (one sync)."""
+    resid = (us - z).abs().max()
+    if resid.item() > cfg.admm_tol:
+        return run_extra(carry)
+    return carry
+
+
+class Scenario(NamedTuple):
+    """A batch of MPC problems (leading axis B)."""
+
+    p0: torch.Tensor        # (B, 2m) initial normalized feature coords
+    target: torch.Tensor    # (B, 2m) desired feature coords
+    depth: torch.Tensor     # (B, m) feature depths
+    us0: torch.Tensor       # (B, H, 6) warm-start control sequence
+    y0: torch.Tensor | None = None   # (B, H, 6) ADMM dual warm start
+
+
+class Solution(NamedTuple):
+    us: torch.Tensor        # (B, H, 6) projected, feasible controls
+    ps: torch.Tensor        # (B, H+1, 2m) predicted feature trajectory
+    cost: torch.Tensor      # (B,) final trajectory cost (unaugmented)
+    primal_residual: torch.Tensor   # (B,) max |us - z| over the horizon
+    dual: torch.Tensor | None = None  # (B, H, 6) final scaled duals
+
+
+class _SweepLanes:
+    """Lanes-layout machinery of the sweep backend for one pyramid: layout
+    converters, the edge linearization, the whole ADMM + iLQR solve and
+    the final cost."""
+
+    def __init__(self, pyramid, shape, cfg: MPCConfig):
+        self.pyramid = pyramid
+        self.shape = tuple(int(v) for v in shape)
+        self.cfg = cfg
+        self.m = cfg.num_features
+        self.qe = cfg.q_edge
+        self.kw = dict(m=self.m, q=cfg.q_track, r=cfg.r_ctrl, rho=cfg.rho,
+                       qe=self.qe, dt=cfg.dt)
+
+    # -- layout ------------------------------------------------------------
+
+    @staticmethod
+    def lanes(a: torch.Tensor, ndim: int) -> torch.Tensor:
+        """(B, *rest) -> (*rest, B), contiguous."""
+        return a.permute(tuple(range(1, ndim)) + (0,)).contiguous()
+
+    @staticmethod
+    def unlanes(a_l: torch.Tensor, lead_dims: int) -> torch.Tensor:
+        """(*lead, B) -> (B, *lead)."""
+        return a_l.permute((lead_dims,) + tuple(range(lead_dims))).contiguous()
+
+    @staticmethod
+    def lanes_scenario(scen: Scenario):
+        """Scenario -> (p0_l, target_l, izd_l, us_l) in split order."""
+        lanes = _SweepLanes.lanes
+        return (lanes(_to_split(scen.p0), 2), lanes(_to_split(scen.target), 2),
+                lanes(1.0 / scen.depth, 2), lanes(scen.us0, 3))
+
+    # -- edge term ----------------------------------------------------------
+
+    def edge_vals(self, ps_l: torch.Tensor) -> torch.Tensor:
+        """Pyramid edge cost along a lanes trajectory -> (h+1, B)."""
+        m = self.m
+        return costs.edge_cost_pyramid_xy(self.pyramid, ps_l[:, :m],
+                                          ps_l[:, m:], *self.shape)
+
+    def edge_grads(self, ps_l: torch.Tensor) -> torch.Tensor:
+        """Gradient of the summed edge cost along a lanes trajectory,
+        (h+1, n, B), by the analytic sampler."""
+        if not self.qe:
+            return torch.zeros_like(ps_l)
+        m = self.m
+        _, gx, gy = costs.edge_vg_pyramid_xy(self.pyramid, ps_l[:, :m],
+                                             ps_l[:, m:], *self.shape)
+        return torch.cat([gx, gy], dim=1)
+
+    # -- solve ---------------------------------------------------------------
+
+    def rollout(self, p0_l, us_l, izd_l) -> torch.Tensor:
+        """Trajectory (h+1, n, B) of ``us_l`` from ``p0_l``."""
+        ps = [p0_l]
+        for t in range(us_l.shape[0]):
+            ps.append(sweep._dyn_step(ps[-1], us_l[t], izd_l, self.cfg.dt,
+                                      self.m))
+        return torch.stack(ps, dim=0)
+
+    def solve(self, p0_l, target_l, izd_l, us_l, y0_l=None):
+        """Full ADMM + iLQR solve in lanes layout.
+
+        ``y0_l``: optional warm-start scaled duals (h, c, B); None = zeros.
+        Returns ``(z_l, ps_final_l, resid_l, y_l)``: the feasible controls
+        (h, c, B), their rollout (h+1, n, B), the per-scenario primal
+        residual (B,) and the final scaled duals (h, c, B)."""
+        cfg, kw = self.cfg, self.kw
+
+        def admm_body(carry):
+            us_l, ps_l, z_l, y_l, g_solve = carry
+            g_fix = (self.edge_grads(ps_l) if cfg.edge_refresh == "admm"
+                     else g_solve)
+            ps_l, us_l = sweep.multi_sweep(p0_l, ps_l, us_l, z_l, y_l, g_fix,
+                                           target_l, izd_l,
+                                           sweeps=cfg.ilqr_iters, **kw)
+            uh_l = (us_l if cfg.admm_relax == 1.0
+                    else cfg.admm_relax * us_l + (1.0 - cfg.admm_relax) * z_l)
+            z_l = torch.clamp(uh_l + y_l, -cfg.u_limit, cfg.u_limit)
+            y_l = y_l + uh_l - z_l
+            return us_l, ps_l, z_l, y_l, g_solve
+
+        def run(carry, iters):
+            for _ in range(iters):
+                carry = admm_body(carry)
+            return carry
+
+        z0 = torch.clamp(us_l, -cfg.u_limit, cfg.u_limit)
+        y0 = y0_l if y0_l is not None else torch.zeros_like(us_l)
+        ps_l = self.rollout(p0_l, us_l, izd_l)
+        g_solve0 = (self.edge_grads(ps_l) if cfg.edge_refresh == "solve"
+                    else None)
+        carry = run((us_l, ps_l, z0, y0, g_solve0), cfg.admm_iters)
+        if cfg.admm_iters_extra:
+            carry = _adaptive_extra(
+                carry, carry[0], carry[2], cfg,
+                lambda c: run(c, cfg.admm_iters_extra))
+        us_l, ps_l, z_l, y_l, _ = carry
+        ps_final_l = self.rollout(p0_l, z_l, izd_l)
+        resid_l = (us_l - z_l).abs().amax(dim=(0, 1))
+        return z_l, ps_final_l, resid_l, y_l
+
+    def final_cost(self, z_l, ps_final_l, target_l) -> torch.Tensor:
+        """Unaugmented trajectory cost per scenario -> (B,)."""
+        cfg = self.cfg
+        track = cfg.q_track * ((ps_final_l - target_l[None]) ** 2).sum(dim=(0, 1))
+        ctrl = cfg.r_ctrl * (z_l ** 2).sum(dim=(0, 1))
+        if self.qe:
+            edge = self.qe * self.edge_vals(ps_final_l).sum(dim=0)
+        else:
+            edge = torch.zeros_like(track)
+        return track + ctrl + edge
+
+
+def _solve_batch_sweep(pyramid, shape, scen: Scenario,
+                       cfg: MPCConfig) -> Solution:
+    """Interleaved-API wrapper around :meth:`_SweepLanes.solve`."""
+    sw = _SweepLanes(pyramid, shape, cfg)
+    p0_l, target_l, izd_l, us_l = sw.lanes_scenario(scen)
+    y0_l = sw.lanes(scen.y0, 3) if scen.y0 is not None else None
+    z_l, ps_final_l, resid_l, y_l = sw.solve(p0_l, target_l, izd_l, us_l,
+                                             y0_l)
+    return Solution(
+        us=sw.unlanes(z_l, 2),
+        ps=_from_split(sw.unlanes(ps_final_l, 2)),
+        cost=sw.final_cost(z_l, ps_final_l, target_l),
+        primal_residual=resid_l,
+        dual=sw.unlanes(y_l, 2) if y0_l is not None else None,
+    )
+
+
+class VisualServoMPC:
+    """Batched visual-servo MPC over Sobel edge-feature maps.
+
+    Holds no parameters: ``cfg`` fixes the problem and the solver budget,
+    ``device`` is where scenarios are made and where every input must
+    lie. On a CUDA device the perception and sweep kernels run; on the
+    CPU their plain PyTorch versions do."""
+
+    def __init__(self, cfg: MPCConfig | None = None, device="cpu"):
+        self.cfg = cfg or MPCConfig()
+        self.device = torch.device(device)
+
+    def _check(self, *tensors):
+        for t in tensors:
+            if t is not None and t.device.type != self.device.type:
+                raise ValueError(f"input on {t.device}, solver on "
+                                 f"{self.device}")
+
+    # -- scenario construction -------------------------------------------
+
+    def random_scenarios(self, n: int,
+                         generator: torch.Generator | None = None) -> Scenario:
+        """A batch of n scenarios (features in the central image), drawn on
+        the CPU from ``generator`` and moved to the solver's device, so a
+        seed gives the same scenarios on every device."""
+        cfg = self.cfg
+        m = cfg.num_features
+
+        def uniform(shape, lo, hi):
+            u = torch.rand(shape, generator=generator, dtype=torch.float32)
+            return (lo + (hi - lo) * u).to(self.device)
+
+        return Scenario(
+            p0=uniform((n, 2 * m), -0.6, 0.6),
+            target=uniform((n, 2 * m), -0.5, 0.5),
+            depth=uniform((n, m), 1.0, 5.0),
+            us0=torch.zeros((n, cfg.horizon, CONTROL_DIM),
+                            dtype=torch.float32, device=self.device))
+
+    # -- solving ----------------------------------------------------------
+
+    @torch.no_grad()
+    def solve_batch(self, edge_map: torch.Tensor, scen: Scenario) -> Solution:
+        """edge_map (H, W) f32 and a scenario batch -> Solution batch; the
+        cost pyramid is built once and shared by the batch."""
+        self._check(edge_map, *scen)
+        pyramid = costs.build_cost_pyramid(edge_map)
+        return _solve_batch_sweep(pyramid, edge_map.shape, scen, self.cfg)
+
+    @torch.no_grad()
+    def control_step(self, frame: torch.Tensor, scen: Scenario):
+        """Planar (C, H, W) u8 frame -> (u0 (B, 6), Solution): perception
+        kernel, pyramid, batched solve."""
+        self._check(frame, *scen)
+        pyramid = costs.build_cost_pyramid_from_frame(frame)
+        sol = _solve_batch_sweep(pyramid, frame.shape[1:], scen, self.cfg)
+        return sol.us[:, 0], sol
+
+    def _receding_lanes(self, pyramid_at, shape, scen: Scenario,
+                        n_steps: int):
+        """Receding-horizon loop with the scenario state kept in lanes
+        layout across steps. ``pyramid_at(step)`` gives each step's cost
+        pyramid. Returns ``(u0s (T, B, c), costs (T, B), scen')``."""
+        cfg = self.cfg
+        lanes, unlanes = _SweepLanes.lanes, _SweepLanes.unlanes
+        dual_carry = cfg.dual_warm_start or scen.y0 is not None
+        p0_l, target_l, izd_l, us_l = _SweepLanes.lanes_scenario(scen)
+        y_l = (None if not dual_carry
+               else lanes(scen.y0, 3) if scen.y0 is not None
+               else torch.zeros_like(us_l))
+        u0s, cost_seq = [], []
+        for idx in range(n_steps):
+            sw = _SweepLanes(pyramid_at(idx), shape, cfg)
+            z_l, ps_final_l, _, y_out = sw.solve(p0_l, target_l, izd_l,
+                                                 us_l, y_l)
+            cost_seq.append(sw.final_cost(z_l, ps_final_l, target_l))
+            u0_l = z_l[0]                               # (c, B)
+            u0s.append(u0_l)
+            p0_l = sweep._dyn_step(p0_l, u0_l, izd_l, cfg.dt, sw.m)
+            us_l = _shift_tail_zero(z_l, 0)
+            y_l = (cfg.dual_decay * _shift_tail_zero(y_out, 0)
+                   if dual_carry else None)
+        scen_out = scen._replace(
+            p0=_from_split(unlanes(p0_l, 1)),
+            us0=unlanes(us_l, 2),
+            y0=unlanes(y_l, 2) if y_l is not None else scen.y0)
+        return (torch.stack(u0s).permute(0, 2, 1).contiguous(),
+                torch.stack(cost_seq), scen_out)
+
+    @torch.no_grad()
+    def receding_horizon(self, frame: torch.Tensor, scen: Scenario,
+                         n_frames: int):
+        """Closed receding-horizon loop on one fixed frame: the pyramid is
+        built once, then ``n_frames`` warm-started solves, each applying
+        its first control to the true dynamics."""
+        self._check(frame, *scen)
+        pyramid = costs.build_cost_pyramid_from_frame(frame)
+        return self._receding_lanes(lambda i: pyramid, frame.shape[1:], scen,
+                                    n_frames)
+
+    @torch.no_grad()
+    def receding_horizon_frames(self, frames: torch.Tensor, scen: Scenario,
+                                n_steps: int):
+        """Closed receding-horizon loop over a ring of frames (F, C, H, W)
+        u8: step t runs perception on frame ``t mod F``, builds the
+        pyramid, solves, applies the first control to the true dynamics,
+        and shifts the plan and the decayed duals.
+
+        Returns ``(u0s (n_steps, B, c), costs (n_steps, B), scen')``."""
+        self._check(frames, *scen)
+        n_ring = frames.shape[0]
+        return self._receding_lanes(
+            lambda i: costs.build_cost_pyramid_from_frame(frames[i % n_ring]),
+            frames.shape[2:], scen, n_steps)

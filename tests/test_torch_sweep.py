@@ -1,0 +1,160 @@
+"""Sweep helpers and the multi-sweep wrapper of the PyTorch port against
+the JAX package's Pallas sweep code (interpret mode). On CPU tensors the
+wrapper runs its plain version. Float32 throughout; the two frameworks
+order some sums differently, so results are held to rtol 1e-5."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from openmp_parallel_computing_tpu.models.mpc import dynamics as jax_dyn
+from openmp_parallel_computing_tpu.models.mpc import riccati_pallas as jax_rp
+from openmp_parallel_computing_tpu.models.mpc import sweep_pallas as jax_sp
+from openmp_parallel_computing_tpu_torch.models.mpc import (
+    dynamics,
+    riccati_lanes,
+    sweep,
+)
+
+torch.set_num_threads(2)
+
+RTOL, ATOL = 1e-5, 1e-6
+KW = dict(q=1.0, r=1e-2, rho=0.1, qe=0.1, dt=1.0 / 30.0)
+
+
+def _close(got, ref):
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=RTOL,
+                               atol=ATOL)
+
+
+def _inputs(m, H, B, seed):
+    """Solver-shaped multi_sweep inputs in split lanes layout: a real
+    nominal rollout of random controls, a random edge gradient."""
+    rng = np.random.default_rng(seed)
+    n, c = 2 * m, sweep.CONTROL_DIM
+    f = lambda *s, lo=-1.0, hi=1.0: rng.uniform(lo, hi, s).astype(np.float32)
+    p0 = f(n, B, lo=-0.6, hi=0.6)
+    target = f(n, B, lo=-0.5, hi=0.5)
+    izd = 1.0 / f(m, B, lo=1.0, hi=5.0)
+    us = f(H, c, B, lo=-0.5, hi=0.5)
+    ps = [p0]
+    for t in range(H):
+        ps.append(np.asarray(jax_sp._dyn_step(jnp.asarray(ps[-1]),
+                                              jnp.asarray(us[t]),
+                                              jnp.asarray(izd), KW["dt"], m)))
+    ps = np.stack(ps).astype(np.float32)
+    z = np.clip(us + f(H, c, B, lo=-0.1, hi=0.1), -1.0, 1.0)
+    y = f(H, c, B, lo=-0.05, hi=0.05)
+    g = f(H + 1, n, B, lo=-0.01, hi=0.01)
+    return p0, ps, us, z, y, g, target, izd.astype(np.float32)
+
+
+def test_spd_solve_lanes_matches_jax():
+    rng = np.random.default_rng(0)
+    n, k, B = 6, 17, 128
+    M = rng.normal(size=(B, n, n)).astype(np.float32)
+    A = np.einsum("bij,bkj->ikb", M, M) + 3.0 * np.eye(n, dtype=np.float32)[..., None]
+    rhs = rng.normal(size=(n, k, B)).astype(np.float32)
+    got = riccati_lanes._spd_solve_lanes(torch.from_numpy(A),
+                                         torch.from_numpy(rhs), n)
+    ref = jax_rp._spd_solve_lanes(jnp.asarray(A), jnp.asarray(rhs), n)
+    _close(got, ref)
+    # and it solves the system
+    np.testing.assert_allclose(np.einsum("ijb,jkb->ikb", A, got.numpy()), rhs,
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("m", [2, 4])
+def test_backward_step_matches_jax(m):
+    p0, ps, us, z, y, g, target, izd = _inputs(m, 3, 128, seed=m)
+    n = 2 * m
+    rng = np.random.default_rng(10 + m)
+    Vx = rng.normal(size=(n, 128)).astype(np.float32)
+    S = rng.normal(size=(n, n, 128)).astype(np.float32) * 0.1
+    Vxx = np.einsum("ijb,kjb->ikb", S, S) + np.eye(n, dtype=np.float32)[..., None]
+    args = (ps[1], us[1], z[1], y[1], g[1], izd, target, Vx, Vxx)
+    got = sweep._backward_step(*map(torch.from_numpy, args), m=m, **KW)
+    ref = jax_sp._backward_step(
+        *map(jnp.asarray, args), m=m, reg=1e-6,
+        eye_fn=lambda k: jnp.eye(k, dtype=jnp.float32)[..., None], **KW)
+    for a, b in zip(got, ref):
+        _close(a, b)
+
+
+def test_dyn_step_and_fu_match_jax():
+    p0, ps, us, *_, izd = _inputs(4, 2, 128, seed=9)
+    t = torch.from_numpy
+    _close(sweep._dyn_step(t(ps[1]), t(us[1]), t(izd), KW["dt"], 4),
+           jax_sp._dyn_step(jnp.asarray(ps[1]), jnp.asarray(us[1]),
+                            jnp.asarray(izd), KW["dt"], 4))
+    _close(sweep._build_fu(t(ps[1]), t(izd), KW["dt"], 4),
+           jax_sp._build_fu(jnp.asarray(ps[1]), jnp.asarray(izd), KW["dt"], 4))
+
+
+def test_dynamics_match_jax_and_the_split_step():
+    """Interleaved ``dynamics.step``/``rollout`` against JAX, and against
+    the kernels' split-layout ``_dyn_step`` (the same model)."""
+    rng = np.random.default_rng(4)
+    m, H, B = 3, 6, 5
+    p0 = rng.uniform(-0.9, 0.9, (B, 2 * m)).astype(np.float32)
+    us = rng.uniform(-3.0, 3.0, (B, H, 6)).astype(np.float32)  # hits the clip
+    depth = rng.uniform(1.0, 5.0, (B, m)).astype(np.float32)
+    dt = KW["dt"]
+    got = dynamics.rollout(torch.from_numpy(p0), torch.from_numpy(us),
+                           torch.from_numpy(depth), dt)
+    ref = np.stack([np.asarray(jax_dyn.rollout(jnp.asarray(p0[b]),
+                                               jnp.asarray(us[b]),
+                                               jnp.asarray(depth[b]), dt))
+                    for b in range(B)])
+    _close(got, ref)
+    assert got.abs().max() <= dynamics.STATE_LIMIT
+    split = torch.from_numpy(p0).reshape(B, m, 2).transpose(1, 2)
+    split = split.reshape(B, 2 * m).T.contiguous()           # (n, B)
+    nxt = sweep._dyn_step(split, torch.from_numpy(us[:, 0]).T.contiguous(),
+                          1.0 / torch.from_numpy(depth).T, dt, m)
+    inter = nxt.T.reshape(B, 2, m).transpose(1, 2).reshape(B, 2 * m)
+    _close(inter, got[:, 1].numpy())
+
+
+@pytest.mark.parametrize("sweeps", [1, 2])
+def test_multi_sweep_matches_jax_kernel(sweeps):
+    m, H, B = 2, 5, 128
+    arrs = _inputs(m, H, B, seed=20 + sweeps)
+    got = sweep.multi_sweep(*map(torch.from_numpy, arrs), m=m,
+                            sweeps=sweeps, **KW)
+    ref = jax_sp.multi_sweep(*map(jnp.asarray, arrs), m=m, sweeps=sweeps,
+                             **KW)
+    for a, b in zip(got, ref):
+        _close(a, b)
+    np.testing.assert_array_equal(got[0][0].numpy(), arrs[0])   # row 0 = p0
+
+
+def test_select_winner_ignores_nan_losers():
+    J = torch.tensor([[1.0, 5.0], [float("nan"), 2.0], [0.5, 2.0],
+                      [float("inf"), 3.0]])
+    ps_nom = torch.zeros((3, 4, 2))
+    us_nom = torch.zeros((3, 6, 2))
+    pc = torch.stack([torch.full((3, 4, 2), float("nan")),
+                      torch.full((3, 4, 2), 2.0),
+                      torch.full((3, 4, 2), 3.0)])
+    uc = pc[:, :, :1].expand(3, 3, 6, 2)
+    ps_w, us_w = sweep._select_winner(J, ps_nom, us_nom, pc, uc)
+    # scenario 0: candidate 2 wins (NaN candidate 1 is +inf);
+    # scenario 1: tie between 1 and 2 -> first wins (candidate 1)
+    assert torch.equal(ps_w[..., 0], torch.full((3, 4), 2.0))
+    assert torch.isnan(ps_w[..., 1]).all()
+    assert torch.equal(us_w[..., 0], torch.full((3, 6), 2.0))
+
+
+def test_multi_sweep_wrapper_checks_inputs():
+    arrs = list(map(torch.from_numpy, _inputs(2, 3, 8, seed=1)))
+    before = sweep.multi_sweep.launches
+    with pytest.raises(ValueError, match="shape"):
+        sweep.multi_sweep(*arrs, m=4, sweeps=1, **KW)
+    bad = list(arrs)
+    bad[2] = bad[2].double()
+    with pytest.raises(TypeError):
+        sweep.multi_sweep(*bad, m=2, sweeps=1, **KW)
+    sweep.multi_sweep(*arrs, m=2, sweeps=1, **KW)
+    assert sweep.multi_sweep.launches == before

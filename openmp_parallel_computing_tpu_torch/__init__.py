@@ -1,18 +1,24 @@
 """PyTorch + CUDA port of ``openmp_parallel_computing_tpu``.
 
-The closed-loop visual-servo MPC step on the ``"sweep"`` backend: the
-fused perception kernel (``csrc/edge_pyramid.cu``), the analytic edge
-linearization, and the multi-sweep iLQR kernel (``csrc/multi_sweep.cu``).
-Kernels are compiled with nvcc at first use (``_build``); on CPU tensors
-every kernel wrapper runs its plain PyTorch version instead. This package
-imports neither JAX nor the JAX package.
+Two paths: the closed-loop visual-servo MPC step on the ``"sweep"``
+backend (the fused perception kernel ``csrc/edge_pyramid.cu``, the
+analytic edge linearization, the multi-sweep iLQR kernel
+``csrc/multi_sweep.cu``), and the image-kernel entry point (the CLI and
+kernel registry over ``csrc/grayscale.cu``, ``csrc/stencil.cu`` and
+``csrc/conv3x3.cu``). Kernels are compiled with nvcc at first use
+(``_build``); on CPU tensors every kernel wrapper runs its plain PyTorch
+version instead. This package imports neither JAX nor the JAX package.
 
 Layout:
+    cli.py, __main__.py    <in> <out.png> [passes] --kernel ... on the card
     utils/config.py        MPCConfig
     data/                  fixture paths (the JAX package's PNG files)
-    imgio.py               zlib + numpy PNG decoder
-    ops/xla_ref.py         plain luma / Sobel
-    ops/pipeline.py        edge_pyramid_base (kernel 1)
+    imgio.py               zlib + numpy PNG decoder and encoder
+    ops/xla_ref.py         plain luma, grayscale, Sobel, edge, conv3x3
+    ops/grayscale.py, sobel.py, pipeline.py, conv.py
+                           kernel wrappers + plain versions
+    ops/runner.py          kernel registry, make_runner
+    models/vision/         EdgeBatchRunner
     models/mpc/            dynamics, costs, riccati_lanes, sweep (kernel 2),
                            solver (VisualServoMPC)
     convert.py             JAX-package state -> port state

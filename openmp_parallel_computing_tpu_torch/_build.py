@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its
 own into ``build/torch_kernels/lib<name>-<hash>.so`` (the hash is of the
-source, so an edited kernel rebuilds and a cached one is reused). The
+source, of every ``csrc`` header it includes and of the flags, so an
+edited kernel or header rebuilds and a cached one is reused). The
 build happens at first use, never at import. Flags: ``sm_90a``, ``-O3``,
 no fast math (the Sobel's floor(sqrt) must be exact), and ``-Xptxas -v``
 so the register and spill report of every kernel is kept in
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -40,10 +42,29 @@ def nvcc_path() -> str:
     return str(cand)
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def _sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and every header it includes with quotes,
+    directly or through another header, in a fixed order."""
+    found: list[Path] = []
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        todo += [path.parent / inc.decode()
+                 for inc in _INCLUDE.findall(path.read_bytes())]
+    return found
+
+
 def _target(name: str) -> tuple[Path, Path]:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-                            ).hexdigest()[:12]
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    digest = h.hexdigest()[:12]
     stem = BUILD_DIR / f"lib{name}-{digest}"
     return stem.with_suffix(".so"), stem.with_suffix(".log")
 
@@ -104,3 +125,24 @@ def load(name: str) -> ctypes.CDLL:
         if name not in _libs:
             _libs[name] = ctypes.CDLL(str(_target(name)[0]))
         return _libs[name]
+
+
+def function(name: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
+    """The C entry point ``symbol`` of ``csrc/<name>.cu`` (built at first
+    use), with its argument types set; it returns a ``cudaError_t``."""
+    fn = getattr(load(name), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def launch(fn: ctypes._CFuncPtr, what: str, tensor, *args) -> None:
+    """Call ``fn(*args, stream)`` on ``tensor``'s card and its current
+    stream; raise if the launch returned a CUDA error."""
+    import torch
+
+    with torch.cuda.device(tensor.device):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")

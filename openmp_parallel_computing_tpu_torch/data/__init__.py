@@ -20,6 +20,16 @@ def frame_path() -> Path:
     return _DATA / "frame_1080p.png"
 
 
+def half_mega_path() -> Path:
+    """The 2037x1362 blur-benchmark photo (RGB PNG)."""
+    return _DATA / "photo_half_mega.png"
+
+
+def six_mp_path() -> Path:
+    """The 2000x3000 size-scaling photo (RGB PNG)."""
+    return _DATA / "photo_6mp.png"
+
+
 def load_frame_hwc() -> np.ndarray:
     """Decode the canonical benchmark frame to an (H, W, C) u8 array."""
     from openmp_parallel_computing_tpu_torch import imgio

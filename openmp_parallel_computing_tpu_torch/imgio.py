@@ -1,11 +1,15 @@
-"""PNG decoding with the standard library's zlib and numpy.
+"""PNG decoding and encoding with the standard library's zlib and numpy.
 
-The port decodes its fixtures without Pillow or a native codec: 8-bit
-RGB and RGBA, non-interlaced, all five row filters (PNG spec §9). The
-filters Average and Paeth are a non-linear recurrence along the row, so
-they run as a plain Python loop over the row's bytes; Sub is a running
-sum and Up an elementwise add, both done in numpy. A 1080p frame decodes
-in a few seconds.
+The port reads its fixtures without Pillow or a native codec: 8-bit,
+non-interlaced grey, grey+alpha, RGB and RGBA (colour types 0, 4, 2, 6),
+all five row filters (PNG spec §9), decoded to ``(H, W, 1|2|3|4)`` as the
+JAX package's loader returns them. The filters Average and Paeth are a
+non-linear recurrence along the row, so they run as a plain Python loop
+over the row's bytes; Sub is a running sum and Up an elementwise add, both
+done in numpy. A 1080p frame decodes in a few seconds.
+
+``save_png`` writes every row with filter 0 (None), so the port's own
+outputs decode at the speed of zlib.
 """
 
 from __future__ import annotations
@@ -17,7 +21,8 @@ import zlib
 import numpy as np
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_CHANNELS = {2: 3, 6: 4}          # colour type -> samples per pixel
+_CHANNELS = {0: 1, 4: 2, 2: 3, 6: 4}          # colour type -> samples per pixel
+_COLOUR = {c: t for t, c in _CHANNELS.items()}
 
 
 def _unfilter_row(ftype: int, line: bytes, prev: bytes, bpp: int) -> bytes:
@@ -62,8 +67,9 @@ def _unfilter_row(ftype: int, line: bytes, prev: bytes, bpp: int) -> bytes:
 
 
 def load(path: str | os.PathLike) -> np.ndarray:
-    """Decode an 8-bit RGB or RGBA PNG to an interleaved (H, W, C) u8
-    array. Raises ``ValueError`` on any other kind of PNG."""
+    """Decode an 8-bit grey, grey+alpha, RGB or RGBA PNG to an interleaved
+    (H, W, C) u8 array, C = 1, 2, 3 or 4. Raises ``ValueError`` on any
+    other kind of PNG (palette, 16-bit, interlaced) and on other files."""
     with open(path, "rb") as f:
         raw = f.read()
     if raw[:8] != _SIGNATURE:
@@ -87,8 +93,9 @@ def load(path: str | os.PathLike) -> np.ndarray:
     width, height, depth, colour, _comp, _filt, interlace = header
     if depth != 8 or colour not in _CHANNELS or interlace != 0:
         raise ValueError(
-            f"{path}: only 8-bit non-interlaced RGB/RGBA PNGs are supported "
-            f"(depth={depth}, colour type={colour}, interlace={interlace})")
+            f"{path}: only 8-bit non-interlaced grey/grey+alpha/RGB/RGBA "
+            f"PNGs are supported (depth={depth}, colour type={colour}, "
+            f"interlace={interlace})")
     c = _CHANNELS[colour]
     stride = width * c
     data = zlib.decompress(b"".join(idat))
@@ -102,3 +109,29 @@ def load(path: str | os.PathLike) -> np.ndarray:
                              prev, c)
         rows.append(prev)
     return np.frombuffer(b"".join(rows), np.uint8).reshape(height, width, c)
+
+
+def save_png(path: str | os.PathLike, img: np.ndarray) -> None:
+    """Encode an interleaved (H, W) or (H, W, C) u8 array, C in {1, 2, 3,
+    4}, as an 8-bit PNG of colour type 0, 4, 2 or 6."""
+    img = np.asarray(img)
+    if img.ndim == 2:
+        img = img[..., None]
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] not in _COLOUR:
+        raise ValueError(f"expected an (H, W) or (H, W, 1|2|3|4) uint8 "
+                         f"array, got {img.dtype} {img.shape}")
+    h, w, c = img.shape
+    rows = np.zeros((h, 1 + w * c), np.uint8)       # filter byte 0 per row
+    rows[:, 1:] = img.reshape(h, w * c)
+
+    def chunk(tag: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + tag + body
+                + struct.pack(">I", zlib.crc32(tag + body) & 0xFFFFFFFF))
+
+    png = (_SIGNATURE
+           + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, _COLOUR[c],
+                                        0, 0, 0))
+           + chunk(b"IDAT", zlib.compress(rows.tobytes()))
+           + chunk(b"IEND", b""))
+    with open(path, "wb") as f:
+        f.write(png)

@@ -1,0 +1,57 @@
+"""What the image-kernel wrappers share: input checks, the choice between
+the kernel and its plain version, and the ping-pong of repeated passes."""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+
+def on_card(t: torch.Tensor) -> bool:
+    """True for a CUDA tensor (the kernel runs), False for a CPU tensor
+    (the plain version runs); raises for any other device, and for a
+    CUDA tensor the kernel cannot take as it is laid out."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"unsupported device {t.device}")
+    if not t.is_contiguous():
+        raise ValueError("tensor must be contiguous")
+    return True
+
+
+def check_image(img: torch.Tensor, dims: int, channels=None,
+                dtypes=(torch.uint8,)) -> None:
+    """Raise unless ``img`` has ``dims`` dims (planar (C, H, W) for 3,
+    an (H, W) plane for 2), C in ``channels`` when given, a dtype in
+    ``dtypes`` and no empty plane."""
+    if img.dim() != dims or (channels and img.shape[0] not in channels):
+        raise ValueError(f"expected {dims} dims"
+                         + (f", C in {channels}" if channels else "")
+                         + f"; got shape {tuple(img.shape)}")
+    if img.dtype not in dtypes:
+        raise TypeError(f"expected one of {dtypes}, got {img.dtype}")
+    if img.shape[-1] < 1 or img.shape[-2] < 1:
+        raise ValueError(f"empty image {tuple(img.shape)}")
+
+
+def check_passes(passes: int) -> None:
+    if passes < 1:
+        raise ValueError(f"passes must be >= 1, got {passes}")
+
+
+def ping_pong(x: torch.Tensor, passes: int,
+              one: Callable[[torch.Tensor, torch.Tensor], None],
+              new: Callable[[], torch.Tensor]) -> torch.Tensor:
+    """Run a one-pass kernel ``one(src, dst)`` ``passes`` times, each pass
+    reading the previous one's output, between two buffers made by
+    ``new``. A stencil pass cannot run in place, and ``x`` is never
+    written."""
+    bufs = [new(), new() if passes > 1 else None]
+    src = x
+    for i in range(passes):
+        dst = bufs[i % 2]
+        one(src, dst)
+        src = dst
+    return src

@@ -1,0 +1,49 @@
+"""Grayscale: fixed-point BT.601 luma to R, G and B, alpha kept.
+
+``grayscale`` is the port of ``openmp_parallel_computing_tpu.ops.grayscale.
+grayscale``: on a CUDA tensor it launches ``csrc/grayscale.cu`` once per
+pass, the first pass into a new tensor and the others in place on it (a
+thread reads only the pixel it writes); on a CPU tensor it runs
+``grayscale_plain``. The two are bit-exact.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from openmp_parallel_computing_tpu_torch import _build
+from openmp_parallel_computing_tpu_torch.ops import _wrap, xla_ref
+
+
+def grayscale_plain(img: torch.Tensor, passes: int = 1) -> torch.Tensor:
+    """Plain version: ``xla_ref.grayscale`` applied ``passes`` times."""
+    for _ in range(passes):
+        img = xla_ref.grayscale(img)
+    return img
+
+
+def grayscale(img: torch.Tensor, passes: int = 1) -> torch.Tensor:
+    """Planar (C, H, W) u8, C in {3, 4} -> the same shape, luma in R, G
+    and B, alpha kept; ``passes`` repeats the kernel (the reference
+    drivers' repeat loop). The input is never modified."""
+    _wrap.check_image(img, 3, channels=(3, 4))
+    _wrap.check_passes(passes)
+    if not _wrap.on_card(img):
+        return grayscale_plain(img, passes)
+    c, h, w = img.shape
+    fn = _build.function("grayscale", "grayscale_launch",
+                         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    out = torch.empty_like(img)
+    src = img
+    for _ in range(passes):
+        _build.launch(fn, "grayscale", img, src.data_ptr(), out.data_ptr(),
+                      c, h, w)
+        grayscale.launches += 1
+        src = out
+    return out
+
+
+grayscale.launches = 0

@@ -1,9 +1,15 @@
-"""Fused perception front-end: frame -> pooled Sobel edge level.
+"""Fused perception kernels: frame -> luma -> Sobel, in one pass.
 
-``edge_pyramid_base`` is the port of ``openmp_parallel_computing_tpu.ops.
-pipeline.edge_pyramid_base``: on a CUDA tensor it launches the hand-written
-kernel ``csrc/edge_pyramid.cu``; on a CPU tensor it runs the plain
-PyTorch version ``edge_pyramid_base_plain``. The two are bit-exact.
+Ports of ``openmp_parallel_computing_tpu.ops.pipeline``:
+
+- ``edge_pipeline``: the Sobel edge of the luma broadcast to R, G and B,
+  alpha kept (``sobel.stencil_mag`` behind ``_edge_kernel``), on a CUDA
+  tensor ``edge_kernel`` of ``csrc/stencil.cu``.
+- ``edge_pyramid_base``: s x s block means of that edge plane, on a CUDA
+  tensor ``csrc/edge_pyramid.cu``.
+
+On a CPU tensor each runs its plain PyTorch version (``*_plain``). Each
+kernel is bit-exact with its plain version.
 """
 
 from __future__ import annotations
@@ -13,7 +19,7 @@ import ctypes
 import torch
 
 from openmp_parallel_computing_tpu_torch import _build
-from openmp_parallel_computing_tpu_torch.ops import xla_ref
+from openmp_parallel_computing_tpu_torch.ops import _wrap, xla_ref
 
 
 def edge_pyramid_base_plain(img: torch.Tensor, s: int = 16) -> torch.Tensor:
@@ -27,43 +33,61 @@ def edge_pyramid_base_plain(img: torch.Tensor, s: int = 16) -> torch.Tensor:
     return sums / float(s * s)
 
 
-def _lib():
-    lib = _build.load("edge_pyramid")
-    fn = lib.edge_pyramid_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
-
-
 def edge_pyramid_base(img: torch.Tensor, s: int = 16) -> torch.Tensor:
     """Planar (C, H, W) u8 frame, C in {3, 4} -> (ceil(H/s), ceil(W/s))
     float32 block means of the u8 Sobel edge map of its luma."""
-    if img.dim() != 3 or img.shape[0] not in (3, 4):
-        raise ValueError(f"expected a planar (3|4, H, W) frame, got "
-                         f"{tuple(img.shape)}")
-    if img.dtype != torch.uint8:
-        raise TypeError(f"expected uint8, got {img.dtype}")
-    if img.device.type == "cpu":
+    _wrap.check_image(img, 3, channels=(3, 4))
+    if not _wrap.on_card(img):
         return edge_pyramid_base_plain(img, s)
-    if img.device.type != "cuda":
-        raise ValueError(f"unsupported device {img.device}")
-    if not img.is_contiguous():
-        raise ValueError("frame must be contiguous")
     if s < 1 or s > 64 or 128 % s:
         raise ValueError(f"pool scale {s} must divide 128 and be <= 64")
     _, h, w = img.shape
     out = torch.empty((-(-h // s), -(-w // s)), dtype=torch.float32,
                       device=img.device)
-    fn = _lib()
-    with torch.cuda.device(img.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(img.data_ptr(), out.data_ptr(), h, w, s, stream)
-    if err:
-        raise RuntimeError(f"edge_pyramid kernel launch failed: CUDA error {err}")
+    fn = _build.function("edge_pyramid", "edge_pyramid_launch",
+                         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    _build.launch(fn, "edge_pyramid", img, img.data_ptr(), out.data_ptr(),
+                  h, w, s)
     edge_pyramid_base.launches += 1
     return out
 
 
 edge_pyramid_base.launches = 0
+
+
+def edge_pipeline_plain(img: torch.Tensor, border: str = "zero",
+                        passes: int = 1) -> torch.Tensor:
+    """Plain version: ``xla_ref.edge_pipeline`` applied ``passes`` times."""
+    for _ in range(passes):
+        img = xla_ref.edge_pipeline(img, border)
+    return img
+
+
+def edge_pipeline(img: torch.Tensor, border: str = "zero",
+                  passes: int = 1) -> torch.Tensor:
+    """Planar (C, H, W) u8, C in {3, 4} -> the same shape: the Sobel edge
+    of the luma plane in R, G and B, alpha kept. ``border`` as in
+    ``ops.sobel``; with ``border="none"`` every pass sees zero
+    out-of-plane neighbours, so ``passes=n`` equals n chained calls.
+    The input is never modified."""
+    _wrap.check_image(img, 3, channels=(3, 4))
+    _wrap.check_passes(passes)
+    xla_ref.check_border(border)
+    if not _wrap.on_card(img):
+        return edge_pipeline_plain(img, border, passes)
+    c, h, w = img.shape
+    fn = _build.function("stencil", "edge_launch",
+                         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_void_p])
+
+    def one(src: torch.Tensor, dst: torch.Tensor) -> None:
+        _build.launch(fn, "edge", img, src.data_ptr(), dst.data_ptr(), c, h,
+                      w, int(border == "zero"))
+        edge_pipeline.launches += 1
+
+    return _wrap.ping_pong(img, passes, one, lambda: torch.empty_like(img))
+
+
+edge_pipeline.launches = 0

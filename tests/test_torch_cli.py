@@ -1,0 +1,195 @@
+"""The port's image entry point against the JAX package: the kernel
+registry, the CLI, the batch runner and the PNG codec."""
+
+import re
+import struct
+import zlib
+
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+from openmp_parallel_computing_tpu import cli as jax_cli
+from openmp_parallel_computing_tpu import imgio as jax_imgio
+from openmp_parallel_computing_tpu.models.vision import (
+    EdgeBatchRunner as JaxEdgeBatchRunner,
+)
+from openmp_parallel_computing_tpu_torch import cli, imgio, ops
+from openmp_parallel_computing_tpu_torch.models.vision import EdgeBatchRunner
+
+torch.set_num_threads(2)
+
+BUILTINS = ("grayscale", "edge", "blur")
+REPORT = re.compile(r"^(.*) ×(\d+): (\d+\.\d{4}) s$")
+
+
+@pytest.fixture()
+def png(tmp_path):
+    rng = np.random.default_rng(9)
+    img = rng.integers(0, 256, size=(40, 136, 3), dtype=np.uint8)
+    p = tmp_path / "in.png"
+    imgio.save_png(p, img)
+    return p, img
+
+
+# -- registry -----------------------------------------------------------
+
+def test_builtin_kernels_registered():
+    assert ops.kernel_names()[:3] == BUILTINS
+
+
+def test_register_duplicate_and_unregister():
+    with pytest.raises(ValueError, match="already registered"):
+        ops.register_kernel("edge", lambda img, passes: img)
+    spec = ops.register_kernel("invert", lambda img, passes: 255 - img)
+    try:
+        assert isinstance(spec, ops.KernelSpec) and spec.name == "invert"
+        assert "invert" in ops.kernel_names()
+        img = torch.arange(12, dtype=torch.uint8).reshape(3, 2, 2)
+        assert torch.equal(ops.make_runner("invert")(img), 255 - img)
+        ops.register_kernel("invert", lambda img, passes: img + passes,
+                            overwrite=True)
+        assert torch.equal(ops.make_runner("invert", passes=2)(img), img + 2)
+    finally:
+        ops.unregister_kernel("invert")
+    assert "invert" not in ops.kernel_names()
+    with pytest.raises(KeyError):
+        ops.make_runner("invert")
+
+
+def test_make_runner_repeats_passes():
+    img = torch.from_numpy(np.random.default_rng(2).integers(
+        0, 256, (3, 20, 30), dtype=np.uint8))
+    assert torch.equal(ops.make_runner("blur", passes=3)(img),
+                       ops.gaussian_blur(img, passes=3))
+
+
+def test_make_runner_refuses_several_devices():
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        ops.make_runner("edge", devices=2)
+
+
+# -- CLI ----------------------------------------------------------------
+
+@pytest.mark.parametrize("kernel", BUILTINS)
+def test_cli_matches_jax_cli(png, tmp_path, capsys, kernel):
+    src, _ = png
+    ours, theirs = tmp_path / "ours.png", tmp_path / "theirs.png"
+    assert cli.main([str(src), str(ours), "2", "--kernel", kernel],
+                    device="cpu") == 0
+    our_line = capsys.readouterr().out.strip()
+    assert jax_cli.main([str(src), str(theirs), "2", "--kernel", kernel]) == 0
+    their_line = capsys.readouterr().out.strip()
+    mo, mt = REPORT.match(our_line), REPORT.match(their_line)
+    assert mo and mt, (our_line, their_line)
+    assert mo.group(1, 2) == mt.group(1, 2)
+    np.testing.assert_array_equal(imgio.load(ours), imgio.load(theirs))
+
+
+def test_cli_missing_input_returns_1(tmp_path, capsys):
+    rc = cli.main([str(tmp_path / "nope.png"), str(tmp_path / "o.png")],
+                  device="cpu")
+    assert rc == 1
+    assert "error loading" in capsys.readouterr().err
+
+
+def test_cli_raises_on_several_devices(png, tmp_path):
+    src, _ = png
+    with pytest.raises(NotImplementedError):
+        cli.main([str(src), str(tmp_path / "o.png"), "--devices", "2"],
+                 device="cpu")
+
+
+def test_cli_without_a_card_raises(png, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is attached: the command line would run")
+    src, _ = png
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main([str(src), str(tmp_path / "o.png")])
+    assert not (tmp_path / "o.png").exists()
+
+
+# -- batch runner ---------------------------------------------------------
+
+@pytest.mark.parametrize("kernel", BUILTINS)
+def test_edge_batch_runner_equals_per_frame(kernel):
+    rng = np.random.default_rng(4)
+    frames = torch.from_numpy(rng.integers(0, 256, (3, 4, 18, 26),
+                                           dtype=np.uint8))
+    fn = {"edge": ops.edge_pipeline, "grayscale": ops.grayscale,
+          "blur": ops.gaussian_blur}[kernel]
+    runner = EdgeBatchRunner(kernel=kernel)
+    got = runner(frames)
+    assert torch.equal(got, torch.stack([fn(f) for f in frames]))
+    got2 = runner.throughput_fn(2)(frames)
+    assert torch.equal(got2, torch.stack([fn(f, passes=2) for f in frames]))
+
+
+def test_edge_batch_runner_equals_jax():
+    frames = np.random.default_rng(6).integers(0, 256, (2, 3, 17, 33),
+                                               dtype=np.uint8)
+    got = EdgeBatchRunner()(torch.from_numpy(frames))
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(JaxEdgeBatchRunner()(frames)))
+
+
+# -- PNG codec ------------------------------------------------------------
+
+@pytest.mark.parametrize("channels", [None, 1, 2, 3, 4])
+def test_save_png_round_trip(tmp_path, channels):
+    rng = np.random.default_rng(channels or 0)
+    shape = (13, 21) if channels is None else (13, 21, channels)
+    img = rng.integers(0, 256, shape, dtype=np.uint8)
+    p = tmp_path / "rt.png"
+    imgio.save_png(p, img)
+    back = imgio.load(p)
+    np.testing.assert_array_equal(back, img.reshape(13, 21, -1))
+    np.testing.assert_array_equal(jax_imgio.load(p), back)
+    colour = p.read_bytes()[25]
+    assert colour == {None: 0, 1: 0, 2: 4, 3: 2, 4: 6}[channels]
+
+
+@pytest.mark.parametrize("mode", ["L", "LA", "RGB", "RGBA"])
+def test_load_matches_jax_loader_on_pillow_files(tmp_path, mode):
+    rng = np.random.default_rng(len(mode))
+    c = len(mode)
+    arr = rng.integers(0, 256, (31, 45, c), dtype=np.uint8)
+    # Smooth rows so that Pillow's adaptive filters pick Sub/Up/Avg/Paeth.
+    arr = np.cumsum(arr // 16, axis=1, dtype=np.uint8)
+    p = tmp_path / f"{mode}.png"
+    Image.fromarray(arr[:, :, 0] if c == 1 else arr, mode).save(p)
+    ours = imgio.load(p)
+    assert ours.shape == (31, 45, c)
+    np.testing.assert_array_equal(ours, arr)
+    np.testing.assert_array_equal(ours, jax_imgio.load(p))
+
+
+def test_load_rejects_16_bit_and_palette(tmp_path):
+    p16 = tmp_path / "g16.png"
+    Image.fromarray(np.arange(60, dtype=np.uint16).reshape(6, 10) * 1000
+                    ).save(p16)
+    assert p16.read_bytes()[24] == 16
+    with pytest.raises(ValueError, match="8-bit"):
+        imgio.load(p16)
+    pal = tmp_path / "pal.png"
+    Image.fromarray(np.zeros((6, 10), np.uint8), "L").convert("P").save(pal)
+    assert pal.read_bytes()[25] == 3
+    with pytest.raises(ValueError, match="colour type=3"):
+        imgio.load(pal)
+
+
+def test_load_rejects_interlaced(tmp_path):
+    body = struct.pack(">IIBBBBB", 4, 4, 8, 2, 0, 0, 1)
+    p = tmp_path / "i.png"
+    p.write_bytes(b"\x89PNG\r\n\x1a\n" + struct.pack(">I", 13) + b"IHDR"
+                  + body + struct.pack(">I", zlib.crc32(b"IHDR" + body)))
+    with pytest.raises(ValueError, match="interlace=1"):
+        imgio.load(p)
+
+
+def test_save_png_rejects_bad_arrays(tmp_path):
+    with pytest.raises(ValueError):
+        imgio.save_png(tmp_path / "a.png", np.zeros((4, 4, 5), np.uint8))
+    with pytest.raises(ValueError):
+        imgio.save_png(tmp_path / "b.png", np.zeros((4, 4, 3), np.int32))

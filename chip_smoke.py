@@ -3,28 +3,45 @@
 
     python3 chip_smoke.py
 
-Five phases; any failure raises and the script exits non-zero.
+Any failure raises and the script exits non-zero.
 
 1. Device: requires a CUDA card (no CPU fallback); prints the torch, CUDA
    and nvcc versions and the card's name and power limit.
 2. Build: compiles every kernel of ``openmp_parallel_computing_tpu_torch/
-   csrc/`` with nvcc for sm_90a and prints the seconds it took and each
-   kernel's ptxas register/spill report.
+   csrc/`` with nvcc for sm_90a, one process per source, and prints the
+   seconds it took and each kernel's ptxas register/spill report.
 3. Kernel vs plain: each kernel against its plain PyTorch version on the
-   same inputs at the shapes the main path gives it — the perception
-   kernel bit-exact on the 1080p fixture and its ring of 8 shifted
-   frames, the multi-sweep kernel within MULTI_SWEEP_TOL at m=8, H=20,
-   B=4096 on a real nominal rollout — with both times. The image kernels
-   (grayscale, sobel, edge, conv3x3) bit-exact with their plain versions
-   on the ring, the half-mega and 6MP photos, odd and 1-3-row frames, at
-   passes 1 and 3, both borders and every conv mode of the CPU tests, with
-   kernel and plain times per pass at 1080p and 6MP.
-4. The slice: ``VisualServoMPC.receding_horizon_frames`` at H=20, m=8,
-   edge_refresh="solve" on the 8-frame 1080p ring at B=4096 and B=256
-   (solves/s), launch counts checked against the steps and gate
-   decisions, outputs finite, and a 32-scenario loop compared between
-   the card and the port's CPU path: step by step from the same state
-   within STEP_TOL, free-running costs within LOOP_COST_RTOL.
+   same inputs at the shapes the main path gives it, with both times and
+   the least time the card could take (``bound``). The perception kernel
+   bit-exact on the 1080p fixture and its ring of 8 shifted frames; the
+   multi-sweep kernel within MULTI_SWEEP_TOL at m=8, H=20, B=4096 on a
+   real nominal rollout; the gather sampler bit-exact in both modes on
+   that rollout's points and on off-frame, on-border and integer
+   coordinates (1080p, and a 64x128 map with a one-row level); the
+   unified, backward and forward sweeps within MULTI_SWEEP_TOL at
+   (m, H, B) = (8, 20, 4096), (4, 8, 256), (2, 5, 100), and backward +
+   forward against unified. The image kernels (grayscale, sobel, edge,
+   conv3x3) bit-exact with their plain versions on the ring, the
+   half-mega and 6MP photos, odd and 1-3-row frames, at passes 1 and 3,
+   both borders and every conv mode of the CPU tests, with kernel and
+   plain times per pass at 1080p and 6MP.
+4. The main MPC path: ``VisualServoMPC.receding_horizon_frames`` at H=20,
+   m=8, edge_refresh="solve" on the 8-frame 1080p ring at B=4096 and
+   B=256 (solves/s), launch counts of every MPC kernel checked against
+   the steps and gate decisions, outputs finite, and a 32-scenario loop
+   compared between the card and the port's CPU path: step by step from
+   the same state within STEP_TOL, free-running costs within
+   LOOP_COST_RTOL.
+4b. The per-sweep path: the same loop with edge_refresh="ilqr",
+   edge_sampler="pallas" at B=4096 and 256 (sampler and unified sweep on
+   every sweep, the sampler's value mode once a step), the same card vs
+   CPU checks; B=256 with the split backward + forward pair, step by step
+   against the unified kernel; B=16384, where the nominal and final
+   rollouts are the zero-gain forward sweep.
+4c. Measurement only: the main path with edge_sampler "analytic" and
+   "pallas" in turns at B=4096 and 256 (solves/s); the two nominal
+   rollout forms timed at B=256, 4096 and 16384; a torch.profiler split
+   of the per-sweep path at B=4096.
 5. The image entry point: ``cli.main`` for grayscale, edge and blur at
    CLI_PASSES passes on the 1080p frame (launch counts = warm-up + timed
    run), the staged grayscale -> sobel driver and ``EdgeBatchRunner`` on
@@ -67,6 +84,28 @@ H, M = 20, 8
 BATCHES = ((4096, 20), (256, 40))  # (scenarios, timed steps)
 RING = 8
 ODD_FRAMES = ((3, 40, 72), (4, 33, 50), (3, 17, 130))
+
+# The per-sweep path (phase 4b) and the measurements of phase 4c.
+ILQR_BATCHES = ((4096, 10), (256, 20))     # (scenarios, timed steps)
+SPLIT_BATCH, SPLIT_STEPS = 256, 4          # backward + forward pair
+BIG_BATCH, BIG_STEPS = 16384, 2            # zero-gain forward rollouts
+AB_BATCHES = ((4096, 10), (256, 20))       # sampler A/B, main path
+ROLLOUT_BATCHES = (256, 4096, 16384)
+PROFILE_STEPS = 5
+# (m, H, B) of the sweep kernels' checks: the main path, and two smaller
+# instances of the other feature counts the kernels are built for.
+SWEEP_SHAPES = ((M, H, 4096), (4, 8, 256), (2, 5, 100))
+MPC_ROWS = {   # kernel -> (source, TPU kernel it replaces)
+    "sampler": ("csrc/sampler.cu", "models/mpc/sampler_pallas.py:57"),
+    "unified_sweep": ("csrc/sweep.cu", "models/mpc/sweep_pallas.py:460"),
+    "backward_sweep": ("csrc/sweep.cu", "models/mpc/sweep_pallas.py:225"),
+    "forward_sweep": ("csrc/sweep.cu", "models/mpc/sweep_pallas.py:256"),
+}
+
+# Published peaks of one H100 SXM (NVIDIA's data sheet, 700 W): HBM3 bytes
+# per second and FP32 operations per second outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
 
 # The image kernels: frames whose rows are all border, one 2037 wide (odd,
 # like the half-mega photo), and the conv modes of tests/test_torch_ops.py
@@ -121,6 +160,41 @@ def cuda_time_ms(fn, iters: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: float, ops: float = 0.0) -> dict:
+    """The least time the card could take for a function that moves
+    ``n_bytes`` (each input read once, each output written once) and does
+    ``ops`` FP32 operations: the larger of the two times at the peaks."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return dict(bound_ms=1e3 * max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def sweep_ops(m: int, h: int, b: int, backward=True, forward=True) -> float:
+    """FP32 operations of one iLQR sweep's halves (a multiply-add counts
+    two), counted from the loops of csrc/sweep_steps.cuh. A Riccati step
+    is dominated by fu^T Vxx, the fx sandwich and Qux^T K ((4c + 7) n^2),
+    Quu and the Cholesky solves (2c^2 (2n + 1)); a forward step, per
+    candidate, by K (p - p_nom) (2cn) and the dynamics."""
+    n, c, a = 2 * m, 6, 4
+    back = ((4 * c + 7) * n * n + 2 * c * c * (2 * n + 1) + 7 * c * n
+            + 6 * c + 8 * n + 32 * m + 100)
+    fwd = a * ((2 * c + 22) * n + 8 * c + 8)
+    return float(b * h * (back * backward + fwd * forward))
+
+
+def kernel_row(name: str, src: str, tpu: str, max_abs_err: float, ms: float,
+               plain_ms: float, bnd: dict, library_ms=None, **extra) -> dict:
+    return dict(name=name, route="cuda",
+                source=f"openmp_parallel_computing_tpu_torch/{src}",
+                replaces=f"openmp_parallel_computing_tpu/{tpu}",
+                launches=0, max_abs_err=max_abs_err, ms=ms,
+                plain_ms=plain_ms, **bnd, library_ms=library_ms, **extra)
 
 
 def frame_ring(frame, n: int):
@@ -200,11 +274,10 @@ def phase_kernels(frames) -> dict:
         lambda: pipeline.edge_pyramid_base_plain(frames[0]), 50)
     log(f"[kernel] edge_pyramid: bit-exact on {frames.shape[0]} 1080p "
         f"frames and {ODD_FRAMES}; 1080p kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    rows["edge_pyramid"] = dict(
-        name="edge_pyramid", route="cuda",
-        source="openmp_parallel_computing_tpu_torch/csrc/edge_pyramid.cu",
-        replaces="openmp_parallel_computing_tpu/ops/pipeline.py:90",
-        max_abs_err=0.0, ms=ms, plain_ms=plain_ms)
+    out = pipeline.edge_pyramid_base(frames[0])
+    rows["edge_pyramid"] = kernel_row(
+        "edge_pyramid", "csrc/edge_pyramid.cu", "ops/pipeline.py:90", 0.0, ms,
+        plain_ms, bound(nbytes(frames[0], out)))
 
     # -- kernel 2: multi_sweep on a real nominal rollout -------------------
     worst = 0.0
@@ -228,13 +301,14 @@ def phase_kernels(frames) -> dict:
     args, kw = sweep_inputs(frames[0], M, H, 4096)
     ms = cuda_time_ms(lambda: sweep.multi_sweep(*args, **kw), 20)
     plain_ms = cuda_time_ms(lambda: sweep.multi_sweep_plain(*args, **kw), 3)
+    bnd = bound(nbytes(*args, *sweep.multi_sweep(*args, **kw)),
+                kw["sweeps"] * sweep_ops(M, H, 4096))
     log(f"[kernel] multi_sweep m={M} H={H} B=4096: kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms")
-    rows["multi_sweep"] = dict(
-        name="multi_sweep", route="cuda",
-        source="openmp_parallel_computing_tpu_torch/csrc/multi_sweep.cu",
-        replaces="openmp_parallel_computing_tpu/models/mpc/sweep_pallas.py:686",
-        max_abs_err=worst, ms=ms, plain_ms=plain_ms)
+        f"plain {plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+        f"({bnd['bound_by']})")
+    rows["multi_sweep"] = kernel_row(
+        "multi_sweep", "csrc/multi_sweep.cu", "models/mpc/sweep_pallas.py:686",
+        worst, ms, plain_ms, bnd)
     return rows
 
 
@@ -267,6 +341,177 @@ def sweep_inputs(frame, m: int, h: int, b: int):
     return (p0_l, ps_l, us_l, z_l, y_l, g_l, target_l, izd_l), kw
 
 
+def probe_coords(hh: int, ww: int, K: int, m: int, B: int, rng):
+    """Normalized (K, m, B) coordinates in the regimes of
+    tests/test_torch_sampler.py: off-frame (|x| up to 1.4), on the border,
+    integer normalized values, and the centres of random cells of each
+    level (integer level coordinates up to rounding), where a contracted
+    multiply-add would flip the cell index."""
+    import numpy as np
+    import torch
+
+    x = rng.uniform(-1.4, 1.4, (K, m, B)).astype(np.float32)
+    y = rng.uniform(-1.4, 1.4, (K, m, B)).astype(np.float32)
+    x[0, 0], y[0, 0] = -1.0, 1.0
+    x[1, 1], y[1, 1] = np.round(x[1, 1]), np.round(y[1, 1])
+    for j, s in enumerate((16, 64)):
+        for arr, size in ((x, ww), (y, hh)):
+            cell = rng.integers(0, -(-size // s), B)
+            arr[2, 2 + j] = 2 * ((s - 1) / 2 + s * cell) / (size - 1) - 1
+    return torch.from_numpy(x), torch.from_numpy(y)
+
+
+def check_close(what: str, names, got, ref, tol: float) -> float:
+    """Hold each output to its reference within rtol = atol = ``tol``;
+    returns the largest absolute error."""
+    import torch
+
+    worst = 0.0
+    for name, g_, p_ in zip(names, got, ref):
+        if not torch.isfinite(g_).all():
+            raise AssertionError(f"{what} {name} not finite")
+        err = (g_ - p_).abs()
+        bad = err > tol + tol * p_.abs()
+        n_bad = int(bad.any(dim=tuple(range(bad.dim() - 1))).sum())
+        log(f"[kernel] {what} {name}: max abs err {err.max().item():.3e}, "
+            f"scenarios out of tolerance {n_bad}")
+        if n_bad:
+            raise AssertionError(f"{what} {name} differs beyond {tol}")
+        worst = max(worst, err.max().item())
+    return worst
+
+
+def phase_mpc_kernels(frames) -> dict:
+    """The gather sampler and the three per-sweep kernels against their
+    plain versions; returns their rows of the summary (launches filled in
+    by phase 4b)."""
+    import numpy as np
+    import torch
+
+    from openmp_parallel_computing_tpu_torch.models.mpc import (
+        costs, sampler, sweep)
+
+    rows = {}
+    frame = frames[0]
+    hh, ww = frame.shape[1:]
+    pyr = costs.build_cost_pyramid_from_frame(frame)
+    args, kw = sweep_inputs(frame, M, H, 4096)
+    x, y = args[1][:, :M], args[1][:, M:]          # the rollout's points
+    rng = np.random.default_rng(17)
+    small = torch.from_numpy(rng.uniform(0, 255, (64, 128)).astype(np.float32))
+    probes = {"rollout B=4096": (pyr, x, y, hh, ww)}
+    for what, p, (ph, pw) in (("1080p", pyr, (hh, ww)),
+                              ("64x128", costs.build_cost_pyramid(small.cuda()),
+                               (64, 128))):
+        px, py = probe_coords(ph, pw, 5, M, 256, rng)
+        probes[f"probes {what}"] = (p, px.cuda(), py.cuda(), ph, pw)
+
+    def as_tuple(r):
+        return r if isinstance(r, tuple) else (r,)
+
+    n_cmp, cpu_err = 0, 0.0
+    for what, (p, px, py, ph, pw) in probes.items():
+        for grads in (False, True):
+            got = as_tuple(sampler.sample(p, px, py, ph, pw, grads=grads))
+            plain = as_tuple(sampler.sample_plain(p, px, py, ph, pw,
+                                                  grads=grads))
+            cpu = as_tuple(sampler.sample_plain(
+                [l.cpu() for l in p], px.cpu(), py.cpu(), ph, pw,
+                grads=grads))
+            for name, g_, p_, c_ in zip(("v", "g"), got, plain, cpu):
+                if g_.shape != p_.shape or not torch.equal(g_, p_):
+                    raise AssertionError(
+                        f"sampler {what} grads={grads} {name}: kernel != "
+                        f"plain, max abs err "
+                        f"{(g_ - p_).abs().max().item():.3e}")
+                np.testing.assert_allclose(
+                    g_.cpu().numpy(), c_.numpy(), rtol=1e-5, atol=1e-6,
+                    err_msg=f"sampler {what} {name} card vs CPU")
+                cpu_err = max(cpu_err, (g_.cpu() - c_).abs().max().item())
+                n_cmp += 1
+    v, g = sampler.sample(pyr, x, y, hh, ww, grads=True)
+    ms = cuda_time_ms(lambda: sampler.sample(pyr, x, y, hh, ww, grads=True),
+                      200)
+    vals_ms = cuda_time_ms(lambda: sampler.sample(pyr, x, y, hh, ww), 200)
+    plain_ms = cuda_time_ms(
+        lambda: sampler.sample_plain(pyr, x, y, hh, ww, grads=True), 20)
+    analytic_ms = cuda_time_ms(
+        lambda: costs.edge_vg_pyramid_xy(pyr, x, y, hh, ww), 20)
+    n_pts = x.numel()
+    bnd = bound(nbytes(x, y, v, g, *pyr), n_pts * (4 + 40 * len(pyr)))
+    vals_bnd = bound(nbytes(x, y, v, *pyr), n_pts * (4 + 25 * len(pyr)))
+    log(f"[kernel] sampler: bit-exact with its plain version in {n_cmp} "
+        f"comparisons (rollout points, off-frame / border / integer probes "
+        f"at 1080p and 64x128); card vs CPU max abs err {cpu_err:.3e}; "
+        f"{n_pts} points: value+gradient {ms:.4f} ms (bound "
+        f"{bnd['bound_ms']:.4f}), values {vals_ms:.4f} ms (bound "
+        f"{vals_bnd['bound_ms']:.4f}), plain {plain_ms:.4f} ms, dense "
+        f"analytic sampler {analytic_ms:.4f} ms")
+    rows["sampler"] = kernel_row(
+        "sampler", *MPC_ROWS["sampler"], 0.0, ms, plain_ms, bnd,
+        analytic_ms=analytic_ms, vals_ms=vals_ms,
+        vals_bound_ms=vals_bnd["bound_ms"])
+
+    # -- kernels 10-12: the per-sweep kernels ------------------------------
+    worst = dict.fromkeys(MPC_ROWS, 0.0)
+    for m, h, b in SWEEP_SHAPES:
+        args, kw = sweep_inputs(frame, m, h, b)
+        kw.pop("sweeps")
+        p0, ps, us, z, y_, g_l, tgt, izd = args
+        rest = (z, y_, g_l, tgt, izd)
+        tag = f"m={m} H={h} B={b}"
+        cand = ("ps_c", "us_c", "J")
+        err = check_close(f"unified_sweep {tag}", cand,
+                          sweep.unified_sweep(*args, **kw),
+                          sweep.unified_sweep_plain(*args, **kw),
+                          MULTI_SWEEP_TOL)
+        worst["unified_sweep"] = max(worst["unified_sweep"], err)
+        gains = sweep.backward_sweep(ps, us, *rest, **kw)
+        plain_gains = sweep.backward_sweep_plain(ps, us, *rest, **kw)
+        err = check_close(f"backward_sweep {tag}", ("K", "k"), gains,
+                          plain_gains, MULTI_SWEEP_TOL)
+        worst["backward_sweep"] = max(worst["backward_sweep"], err)
+        err = check_close(
+            f"forward_sweep {tag}", cand,
+            sweep.forward_sweep(p0, ps, us, *plain_gains, *rest, **kw),
+            sweep.forward_sweep_plain(p0, ps, us, *plain_gains, *rest, **kw),
+            MULTI_SWEEP_TOL)
+        worst["forward_sweep"] = max(worst["forward_sweep"], err)
+        check_close(f"backward+forward vs unified {tag}", cand,
+                    sweep.forward_sweep(p0, ps, us, *gains, *rest, **kw),
+                    sweep.unified_sweep(*args, **kw), MULTI_SWEEP_TOL)
+    args, kw = sweep_inputs(frame, M, H, 4096)
+    kw.pop("sweeps")
+    p0, ps, us, z, y_, g_l, tgt, izd = args
+    rest = (z, y_, g_l, tgt, izd)
+    gains = sweep.backward_sweep(ps, us, *rest, **kw)
+    cands = sweep.unified_sweep(*args, **kw)
+    timed = {
+        "unified_sweep": (lambda: sweep.unified_sweep(*args, **kw),
+                          lambda: sweep.unified_sweep_plain(*args, **kw),
+                          bound(nbytes(*args, *cands), sweep_ops(M, H, 4096))),
+        "backward_sweep": (
+            lambda: sweep.backward_sweep(ps, us, *rest, **kw),
+            lambda: sweep.backward_sweep_plain(ps, us, *rest, **kw),
+            bound(nbytes(ps, us, *rest, *gains),
+                  sweep_ops(M, H, 4096, forward=False))),
+        "forward_sweep": (
+            lambda: sweep.forward_sweep(p0, ps, us, *gains, *rest, **kw),
+            lambda: sweep.forward_sweep_plain(p0, ps, us, *gains, *rest, **kw),
+            bound(nbytes(p0, ps, us, *gains, *rest, *cands),
+                  sweep_ops(M, H, 4096, backward=False))),
+    }
+    for name, (kern, plain, bnd) in timed.items():
+        ms = cuda_time_ms(kern, 20)
+        plain_ms = cuda_time_ms(plain, 3)
+        log(f"[kernel] {name} m={M} H={H} B=4096: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+            f"({bnd['bound_by']})")
+        rows[name] = kernel_row(name, *MPC_ROWS[name], worst[name], ms,
+                                plain_ms, bnd)
+    return rows
+
+
 class GateLog:
     """Records the adaptive-budget gate's decisions by wrapping the
     solver's ``_adaptive_extra`` (observation only)."""
@@ -295,58 +540,121 @@ class GateLog:
         self.mod._adaptive_extra = self.orig
 
 
-def phase_slice(frames, rows: dict) -> dict:
+def counters() -> dict:
+    """The launch counters of the MPC kernels' wrappers, by kernel."""
+    from openmp_parallel_computing_tpu_torch.models.mpc import sampler, sweep
+    from openmp_parallel_computing_tpu_torch.ops import pipeline
+
+    return {"edge_pyramid": pipeline.edge_pyramid_base, "sampler": sampler.sample,
+            "multi_sweep": sweep.multi_sweep,
+            "unified_sweep": sweep.unified_sweep,
+            "backward_sweep": sweep.backward_sweep,
+            "forward_sweep": sweep.forward_sweep}
+
+
+def reset_counts() -> None:
+    for w in counters().values():
+        w.launches = 0
+    counters()["sampler"].vg_launches = 0
+
+
+def read_counts() -> dict:
+    out = {k: w.launches for k, w in counters().items()}
+    vg = counters()["sampler"].vg_launches
+    out["sampler_vg"], out["sampler_vals"] = vg, out.pop("sampler") - vg
+    return out
+
+
+def expected_launches(cfg, batch: int, steps: int, fired: int,
+                      unified: bool = True) -> dict:
+    """Launches of a receding-horizon run: one perception launch a step;
+    per ADMM iteration one multi_sweep launch (edge_refresh admm/solve) or
+    ilqr_iters per-sweep launches; the gather sampler once per
+    linearization and once a step for the final cost; and two zero-gain
+    forward sweeps a step above ROLLOUT_SCAN_MAX_BP scenarios."""
+    from openmp_parallel_computing_tpu_torch.models.mpc import solver
+
+    admm = steps * cfg.admm_iters + fired * cfg.admm_iters_extra
+    want = dict.fromkeys(("edge_pyramid", "multi_sweep", "unified_sweep",
+                          "backward_sweep", "forward_sweep", "sampler_vg",
+                          "sampler_vals"), 0)
+    want["edge_pyramid"] = steps
+    if cfg.edge_refresh == "ilqr":
+        sweeps = cfg.ilqr_iters * admm
+        for k in (("unified_sweep",) if unified
+                  else ("backward_sweep", "forward_sweep")):
+            want[k] = sweeps
+    else:
+        want["multi_sweep"] = admm
+    if cfg.edge_sampler == "pallas":
+        want["sampler_vg"] = {"ilqr": cfg.ilqr_iters * admm, "admm": admm,
+                              "solve": steps}[cfg.edge_refresh]
+        want["sampler_vals"] = steps
+    if batch > solver.ROLLOUT_SCAN_MAX_BP:
+        want["forward_sweep"] += 2 * steps
+    return want
+
+
+def drive(mpc, frames, scen, steps: int):
+    """One counted run of the closed loop: counts set to 0 just before,
+    read just after. Returns (u0s, costs, scen', launches, fired, wall)."""
+    import torch
+
+    from openmp_parallel_computing_tpu_torch.models.mpc import solver
+
+    torch.cuda.synchronize()
+    reset_counts()
+    with GateLog(solver) as gates:
+        t0 = time.perf_counter()
+        u0s, cost_seq, scen = mpc.receding_horizon_frames(frames, scen, steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return u0s, cost_seq, scen, read_counts(), sum(gates.fired), wall
+
+
+def run_loop(cfg, frames, batch: int, steps: int, label: str,
+             unified: bool = True):
+    """Warm up, then one counted run at ``batch``: launch counts against
+    the gate decisions, outputs finite and of the right shapes. Returns
+    (solves/s, launches)."""
+    import torch
+
+    from openmp_parallel_computing_tpu_torch.models.mpc import VisualServoMPC
+
+    mpc = VisualServoMPC(cfg, "cuda")
+    scen = mpc.random_scenarios(batch, torch.Generator().manual_seed(0))
+    for _ in range(2):      # warm up; the first window adds the dual carry
+        _, _, scen = mpc.receding_horizon_frames(frames, scen, 2)
+    u0s, cost_seq, scen, launches, fired, wall = drive(mpc, frames, scen,
+                                                       steps)
+    want = expected_launches(cfg, batch, steps, fired, unified)
+    if launches != want:
+        raise AssertionError(f"{label} B={batch}: launch counts {launches} "
+                             f"!= expected {want}")
+    if not (torch.isfinite(u0s).all() and torch.isfinite(cost_seq).all()):
+        raise AssertionError(f"{label} B={batch}: non-finite controls or costs")
+    if u0s.shape != (steps, batch, 6) or cost_seq.shape != (steps, batch):
+        raise AssertionError(f"{label}: bad output shapes {u0s.shape} "
+                             f"{cost_seq.shape}")
+    rate = batch * steps / wall
+    log(f"[{label}] B={batch}: {steps} steps in {wall:.4f} s = {rate:.1f} "
+        f"solves/s on {torch.cuda.get_device_name(0)}; launches "
+        f"{ {k: n for k, n in launches.items() if n} }; gate fired on "
+        f"{fired}/{steps} steps; mean cost {cost_seq[-1].mean().item():.6f}")
+    return rate, launches
+
+
+def card_vs_cpu(frames, cfg, label: str) -> None:
+    """The loop on the card against the port's CPU path, 32 scenarios:
+    each step from the card's own state solved on both (within STEP_TOL,
+    the same gate branch), then the free-running loop's costs."""
     import numpy as np
     import torch
 
     from openmp_parallel_computing_tpu_torch.models.mpc import (
-        VisualServoMPC, solver, sweep)
-    from openmp_parallel_computing_tpu_torch.ops import pipeline
-    from openmp_parallel_computing_tpu_torch.utils.config import MPCConfig
+        VisualServoMPC, solver)
 
-    cfg = MPCConfig(horizon=H, num_features=M, edge_refresh="solve")
-    mpc = VisualServoMPC(cfg, "cuda")
-    name = torch.cuda.get_device_name(0)
-    rates = {}
-    for batch, steps in BATCHES:
-        scen = mpc.random_scenarios(batch, torch.Generator().manual_seed(0))
-        for _ in range(2):      # warm up; the first window adds the dual carry
-            u0s, _, scen = mpc.receding_horizon_frames(frames, scen, 2)
-        torch.cuda.synchronize()
-        pipeline.edge_pyramid_base.launches = 0
-        sweep.multi_sweep.launches = 0
-        with GateLog(solver) as gates:
-            t0 = time.perf_counter()
-            u0s, cost_seq, scen = mpc.receding_horizon_frames(frames, scen,
-                                                              steps)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        launches = {"edge_pyramid": pipeline.edge_pyramid_base.launches,
-                    "multi_sweep": sweep.multi_sweep.launches}
-        fired = sum(gates.fired)
-        want = {"edge_pyramid": steps,
-                "multi_sweep": steps * cfg.admm_iters
-                + fired * cfg.admm_iters_extra}
-        if launches != want:
-            raise AssertionError(f"launch counts {launches} != expected {want}")
-        if not (torch.isfinite(u0s).all() and torch.isfinite(cost_seq).all()):
-            raise AssertionError("non-finite controls or costs")
-        if u0s.shape != (steps, batch, 6) or cost_seq.shape != (steps, batch):
-            raise AssertionError(f"bad output shapes {u0s.shape} "
-                                 f"{cost_seq.shape}")
-        rates[batch] = batch * steps / wall
-        log(f"[slice] B={batch}: {steps} steps in {wall:.4f} s = "
-            f"{rates[batch]:.1f} solves/s on {name}; launches {launches}; "
-            f"gate fired on {fired}/{steps} steps; mean cost "
-            f"{cost_seq[-1].mean().item():.6f}")
-        if batch == BATCHES[0][0]:
-            for k, n in launches.items():
-                rows[k]["launches"] = n
-
-    # -- the card against the port's CPU path, small batch ----------------
-    # Step by step from the card's own state: each step's solve on the
-    # card and on the CPU start from the same scenario and frame.
-    cpu = VisualServoMPC(cfg, "cpu")
+    mpc, cpu = VisualServoMPC(cfg, "cuda"), VisualServoMPC(cfg, "cpu")
     start = cpu.random_scenarios(32, torch.Generator().manual_seed(7))
     s = _to(start, "cuda")
     worst = {"u0s": 0.0, "costs": 0.0}
@@ -357,14 +665,14 @@ def phase_slice(frames, rows: dict) -> dict:
         with GateLog(solver) as g_cpu:
             u_c, c_c, _ = cpu.receding_horizon_frames(f.cpu(), _to(s, "cpu"), 1)
         if g_cpu.fired != g_gpu.fired:
-            raise AssertionError(f"step {i}: gate branches differ")
-        for label, a, b in (("u0s", u_c, u_g), ("costs", c_c, c_g)):
+            raise AssertionError(f"{label} step {i}: gate branches differ")
+        for what, a, b in (("u0s", u_c, u_g), ("costs", c_c, c_g)):
             np.testing.assert_allclose(b.cpu().numpy(), a.numpy(),
                                        rtol=STEP_TOL, atol=STEP_TOL,
-                                       err_msg=f"step {i} {label}")
-            worst[label] = max(worst[label], (a - b.cpu()).abs().max().item())
+                                       err_msg=f"{label} step {i} {what}")
+            worst[what] = max(worst[what], (a - b.cpu()).abs().max().item())
         s = s_next
-    log(f"[slice] card vs CPU, 32 scenarios, {LOOP_STEPS} steps each from "
+    log(f"[{label}] card vs CPU, 32 scenarios, {LOOP_STEPS} steps each from "
         f"the same state: max abs err u0s {worst['u0s']:.3e}, costs "
         f"{worst['costs']:.3e}")
     # The free-running loop: rounding differences grow step over step.
@@ -372,12 +680,181 @@ def phase_slice(frames, rows: dict) -> dict:
     u_g, c_g, _ = mpc.receding_horizon_frames(frames, _to(start, "cuda"),
                                               LOOP_STEPS)
     rel = ((c_g.cpu() - c_c).abs() / c_c.abs()).max().item()
-    log(f"[slice] card vs CPU, free-running {LOOP_STEPS} steps: max abs err "
-        f"u0s {(u_g.cpu() - u_c).abs().max().item():.3e}, max rel err costs "
-        f"{rel:.3e}")
+    log(f"[{label}] card vs CPU, free-running {LOOP_STEPS} steps: max abs "
+        f"err u0s {(u_g.cpu() - u_c).abs().max().item():.3e}, max rel err "
+        f"costs {rel:.3e}")
     np.testing.assert_allclose(c_g.cpu().numpy(), c_c.numpy(),
-                               rtol=LOOP_COST_RTOL, err_msg="free-running costs")
+                               rtol=LOOP_COST_RTOL,
+                               err_msg=f"{label} free-running costs")
+
+
+def phase_slice(frames, rows: dict) -> dict:
+    from openmp_parallel_computing_tpu_torch.utils.config import MPCConfig
+
+    cfg = MPCConfig(horizon=H, num_features=M, edge_refresh="solve")
+    rates = {}
+    for batch, steps in BATCHES:
+        rates[batch], launches = run_loop(cfg, frames, batch, steps, "slice")
+        if batch == BATCHES[0][0]:
+            for k in ("edge_pyramid", "multi_sweep"):
+                rows[k]["launches"] = launches[k]
+    card_vs_cpu(frames, cfg, "slice")
     return rates
+
+
+def phase_ilqr(frames, rows: dict) -> dict:
+    """The per-sweep path: edge_refresh="ilqr", edge_sampler="pallas"."""
+    import numpy as np
+    import torch
+
+    from openmp_parallel_computing_tpu_torch.models.mpc import (
+        VisualServoMPC, solver)
+    from openmp_parallel_computing_tpu_torch.utils.config import MPCConfig
+
+    cfg = MPCConfig(horizon=H, num_features=M, edge_refresh="ilqr",
+                    edge_sampler="pallas")
+    rates = {}
+    for batch, steps in ILQR_BATCHES:
+        rates[batch], launches = run_loop(cfg, frames, batch, steps, "ilqr")
+        if batch == ILQR_BATCHES[0][0]:
+            rows["sampler"]["launches"] = (launches["sampler_vg"]
+                                           + launches["sampler_vals"])
+            rows["unified_sweep"]["launches"] = launches["unified_sweep"]
+    card_vs_cpu(frames, cfg, "ilqr")
+
+    # The split backward + forward pair, step by step against the unified
+    # kernel from the same state; only the split runs are counted.
+    mpc = VisualServoMPC(cfg, "cuda")
+    s = mpc.random_scenarios(SPLIT_BATCH, torch.Generator().manual_seed(9))
+    split = dict.fromkeys(("backward_sweep", "forward_sweep",
+                           "unified_sweep"), 0)
+    worst = 0.0
+    for i in range(SPLIT_STEPS):
+        f = frames[i % RING][None].contiguous()
+        u_u, c_u, _ = mpc.receding_horizon_frames(f, s, 1)
+        solver._SweepLanes.use_unified = False
+        try:
+            u_s, c_s, s_next, launches, fired, _ = drive(mpc, f, s, 1)
+        finally:
+            solver._SweepLanes.use_unified = True
+        want = expected_launches(cfg, SPLIT_BATCH, 1, fired, unified=False)
+        if launches != want:
+            raise AssertionError(f"split step {i}: launch counts {launches} "
+                                 f"!= expected {want}")
+        for k in split:
+            split[k] += launches[k]
+        for what, a, b in (("u0s", u_u, u_s), ("costs", c_u, c_s)):
+            np.testing.assert_allclose(b.cpu().numpy(), a.cpu().numpy(),
+                                       rtol=STEP_TOL, atol=STEP_TOL,
+                                       err_msg=f"split step {i} {what}")
+            worst = max(worst, (a - b).abs().max().item())
+        s = s_next
+    log(f"[ilqr] split pair B={SPLIT_BATCH}, {SPLIT_STEPS} steps: launches "
+        f"{split}; vs unified from the same state max abs err {worst:.3e}")
+    rows["backward_sweep"]["launches"] = split["backward_sweep"]
+    rows["forward_sweep"]["launches"] = split["forward_sweep"]
+
+    # Above ROLLOUT_SCAN_MAX_BP the rollouts are zero-gain forward sweeps.
+    rates[BIG_BATCH], launches = run_loop(cfg, frames, BIG_BATCH, BIG_STEPS,
+                                          "ilqr")
+    rows["forward_sweep"]["launches"] += launches["forward_sweep"]
+    return rates
+
+
+def phase_ab(frames) -> None:
+    """Measurement only: the main path's solves/s with each sampler, in
+    turns; the two nominal rollout forms."""
+    import torch
+
+    from openmp_parallel_computing_tpu_torch.models.mpc import (
+        VisualServoMPC, costs, solver)
+    from openmp_parallel_computing_tpu_torch.utils.config import MPCConfig
+
+    for batch, steps in AB_BATCHES:
+        rates = {"analytic": [], "pallas": []}
+        for name in ("analytic", "pallas", "pallas", "analytic"):
+            cfg = MPCConfig(horizon=H, num_features=M, edge_refresh="solve",
+                            edge_sampler=name)
+            rate, _ = run_loop(cfg, frames, batch, steps, f"ab {name}")
+            rates[name].append(rate)
+        log(f"[ab] sampler A/B, main path B={batch}: solves/s analytic "
+            f"{rates['analytic']}, pallas {rates['pallas']}")
+
+    cfg = MPCConfig(horizon=H, num_features=M, edge_refresh="ilqr",
+                    edge_sampler="pallas")
+    pyramid = costs.build_cost_pyramid_from_frame(frames[0])
+    for batch in ROLLOUT_BATCHES:
+        gen = torch.Generator().manual_seed(batch)
+        scen = VisualServoMPC(cfg, "cuda").random_scenarios(batch, gen)
+        sw = solver._SweepLanes(pyramid, frames.shape[2:], cfg)
+        p0_l, target_l, izd_l, us_l = sw.lanes_scenario(scen)
+        us_l = (torch.rand(us_l.shape, generator=gen) - 0.5).cuda()
+        y_l = torch.zeros_like(us_l)
+        forms = {}
+        for form, limit in (("loop", 1 << 30), ("kernel", 0)):
+            old = solver.ROLLOUT_SCAN_MAX_BP
+            solver.ROLLOUT_SCAN_MAX_BP = limit
+            try:
+                call = lambda: sw.rollout_nominal(p0_l, us_l, us_l, y_l,
+                                                  target_l, izd_l)
+                out = call()
+                forms[form] = (cuda_time_ms(call, 10), out)
+            finally:
+                solver.ROLLOUT_SCAN_MAX_BP = old
+        err = (forms["loop"][1] - forms["kernel"][1]).abs().max().item()
+        if err > STEP_TOL:
+            raise AssertionError(f"rollout forms differ by {err} at {batch}")
+        log(f"[ab] nominal rollout B={batch}: _dyn_step loop "
+            f"{forms['loop'][0]:.4f} ms, zero-gain forward_sweep "
+            f"{forms['kernel'][0]:.4f} ms; max abs diff {err:.3e}")
+
+
+def phase_profile(frames) -> None:
+    """Where the time goes on the per-sweep path at B=4096: device time by
+    kernel under torch.profiler, busy share of the profiled wall."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from openmp_parallel_computing_tpu_torch.models.mpc import VisualServoMPC
+    from openmp_parallel_computing_tpu_torch.utils.config import MPCConfig
+
+    cfg = MPCConfig(horizon=H, num_features=M, edge_refresh="ilqr",
+                    edge_sampler="pallas")
+    mpc = VisualServoMPC(cfg, "cuda")
+    scen = mpc.random_scenarios(4096, torch.Generator().manual_seed(0))
+    _, _, scen = mpc.receding_horizon_frames(frames, scen, 2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, scen = mpc.receding_horizon_frames(frames, scen, PROFILE_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        mpc.receding_horizon_frames(frames, scen, PROFILE_STEPS)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    cuda = torch.autograd.DeviceType.CUDA
+    dev, host_ops = [], 0
+    for e in prof.key_averages():
+        us = (getattr(e, "self_device_time_total", None)
+              or getattr(e, "self_cuda_time_total", 0))
+        if e.device_type == cuda and us > 0:
+            dev.append((us, e.count, e.key))
+        elif e.key.startswith("aten::"):
+            host_ops += e.count
+    busy = sum(d[0] for d in dev) / 1e3
+    log(f"[profile] ilqr/pallas B=4096, {PROFILE_STEPS} steps: unprofiled "
+        f"wall {1e3 * wall:.1f} ms, profiled wall {1e3 * prof_wall:.1f} ms, "
+        f"device busy {busy:.1f} ms ({busy / (1e3 * prof_wall):.2f} of the "
+        f"profiled wall), {host_ops / PROFILE_STEPS:.0f} aten ops a step")
+    ours = ("sample_kernel", "sweep_kernel", "edge_pyramid", "multi_sweep")
+    for us, count, key in sorted(dev, reverse=True):
+        if any(k in key for k in ours):
+            log(f"[profile]   port kernel {us / 1e3:9.3f} ms {count:6d}x "
+                f"({us / count:.2f} us each)  {key[:70]}")
+    for us, count, key in sorted(dev, reverse=True)[:12]:
+        log(f"[profile]   {us / 1e3:9.3f} ms {count:6d}x  {key[:90]}")
 
 
 def _to(scen, device):
@@ -488,21 +965,33 @@ def phase_image_kernels(frames, photos) -> dict:
         "conv3x3": (lambda x: ops.gaussian_blur(x, passes=n),
                     lambda x: conv3x3_plain(x, clamp_u8=True, passes=n)),
     }
+    # The one library call that computes one of these functions: the 3x3
+    # blur as a float32 convolution (cuDNN, TF32 off), per pass at 1080p.
+    f32 = frames[0].float()[:, None].contiguous()
+    taps = torch.tensor(GBLUR, dtype=torch.float32, device="cuda") / 16
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        library = {"conv3x3": cuda_time_ms(lambda: torch.nn.functional.conv2d(
+            f32, taps[None, None], padding=1), 20)}
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
     rows = {}
     for label, img in (("1080p", frames[0]), ("6mp", photos["6mp"])):
         for name, (kern, plain) in timed.items():
             ms = cuda_time_ms(lambda: kern(img), 3) / n
             plain_ms = cuda_time_ms(lambda: plain(img), 1) / n
+            # per pass: the planes read once and written once
+            bnd = bound(2 * nbytes(img[0] if name == "sobel" else img))
             log(f"[kernel] {name} {label} {tuple(img.shape)}: kernel "
                 f"{ms:.4f} ms, plain {plain_ms:.4f} ms per pass "
-                f"({n} passes a call, CUDA events)")
+                f"({n} passes a call, CUDA events), bound "
+                f"{bnd['bound_ms']:.4f} ms")
             if label == "1080p":
-                src, tpu = IMAGE_ROWS[name]
-                rows[name] = dict(
-                    name=name, route="cuda",
-                    source=f"openmp_parallel_computing_tpu_torch/{src}",
-                    replaces=f"openmp_parallel_computing_tpu/{tpu}",
-                    max_abs_err=0.0, ms=ms, plain_ms=plain_ms)
+                rows[name] = kernel_row(name, *IMAGE_ROWS[name], 0.0, ms,
+                                        plain_ms, bnd, library.get(name))
+    log(f"[kernel] library: float32 conv2d 3x3 blur at 1080p "
+        f"{library['conv3x3']:.4f} ms")
     return rows
 
 
@@ -633,12 +1122,19 @@ def main() -> int:
     log(f"[data] photos decoded in {time.perf_counter() - t0:.1f} s: "
         f"{ {k: tuple(v.shape) for k, v in photos.items()} }")
     rows = phase_kernels(frames)
+    rows.update(phase_mpc_kernels(frames))
     rows.update(phase_image_kernels(frames, photos))
     phase_slice(frames, rows)
+    phase_ilqr(frames, rows)
+    phase_ab(frames)
+    phase_profile(frames)
     phase_image_cli(frames, photos, rows)
+    for name, row in rows.items():
+        if not row["launches"]:
+            raise AssertionError(f"kernel {name} was not launched on its path")
     log(nvidia_smi_line())
     log(json.dumps({"kernels": [rows[k] for k in (
-        "edge_pyramid", "multi_sweep", *IMAGE_ROWS)]}))
+        "edge_pyramid", "multi_sweep", *IMAGE_ROWS, *MPC_ROWS)]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

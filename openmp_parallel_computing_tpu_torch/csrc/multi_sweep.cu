@@ -4,7 +4,9 @@
 // openmp_parallel_computing_tpu/models/mpc/sweep_pallas.py (called through
 // `multi_sweep`) and its helpers `_backward_step`, `_spd_solve_lanes`
 // (riccati_pallas.py), `_forward_cand_step`, `_terminal_cost_accum`,
-// `_select_winner` and `_dyn_step`. Per sweep, per scenario:
+// `_select_winner` and `_dyn_step`. The Riccati step, the candidate step and
+// `dyn_step` come from csrc/sweep_steps.cuh, which csrc/sweep.cu (the
+// per-sweep kernels) shares. Per sweep, per scenario:
 //   1. Riccati backward over tau = H-1 .. 0: closed-form IBVS Jacobian
 //      (four diagonal m x m blocks in split layout) and fu, the expansion
 //      of tracking + effort + ADMM augmentation + linearized edge term,
@@ -38,42 +40,21 @@
 // the last bits differ from the plain PyTorch version: this kernel is
 // held to a tolerance, not to bit equality.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "sweep_steps.cuh"
 
 namespace {
 
-constexpr int C = 6;          // control dimension
-constexpr int A = 4;          // line-search candidates
-constexpr int kThreads = 32;
+using sweep::A;
+using sweep::C;
+using sweep::kThreads;
+using sweep::lane;
+using sweep::load_row;
+using sweep::store_row;
 
 struct Params {
   int H, B, sweeps;
-  float q, r, rho, qe, dt, reg;
+  sweep::Weights W;
 };
-
-__device__ __forceinline__ float alpha_of(int a) {
-  return a == 0 ? 0.0f : a == 1 ? 1.0f : a == 2 ? 0.5f : 0.25f;
-}
-
-// Split-layout clipped Euler step p' = clip(p + dt L(p) u, +-4).
-template <int M>
-__device__ __forceinline__ void dyn_step(const float* p, const float* u,
-                                         const float* iz, float dt,
-                                         float* out) {
-  const float vx = u[0], vy = u[1], vz = u[2];
-  const float wx = u[3], wy = u[4], wz = u[5];
-#pragma unroll
-  for (int j = 0; j < M; ++j) {
-    const float x = p[j], y = p[M + j];
-    const float xdot = -vx * iz[j] + x * vz * iz[j] + x * y * wx -
-                       (1.0f + x * x) * wy + y * wz;
-    const float ydot = -vy * iz[j] + y * vz * iz[j] + (1.0f + y * y) * wx -
-                       x * y * wy - x * wz;
-    out[j] = fminf(fmaxf(x + dt * xdot, -4.0f), 4.0f);
-    out[M + j] = fminf(fmaxf(y + dt * ydot, -4.0f), 4.0f);
-  }
-}
 
 template <int M>
 __global__ void __launch_bounds__(kThreads)
@@ -89,188 +70,24 @@ multi_sweep_kernel(const float* __restrict__ p0g, const float* __restrict__ ps,
   if (b >= P.B) return;
   const size_t B = (size_t)P.B;
   const int H = P.H;
-  const float q = P.q, r = P.r, rho = P.rho, qe = P.qe, dt = P.dt;
-  // Element [t][i] of a (T, R, B) array, for this thread's scenario.
-#define AT(arr, t, i, R) (arr)[((size_t)(t) * (R) + (i)) * B + b]
+  const sweep::Weights& W = P.W;
 
   float p0[N], tgt[N], iz[M];
-#pragma unroll
-  for (int i = 0; i < N; ++i) { p0[i] = AT(p0g, 0, i, N); tgt[i] = AT(tg, 0, i, N); }
-#pragma unroll
-  for (int j = 0; j < M; ++j) iz[j] = AT(izg, 0, j, M);
+  load_row<N>(p0g, 0, B, b, p0);
+  load_row<N>(tg, 0, B, b, tgt);
+  load_row<M>(izg, 0, B, b, iz);
 
   // The outputs double as the nominal trajectory across sweeps.
   for (int t = 0; t <= H; ++t)
 #pragma unroll
-    for (int i = 0; i < N; ++i) AT(ps_out, t, i, N) = AT(ps, t, i, N);
+    for (int i = 0; i < N; ++i) ps_out[lane(t, i, N, B, b)] = ps[lane(t, i, N, B, b)];
   for (int t = 0; t < H; ++t)
 #pragma unroll
-    for (int c = 0; c < C; ++c) AT(us_out, t, c, C) = AT(us, t, c, C);
+    for (int c = 0; c < C; ++c) us_out[lane(t, c, C, B, b)] = us[lane(t, c, C, B, b)];
 
-  for (int sweep = 0; sweep < P.sweeps; ++sweep) {
-    // ---- backward -------------------------------------------------------
-    float Vx[N], Vxx[N * N];
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      Vx[i] = 2.0f * q * (AT(ps_out, H, i, N) - tgt[i]) + qe * AT(g, H, i, N);
-#pragma unroll
-      for (int k = 0; k < N; ++k) Vxx[i * N + k] = (i == k) ? 2.0f * q : 0.0f;
-    }
-    for (int tau = H - 1; tau >= 0; --tau) {
-      float p[N], u[C], Af[M], Bf[M], Cf[M], Df[M], fu[N][C];
-#pragma unroll
-      for (int i = 0; i < N; ++i) p[i] = AT(ps_out, tau, i, N);
-#pragma unroll
-      for (int c = 0; c < C; ++c) u[c] = AT(us_out, tau, c, C);
-      const float vz = u[2], wx = u[3], wy = u[4], wz = u[5];
-#pragma unroll
-      for (int j = 0; j < M; ++j) {
-        const float x = p[j], y = p[M + j];
-        Af[j] = 1.0f + dt * (vz * iz[j] + y * wx - 2.0f * x * wy);
-        Bf[j] = dt * (x * wx + wz);
-        Cf[j] = dt * (-y * wy - wz);
-        Df[j] = 1.0f + dt * (vz * iz[j] + 2.0f * y * wx - x * wy);
-        fu[j][0] = dt * -iz[j];   fu[M + j][0] = 0.0f;
-        fu[j][1] = 0.0f;          fu[M + j][1] = dt * -iz[j];
-        fu[j][2] = dt * (x * iz[j]);          fu[M + j][2] = dt * (y * iz[j]);
-        fu[j][3] = dt * (x * y);              fu[M + j][3] = dt * (1.0f + y * y);
-        fu[j][4] = dt * -(1.0f + x * x);      fu[M + j][4] = dt * -(x * y);
-        fu[j][5] = dt * y;                    fu[M + j][5] = dt * -x;
-      }
-      // Qx = lx + fx^T Vx, Qu = lu + fu^T Vx
-      float Qx[N], Qu[C];
-#pragma unroll
-      for (int j = 0; j < M; ++j) {
-        const float lxa = 2.0f * q * (p[j] - tgt[j]) + qe * AT(g, tau, j, N);
-        const float lxb = 2.0f * q * (p[M + j] - tgt[M + j]) + qe * AT(g, tau, M + j, N);
-        Qx[j] = lxa + (Af[j] * Vx[j] + Cf[j] * Vx[M + j]);
-        Qx[M + j] = lxb + (Bf[j] * Vx[j] + Df[j] * Vx[M + j]);
-      }
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const float lu = 2.0f * r * u[c] +
-                         rho * (u[c] - AT(zg, tau, c, C) + AT(yg, tau, c, C));
-        float s = fu[0][c] * Vx[0];
-#pragma unroll
-        for (int i = 1; i < N; ++i) s += fu[i][c] * Vx[i];
-        Qu[c] = lu + s;
-      }
-      // U = fu^T Vxx (C x N); Quu = (2r + rho + reg) I + U fu;
-      // Qux = U fx (C x N).
-      float U[C][N], Quu[C][C], Qux[C][N];
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-#pragma unroll
-        for (int k = 0; k < N; ++k) {
-          float s = fu[0][c] * Vxx[k];
-#pragma unroll
-          for (int i = 1; i < N; ++i) s += fu[i][c] * Vxx[i * N + k];
-          U[c][k] = s;
-        }
-      }
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-#pragma unroll
-        for (int d = 0; d < C; ++d) {
-          float s = U[c][0] * fu[0][d];
-#pragma unroll
-          for (int k = 1; k < N; ++k) s += U[c][k] * fu[k][d];
-          Quu[c][d] = (c == d ? 2.0f * r + rho + P.reg : 0.0f) + s;
-        }
-#pragma unroll
-        for (int j = 0; j < M; ++j) {
-          Qux[c][j] = U[c][j] * Af[j] + U[c][M + j] * Cf[j];
-          Qux[c][M + j] = U[c][j] * Bf[j] + U[c][M + j] * Df[j];
-        }
-      }
-      // Column Cholesky of Quu (lower triangle read column by column):
-      // L[i][j] = cols[j][i] for i >= j, with cached 1 / d_j.
-      float L[C][C], inv_d[C];
-#pragma unroll
-      for (int j = 0; j < C; ++j) {
-#pragma unroll
-        for (int i = j; i < C; ++i) {
-          float s = Quu[i][j];
-#pragma unroll
-          for (int pp = 0; pp < j; ++pp) s -= L[pp][i] * L[pp][j];
-          L[j][i] = s;
-        }
-        const float rr = 1.0f / sqrtf(L[j][j]);
-#pragma unroll
-        for (int i = j; i < C; ++i) L[j][i] *= rr;
-        inv_d[j] = rr;
-      }
-      // Solve Quu X = [Qu | Qux] one right-hand column at a time; the
-      // gains are -X: k = -X[:, 0], K = -X[:, 1:].
-      float kff[C], K[C][N];
-#pragma unroll
-      for (int col = 0; col <= N; ++col) {
-        float Y[C], X[C];
-#pragma unroll
-        for (int i = 0; i < C; ++i) {
-          float s = col == 0 ? Qu[i] : Qux[i][col - 1];
-#pragma unroll
-          for (int pp = 0; pp < i; ++pp) s -= L[pp][i] * Y[pp];
-          Y[i] = s * inv_d[i];
-        }
-#pragma unroll
-        for (int i = C - 1; i >= 0; --i) {
-          float s = Y[i];
-#pragma unroll
-          for (int pp = i + 1; pp < C; ++pp) s -= L[i][pp] * X[pp];
-          X[i] = s * inv_d[i];
-        }
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          if (col == 0) kff[c] = -X[c]; else K[c][col - 1] = -X[c];
-        }
-      }
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        AT(kg, tau, c, C) = kff[c];
-#pragma unroll
-        for (int j = 0; j < N; ++j)
-          Kg[(((size_t)tau * C + c) * N + j) * B + b] = K[c][j];
-      }
-      // Vx' = Qx + Qux^T k;  Vxx' = 2q I + fx^T (Vxx fx) + Qux^T K.
-#pragma unroll
-      for (int i = 0; i < N; ++i) {
-        float s = Qux[0][i] * kff[0];
-#pragma unroll
-        for (int c = 1; c < C; ++c) s += Qux[c][i] * kff[c];
-        Vx[i] = Qx[i] + s;
-      }
-      float T[N * N];                       // Vxx fx
-#pragma unroll
-      for (int i = 0; i < N; ++i) {
-#pragma unroll
-        for (int j = 0; j < M; ++j) {
-          const float vl = Vxx[i * N + j], vr = Vxx[i * N + M + j];
-          T[i * N + j] = vl * Af[j] + vr * Cf[j];
-          T[i * N + M + j] = vl * Bf[j] + vr * Df[j];
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < M; ++j) {
-#pragma unroll
-        for (int k = 0; k < N; ++k) {
-          const float tt = T[j * N + k], tb = T[(M + j) * N + k];
-          float top = Af[j] * tt + Cf[j] * tb;
-          float bot = Bf[j] * tt + Df[j] * tb;
-          if (k == j) top += 2.0f * q;
-          if (k == M + j) bot += 2.0f * q;
-          float st = Qux[0][j] * K[0][k], sb = Qux[0][M + j] * K[0][k];
-#pragma unroll
-          for (int c = 1; c < C; ++c) {
-            st += Qux[c][j] * K[c][k];
-            sb += Qux[c][M + j] * K[c][k];
-          }
-          Vxx[j * N + k] = top + st;
-          Vxx[(M + j) * N + k] = bot + sb;
-        }
-      }
-    }
-
+  for (int sw = 0; sw < P.sweeps; ++sw) {
+    sweep::backward_pass<M>(ps_out, us_out, zg, yg, g, tgt, iz, W, H, B, b,
+                            Kg, kg);
     // ---- forward: the A candidates -------------------------------------
     float pa[A][N], J[A];
 #pragma unroll
@@ -281,65 +98,34 @@ multi_sweep_kernel(const float* __restrict__ p0g, const float* __restrict__ ps,
     }
     for (int tau = 0; tau < H; ++tau) {
       float pn[N], un[C], zt[C], yt[C], gt[N], kt[C];
-#pragma unroll
-      for (int i = 0; i < N; ++i) { pn[i] = AT(ps_out, tau, i, N); gt[i] = AT(g, tau, i, N); }
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        un[c] = AT(us_out, tau, c, C);
-        zt[c] = AT(zg, tau, c, C);
-        yt[c] = AT(yg, tau, c, C);
-        kt[c] = AT(kg, tau, c, C);
-      }
+      load_row<N>(ps_out, tau, B, b, pn);
+      load_row<N>(g, tau, B, b, gt);
+      load_row<C>(us_out, tau, B, b, un);
+      load_row<C>(zg, tau, B, b, zt);
+      load_row<C>(yg, tau, B, b, yt);
+      load_row<C>(kg, tau, B, b, kt);
+      const float* Kt = Kg + lane(tau * C, 0, N, B, b);
 #pragma unroll
       for (int a = 0; a < A; ++a) {
-        const float alpha = alpha_of(a);
-        float dp[N], ua[C], nxt[N];
-#pragma unroll
-        for (int i = 0; i < N; ++i) dp[i] = pa[a][i] - pn[i];
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          const float* Kc = Kg + ((size_t)tau * C + c) * N * B + b;
-          float s = Kc[0] * dp[0];
-#pragma unroll
-          for (int j = 1; j < N; ++j) s += Kc[(size_t)j * B] * dp[j];
-          ua[c] = (un[c] + alpha * kt[c]) + s;
-        }
-        float tr = 0.0f, ed = 0.0f, ef = 0.0f, ad = 0.0f;
-#pragma unroll
-        for (int i = 0; i < N; ++i) {
-          const float e = pa[a][i] - tgt[i];
-          tr += e * e;
-          ed += gt[i] * dp[i];
-        }
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          const float w = ua[c] - zt[c] + yt[c];
-          ef += ua[c] * ua[c];
-          ad += w * w;
-        }
-        J[a] = J[a] + (q * tr + r * ef + 0.5f * rho * ad + qe * ed);
-        dyn_step<M>(pa[a], ua, iz, dt, nxt);
+        float ua[C], nxt[N];
+        J[a] = J[a] + sweep::cand_step<M>(sweep::alpha_of(a), pa[a], pn, un,
+                                          kt, Kt, B, zt, yt, gt, tgt, iz, W,
+                                          ua, nxt);
 #pragma unroll
         for (int i = 0; i < N; ++i) pa[a][i] = nxt[i];
         if (a > 0) {
-#pragma unroll
-          for (int c = 0; c < C; ++c) AT(uc, (a - 1) * H + tau, c, C) = ua[c];
-#pragma unroll
-          for (int i = 0; i < N; ++i) AT(pc, (a - 1) * H + tau, i, N) = nxt[i];
+          store_row<C>(uc, (a - 1) * H + tau, B, b, ua);
+          store_row<N>(pc, (a - 1) * H + tau, B, b, nxt);
         }
       }
     }
     // ---- terminal cost and select --------------------------------------
+    float pterm[N], gterm[N];
+    load_row<N>(ps_out, H, B, b, pterm);
+    load_row<N>(g, H, B, b, gterm);
 #pragma unroll
     for (int a = 0; a < A; ++a) {
-      float tr = 0.0f, ed = 0.0f;
-#pragma unroll
-      for (int i = 0; i < N; ++i) {
-        const float e = pa[a][i] - tgt[i];
-        tr += e * e;
-        ed += AT(g, H, i, N) * (pa[a][i] - AT(ps_out, H, i, N));
-      }
-      J[a] = J[a] + q * tr + qe * ed;
+      J[a] = sweep::add_terminal<M>(J[a], pa[a], pterm, gterm, tgt, W);
       if (!isfinite(J[a])) J[a] = INFINITY;
     }
     float jmin = J[0];
@@ -353,16 +139,14 @@ multi_sweep_kernel(const float* __restrict__ p0g, const float* __restrict__ ps,
       for (int t = 0; t < H; ++t) {
 #pragma unroll
         for (int i = 0; i < N; ++i)
-          AT(ps_out, t + 1, i, N) = AT(pc, (win - 1) * H + t, i, N);
+          ps_out[lane(t + 1, i, N, B, b)] = pc[lane((win - 1) * H + t, i, N, B, b)];
 #pragma unroll
         for (int c = 0; c < C; ++c)
-          AT(us_out, t, c, C) = AT(uc, (win - 1) * H + t, c, C);
+          us_out[lane(t, c, C, B, b)] = uc[lane((win - 1) * H + t, c, C, B, b)];
       }
     }
-#pragma unroll
-    for (int i = 0; i < N; ++i) AT(ps_out, 0, i, N) = p0[i];
+    store_row<N>(ps_out, 0, B, b, p0);
   }
-#undef AT
 }
 
 template <int M>
@@ -389,7 +173,7 @@ extern "C" int multi_sweep_launch(
                         (const float*)target, (const float*)inv_depth};
   float* out[6] = {(float*)ps_out, (float*)us_out, (float*)K, (float*)k,
                    (float*)pc, (float*)uc};
-  const Params P{H, B, sweeps, q, r, rho, qe, dt, reg};
+  const Params P{H, B, sweeps, {q, r, rho, qe, dt, reg}};
   cudaStream_t s = (cudaStream_t)stream;
   switch (m) {
     case 2: return launch<2>(in, out, P, s);

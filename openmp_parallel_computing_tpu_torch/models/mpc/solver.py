@@ -6,16 +6,25 @@ Solve structure, per scenario batch:
     nominal rollout of the warm start
     ADMM (admm_iters, plus admm_iters_extra when the batch-max primal
     residual still exceeds admm_tol):
-        one multi_sweep kernel launch: ilqr_iters iLQR sweeps (Riccati
-        backward, 4-candidate line search, winner select) against a fixed
-        edge linearization
+        edge_refresh "admm"/"solve": one multi_sweep kernel launch runs
+        ilqr_iters iLQR sweeps (Riccati backward, 4-candidate line search,
+        winner select) against a fixed edge linearization;
+        edge_refresh "ilqr": per sweep, the edge linearization at the
+        current nominal, one unified_sweep launch (or the backward_sweep +
+        forward_sweep pair), then the first-wins pick of the candidates
         u^ = relax*us + (1-relax)*z;  z = clip(u^ + y);  y = y + u^ - z
     feasible rollout of z and its cost
 
-The edge linearization is the analytic value + gradient of the pyramid
-edge cost (``costs.edge_vg_pyramid_xy``), taken once per ADMM iteration
-(``edge_refresh="admm"``) or once per solve at the warm-start trajectory
-(``"solve"``).
+The edge linearization is the value + gradient of the pyramid edge cost:
+the dense analytic sampler (``costs.edge_vg_pyramid_xy``,
+``edge_sampler="analytic"``) or the gather sampler kernel
+(``sampler.edge_vg_lanes``, ``edge_sampler="pallas"``), taken once per
+ADMM iteration (``edge_refresh="admm"``), once per solve at the warm-start
+trajectory (``"solve"``) or before every sweep (``"ilqr"``).
+
+The nominal rollouts are a Python loop of ``sweep._dyn_step`` up to
+``ROLLOUT_SCAN_MAX_BP`` scenarios, and the zero-gain ``forward_sweep``
+kernel above it (the JAX package's two forms and threshold).
 
 Solver state stays in the kernels' lanes layout — batch last, state axis
 in split order — for the whole solve, and across control steps in the
@@ -33,9 +42,14 @@ from typing import NamedTuple
 
 import torch
 
-from openmp_parallel_computing_tpu_torch.models.mpc import costs, sweep
+from openmp_parallel_computing_tpu_torch.models.mpc import costs, sampler, sweep
 from openmp_parallel_computing_tpu_torch.models.mpc.dynamics import CONTROL_DIM
 from openmp_parallel_computing_tpu_torch.utils.config import MPCConfig
+
+# Nominal-rollout form threshold (scenarios): up to this batch the rollout
+# is a loop of _dyn_step, above it the zero-gain forward_sweep kernel. The
+# JAX package's value, kept until the port's own rollout A/B decides it.
+ROLLOUT_SCAN_MAX_BP = 8192
 
 
 def _to_split(a: torch.Tensor) -> torch.Tensor:
@@ -110,7 +124,17 @@ class Solution(NamedTuple):
 class _SweepLanes:
     """Lanes-layout machinery of the sweep backend for one pyramid: layout
     converters, the edge linearization, the whole ADMM + iLQR solve and
-    the final cost."""
+    the final cost.
+
+    ``use_multi``: all sweeps of an ADMM iteration in one multi_sweep
+    launch (the edge term is fixed across them). ``use_unified``: a
+    per-sweep iteration runs the unified kernel, else the split backward +
+    forward pair. The unified kernel keeps its gains in global scratch, so
+    nothing on the card bounds its admission and it is taken for every
+    configuration; setting the attribute to False (on an instance, or on
+    the class for the solves of a loop) selects the split pair."""
+
+    use_unified = True
 
     def __init__(self, pyramid, shape, cfg: MPCConfig):
         self.pyramid = pyramid
@@ -120,6 +144,7 @@ class _SweepLanes:
         self.qe = cfg.q_edge
         self.kw = dict(m=self.m, q=cfg.q_track, r=cfg.r_ctrl, rho=cfg.rho,
                        qe=self.qe, dt=cfg.dt)
+        self.use_multi = cfg.edge_refresh in ("admm", "solve")
 
     # -- layout ------------------------------------------------------------
 
@@ -145,15 +170,23 @@ class _SweepLanes:
     def edge_vals(self, ps_l: torch.Tensor) -> torch.Tensor:
         """Pyramid edge cost along a lanes trajectory -> (h+1, B)."""
         m = self.m
+        if self.cfg.edge_sampler == "pallas":
+            return sampler.edge_vals_lanes(self.pyramid, ps_l[:, :m],
+                                           ps_l[:, m:], *self.shape)
         return costs.edge_cost_pyramid_xy(self.pyramid, ps_l[:, :m],
                                           ps_l[:, m:], *self.shape)
 
     def edge_grads(self, ps_l: torch.Tensor) -> torch.Tensor:
         """Gradient of the summed edge cost along a lanes trajectory,
-        (h+1, n, B), by the analytic sampler."""
+        (h+1, n, B), by the gather sampler kernel (one launch) or the
+        dense analytic sampler."""
         if not self.qe:
             return torch.zeros_like(ps_l)
         m = self.m
+        if self.cfg.edge_sampler == "pallas":
+            _, g = sampler.sample(self.pyramid, ps_l[:, :m], ps_l[:, m:],
+                                  *self.shape, grads=True)
+            return g * (1.0 / (m * len(self.pyramid)))
         _, gx, gy = costs.edge_vg_pyramid_xy(self.pyramid, ps_l[:, :m],
                                              ps_l[:, m:], *self.shape)
         return torch.cat([gx, gy], dim=1)
@@ -161,12 +194,32 @@ class _SweepLanes:
     # -- solve ---------------------------------------------------------------
 
     def rollout(self, p0_l, us_l, izd_l) -> torch.Tensor:
-        """Trajectory (h+1, n, B) of ``us_l`` from ``p0_l``."""
+        """Trajectory (h+1, n, B) of ``us_l`` from ``p0_l``: a loop of
+        ``_dyn_step``."""
         ps = [p0_l]
         for t in range(us_l.shape[0]):
             ps.append(sweep._dyn_step(ps[-1], us_l[t], izd_l, self.cfg.dt,
                                       self.m))
         return torch.stack(ps, dim=0)
+
+    def rollout_nominal(self, p0_l, us_l, z_l, y_l, target_l,
+                        izd_l) -> torch.Tensor:
+        """Trajectory (h+1, n, B) of ``us_l`` from ``p0_l``, in the form
+        the batch selects: the ``_dyn_step`` loop up to
+        ``ROLLOUT_SCAN_MAX_BP`` scenarios, else candidate 0 of a zero-gain
+        ``forward_sweep`` launch (the JAX package's two forms; the ADMM
+        pair only enters the discarded costs)."""
+        if us_l.shape[-1] <= ROLLOUT_SCAN_MAX_BP:
+            return self.rollout(p0_l, us_l, izd_l)
+        zeros = torch.zeros_like
+        h, c, B = us_l.shape
+        n = p0_l.shape[0]
+        ps0 = p0_l.new_zeros((h + 1, n, B))
+        K0 = p0_l.new_zeros((h, c, n, B))
+        ps_c, _, _ = sweep.forward_sweep(p0_l, ps0, us_l, K0, zeros(us_l),
+                                         z_l, y_l, zeros(ps0), target_l,
+                                         izd_l, **self.kw)
+        return ps_c[:, 0].contiguous()       # the kernels take whole arrays
 
     def solve(self, p0_l, target_l, izd_l, us_l, y0_l=None):
         """Full ADMM + iLQR solve in lanes layout.
@@ -177,13 +230,30 @@ class _SweepLanes:
         residual (B,) and the final scaled duals (h, c, B)."""
         cfg, kw = self.cfg, self.kw
 
+        def ilqr_once(us_l, ps_l, z_l, y_l, g_fix=None):
+            g_l = g_fix if g_fix is not None else self.edge_grads(ps_l)
+            args = (z_l, y_l, g_l, target_l, izd_l)
+            if self.use_unified:
+                ps_c, us_c, J = sweep.unified_sweep(p0_l, ps_l, us_l, *args,
+                                                    **kw)
+            else:
+                K, k = sweep.backward_sweep(ps_l, us_l, *args, **kw)
+                ps_c, us_c, J = sweep.forward_sweep(p0_l, ps_l, us_l, K, k,
+                                                    *args, **kw)
+            return (_pick_candidates(J, us_c, 1, 1),
+                    _pick_candidates(J, ps_c, 1, 1))
+
         def admm_body(carry):
             us_l, ps_l, z_l, y_l, g_solve = carry
             g_fix = (self.edge_grads(ps_l) if cfg.edge_refresh == "admm"
                      else g_solve)
-            ps_l, us_l = sweep.multi_sweep(p0_l, ps_l, us_l, z_l, y_l, g_fix,
-                                           target_l, izd_l,
-                                           sweeps=cfg.ilqr_iters, **kw)
+            if self.use_multi:
+                ps_l, us_l = sweep.multi_sweep(p0_l, ps_l, us_l, z_l, y_l,
+                                               g_fix, target_l, izd_l,
+                                               sweeps=cfg.ilqr_iters, **kw)
+            else:
+                for _ in range(cfg.ilqr_iters):
+                    us_l, ps_l = ilqr_once(us_l, ps_l, z_l, y_l, g_fix)
             uh_l = (us_l if cfg.admm_relax == 1.0
                     else cfg.admm_relax * us_l + (1.0 - cfg.admm_relax) * z_l)
             z_l = torch.clamp(uh_l + y_l, -cfg.u_limit, cfg.u_limit)
@@ -197,7 +267,7 @@ class _SweepLanes:
 
         z0 = torch.clamp(us_l, -cfg.u_limit, cfg.u_limit)
         y0 = y0_l if y0_l is not None else torch.zeros_like(us_l)
-        ps_l = self.rollout(p0_l, us_l, izd_l)
+        ps_l = self.rollout_nominal(p0_l, us_l, z0, y0, target_l, izd_l)
         g_solve0 = (self.edge_grads(ps_l) if cfg.edge_refresh == "solve"
                     else None)
         carry = run((us_l, ps_l, z0, y0, g_solve0), cfg.admm_iters)
@@ -206,7 +276,8 @@ class _SweepLanes:
                 carry, carry[0], carry[2], cfg,
                 lambda c: run(c, cfg.admm_iters_extra))
         us_l, ps_l, z_l, y_l, _ = carry
-        ps_final_l = self.rollout(p0_l, z_l, izd_l)
+        ps_final_l = self.rollout_nominal(p0_l, z_l, z_l, y_l, target_l,
+                                          izd_l)
         resid_l = (us_l - z_l).abs().amax(dim=(0, 1))
         return z_l, ps_final_l, resid_l, y_l
 
@@ -244,10 +315,11 @@ class VisualServoMPC:
 
     Holds no parameters: ``cfg`` fixes the problem and the solver budget,
     ``device`` is where scenarios are made and where every input must
-    lie. On a CUDA device the perception and sweep kernels run; on the
-    CPU their plain PyTorch versions do."""
+    lie: the card unless the caller asks for the CPU. On a CUDA device the
+    perception, sampler and sweep kernels run; on the CPU their plain
+    PyTorch versions do."""
 
-    def __init__(self, cfg: MPCConfig | None = None, device="cpu"):
+    def __init__(self, cfg: MPCConfig | None = None, device="cuda"):
         self.cfg = cfg or MPCConfig()
         self.device = torch.device(device)
 

@@ -1,7 +1,7 @@
 """The iLQR sweep of the sweep backend: plain split-layout helpers and the
-multi-sweep kernel wrapper (PyTorch port of the parts of
-``openmp_parallel_computing_tpu.models.mpc.sweep_pallas`` that the
-default solver path runs).
+sweep kernels' wrappers (PyTorch port of
+``openmp_parallel_computing_tpu.models.mpc.sweep_pallas``: ``multi_sweep``,
+``unified_sweep``, ``backward_sweep`` and ``forward_sweep``).
 
 Layout: scenario batch B last everywhere — ps (H+1, n, B), us/z/y
 (H, c, B), gains K (H, c, n, B). The state axis is in SPLIT order
@@ -11,8 +11,11 @@ m x m blocks and applying it is a few elementwise multiply-adds.
 Line search: candidates alpha = (0, 1, 0.5, 0.25). alpha=0 reproduces the
 nominal, so "did anything improve" is the argmin over the candidates.
 
-``multi_sweep`` launches ``csrc/multi_sweep.cu`` on CUDA tensors and runs
-``multi_sweep_plain`` (built from the helpers below) on CPU tensors.
+Each wrapper launches its kernel on CUDA tensors (``csrc/multi_sweep.cu``,
+or an entry point of ``csrc/sweep.cu``; both build on
+``csrc/sweep_steps.cuh``) and runs its ``*_plain`` version, built from the
+helpers below, on CPU tensors. Each counts its launches in
+``<wrapper>.launches``.
 """
 
 from __future__ import annotations
@@ -188,53 +191,116 @@ def _select_winner(J, ps_nom_rows, us_nom, pc, uc):
     return ps_w, us_w
 
 
+def backward_sweep_plain(ps, us, z, y, g, target, inv_depth, *, m: int,
+                         q: float, r: float, rho: float, qe: float,
+                         dt: float, reg: float = REG):
+    """Plain version of ``backward_sweep``: the Riccati backward over
+    tau = H-1 .. 0 about the nominal (ps, us). Returns K (H, c, n, B),
+    k (H, c, B)."""
+    H = us.shape[0]
+    kw = dict(m=m, q=q, r=r, rho=rho, qe=qe, dt=dt, reg=reg)
+    Vx = 2.0 * q * (ps[H] - target) + qe * g[H]
+    Vxx = (2.0 * q * _eye(2 * m, Vx)).expand(2 * m, 2 * m, Vx.shape[-1])
+    Ks, ks = [None] * H, [None] * H
+    for tau in range(H - 1, -1, -1):
+        Ks[tau], ks[tau], Vx, Vxx = _backward_step(
+            ps[tau], us[tau], z[tau], y[tau], g[tau], inv_depth, target, Vx,
+            Vxx, **kw)
+    return torch.stack(Ks), torch.stack(ks)
+
+
+def forward_sweep_plain(p0, ps, us, K, k, z, y, g, target, inv_depth, *,
+                        m: int, q: float, r: float, rho: float, qe: float,
+                        dt: float):
+    """Plain version of ``forward_sweep``: the line-searched rollout of
+    every candidate for the gains (K, k). Returns ps_c (H+1, A, n, B) with
+    row 0 = p0, us_c (H, A, c, B) and J (A, B); candidate 0 (alpha = 0)
+    is the nominal's rollout and cost."""
+    H = us.shape[0]
+    A = len(ALPHAS)
+    kw = dict(m=m, q=q, r=r, rho=rho, qe=qe, dt=dt)
+    p_cand = [p0] * A
+    J = torch.zeros((A,) + p0.shape[1:], dtype=p0.dtype, device=p0.device)
+    ps_rows, us_rows = [torch.stack(p_cand)], []
+    for tau in range(H):
+        us_a, p_cand = _forward_cand_step(
+            K[tau], k[tau], ps[tau], us[tau], z[tau], y[tau], g[tau],
+            inv_depth, target, p_cand, J, **kw)
+        us_rows.append(torch.stack(us_a))
+        ps_rows.append(torch.stack(p_cand))
+    _terminal_cost_accum(ps[H], g[H], target, p_cand, J, q=q, qe=qe)
+    return torch.stack(ps_rows), torch.stack(us_rows), J
+
+
+def unified_sweep_plain(p0, ps, us, z, y, g, target, inv_depth, *, m: int,
+                        q: float, r: float, rho: float, qe: float, dt: float,
+                        reg: float = REG):
+    """Plain version of ``unified_sweep``: the backward, then the candidate
+    forward against its gains."""
+    kw = dict(m=m, q=q, r=r, rho=rho, qe=qe, dt=dt)
+    K, k = backward_sweep_plain(ps, us, z, y, g, target, inv_depth, reg=reg,
+                                **kw)
+    return forward_sweep_plain(p0, ps, us, K, k, z, y, g, target, inv_depth,
+                               **kw)
+
+
 def multi_sweep_plain(p0, ps, us, z, y, g, target, inv_depth, *, m: int,
                       q: float, r: float, rho: float, qe: float, dt: float,
                       sweeps: int, reg: float = REG):
-    """Plain version of ``multi_sweep``: ``sweeps`` rounds of Riccati
-    backward, 4-candidate forward and winner select with the edge
-    linearization ``g`` held fixed. Returns the final nominal (ps
-    (H+1, n, B) with row 0 = p0, us (H, c, B))."""
-    H = us.shape[0]
-    A = len(ALPHAS)
-    ps_nom = ps.clone()
-    us_nom = us.clone()
-    kw = dict(m=m, q=q, r=r, rho=rho, qe=qe, dt=dt)
+    """Plain version of ``multi_sweep``: ``sweeps`` rounds of the unified
+    sweep and the winner select with the edge linearization ``g`` held
+    fixed. Returns the final nominal (ps (H+1, n, B) with row 0 = p0,
+    us (H, c, B))."""
+    ps_nom, us_nom = ps.clone(), us.clone()
+    kw = dict(m=m, q=q, r=r, rho=rho, qe=qe, dt=dt, reg=reg)
     for _ in range(sweeps):
-        pterm, gterm = ps_nom[H], g[H]
-        Vx = 2.0 * q * (pterm - target) + qe * gterm
-        Vxx = (2.0 * q * _eye(2 * m, Vx)).expand(2 * m, 2 * m, Vx.shape[-1])
-        Ks, ks = [None] * H, [None] * H
-        for tau in range(H - 1, -1, -1):
-            Ks[tau], ks[tau], Vx, Vxx = _backward_step(
-                ps_nom[tau], us_nom[tau], z[tau], y[tau], g[tau], inv_depth,
-                target, Vx, Vxx, reg=reg, **kw)
-        p_cand = [p0] * A
-        J = torch.zeros((A,) + p0.shape[1:], dtype=p0.dtype, device=p0.device)
-        uc, pc = [], []
-        for tau in range(H):
-            us_a, p_cand = _forward_cand_step(
-                Ks[tau], ks[tau], ps_nom[tau], us_nom[tau], z[tau], y[tau],
-                g[tau], inv_depth, target, p_cand, J, **kw)
-            uc.append(torch.stack(us_a[1:]))
-            pc.append(torch.stack(p_cand[1:]))
-        _terminal_cost_accum(pterm, gterm, target, p_cand, J, q=q, qe=qe)
+        ps_c, us_c, J = unified_sweep_plain(p0, ps_nom, us_nom, z, y, g,
+                                            target, inv_depth, **kw)
         ps_w, us_nom = _select_winner(J, ps_nom[1:], us_nom,
-                                      torch.stack(pc, dim=1),
-                                      torch.stack(uc, dim=1))
+                                      ps_c[1:, 1:].transpose(0, 1),
+                                      us_c[:, 1:].transpose(0, 1))
         ps_nom = torch.cat([p0[None], ps_w], dim=0)
     return ps_nom, us_nom
 
 
-def _lib():
-    lib = _build.load("multi_sweep")
-    fn = lib.multi_sweep_launch
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 14
-                       + [ctypes.c_int] * 3 + [ctypes.c_float] * 6
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
+def _on_card(what: str, m: int, arrays: dict) -> bool:
+    """Check a sweep wrapper's inputs, ``{name: (tensor, shape)}``: every
+    shape, float32, one device. False for CPU tensors (the plain version
+    runs); True for CUDA tensors, after checking that the kernel is built
+    for ``m`` and every input is contiguous."""
+    dev = next(iter(arrays.values()))[0].device
+    for name, (t, shape) in arrays.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{what}: {name} has shape {tuple(t.shape)}, "
+                             f"expected {shape}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{what}: {name} is {t.dtype}, not float32")
+        if t.device != dev:
+            raise ValueError(f"{what}: {name} is on {t.device}, not {dev}")
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {dev}")
+    if m not in KERNEL_FEATURES:
+        raise ValueError(f"{what} kernel is built for m in "
+                         f"{KERNEL_FEATURES}, not {m}")
+    for name, (t, _) in arrays.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+    return True
+
+
+def _lanes_shapes(m: int, H: int, B: int, **arrays) -> dict:
+    """``{name: (tensor, expected shape)}`` for the named sweep arrays."""
+    n, c = 2 * m, CONTROL_DIM
+    want = {"p0": (n, B), "ps": (H + 1, n, B), "us": (H, c, B),
+            "z": (H, c, B), "y": (H, c, B), "g": (H + 1, n, B),
+            "K": (H, c, n, B), "k": (H, c, B), "target": (n, B),
+            "inv_depth": (m, B)}
+    return {name: (t, want[name]) for name, t in arrays.items()}
+
+
+_PTR, _INT, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 def multi_sweep(p0, ps, us, z, y, g, target, inv_depth, *, m: int,
@@ -248,51 +314,128 @@ def multi_sweep(p0, ps, us, z, y, g, target, inv_depth, *, m: int,
     plain version; CUDA tensors launch ``csrc/multi_sweep.cu``."""
     n, c = 2 * m, CONTROL_DIM
     H, B = us.shape[0], us.shape[-1]
-    shapes = {"p0": (p0, (n, B)), "ps": (ps, (H + 1, n, B)),
-              "us": (us, (H, c, B)), "z": (z, (H, c, B)),
-              "y": (y, (H, c, B)), "g": (g, (H + 1, n, B)),
-              "target": (target, (n, B)), "inv_depth": (inv_depth, (m, B))}
-    dev = p0.device
-    for name, (t, shape) in shapes.items():
-        if tuple(t.shape) != shape:
-            raise ValueError(f"multi_sweep: {name} has shape "
-                             f"{tuple(t.shape)}, expected {shape}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"multi_sweep: {name} is {t.dtype}, not float32")
-        if t.device != dev:
-            raise ValueError(f"multi_sweep: {name} is on {t.device}, "
-                             f"p0 on {dev}")
     kw = dict(m=m, q=q, r=r, rho=rho, qe=qe, dt=dt, sweeps=sweeps, reg=reg)
-    if dev.type == "cpu":
+    if not _on_card("multi_sweep", m, _lanes_shapes(
+            m, H, B, p0=p0, ps=ps, us=us, z=z, y=y, g=g, target=target,
+            inv_depth=inv_depth)):
         return multi_sweep_plain(p0, ps, us, z, y, g, target, inv_depth, **kw)
-    if dev.type != "cuda":
-        raise ValueError(f"multi_sweep: unsupported device {dev}")
-    if m not in KERNEL_FEATURES:
-        raise ValueError(f"multi_sweep kernel is built for m in "
-                         f"{KERNEL_FEATURES}, not {m}")
-    for name, (t, _) in shapes.items():
-        if not t.is_contiguous():
-            raise ValueError(f"multi_sweep: {name} must be contiguous")
     A = len(ALPHAS)
-    f32 = dict(dtype=torch.float32, device=dev)
+    f32 = dict(dtype=torch.float32, device=p0.device)
     ps_out = torch.empty((H + 1, n, B), **f32)
     us_out = torch.empty((H, c, B), **f32)
     K = torch.empty((H, c, n, B), **f32)
     k = torch.empty((H, c, B), **f32)
     pc = torch.empty((A - 1, H, n, B), **f32)
     uc = torch.empty((A - 1, H, c, B), **f32)
-    fn = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(m, p0.data_ptr(), ps.data_ptr(), us.data_ptr(), z.data_ptr(),
-                 y.data_ptr(), g.data_ptr(), target.data_ptr(),
-                 inv_depth.data_ptr(), ps_out.data_ptr(), us_out.data_ptr(),
-                 K.data_ptr(), k.data_ptr(), pc.data_ptr(), uc.data_ptr(),
-                 H, B, sweeps, q, r, rho, qe, dt, reg, stream)
-    if err:
-        raise RuntimeError(f"multi_sweep kernel launch failed: CUDA error {err}")
+    fn = _build.function("multi_sweep", "multi_sweep_launch",
+                         [_INT] + [_PTR] * 14 + [_INT] * 3 + [_F32] * 6
+                         + [_PTR])
+    ptrs = [t.data_ptr() for t in (p0, ps, us, z, y, g, target, inv_depth,
+                                   ps_out, us_out, K, k, pc, uc)]
+    _build.launch(fn, "multi_sweep", p0, m, *ptrs, H, B, sweeps, q, r, rho,
+                  qe, dt, reg)
     multi_sweep.launches += 1
     return ps_out, us_out
 
 
 multi_sweep.launches = 0
+
+
+def _candidates_out(H: int, n: int, B: int, dev):
+    """Empty ps_c (H+1, A, n, B), us_c (H, A, c, B), J (A, B)."""
+    A = len(ALPHAS)
+    f32 = dict(dtype=torch.float32, device=dev)
+    return (torch.empty((H + 1, A, n, B), **f32),
+            torch.empty((H, A, CONTROL_DIM, B), **f32),
+            torch.empty((A, B), **f32))
+
+
+def unified_sweep(p0, ps, us, z, y, g, target, inv_depth, *, m: int,
+                  q: float, r: float, rho: float, qe: float, dt: float,
+                  reg: float = REG):
+    """One iLQR sweep in one launch: the Riccati backward, then the
+    line-searched forward of every candidate. Inputs as ``multi_sweep``.
+    Returns ps_c (H+1, A, n, B) with row 0 = p0, us_c (H, A, c, B) and
+    J (A, B), as ``forward_sweep``. CPU tensors run the plain version;
+    CUDA tensors launch ``unified_sweep_launch`` of ``csrc/sweep.cu``,
+    with the gains in global scratch."""
+    n, c = 2 * m, CONTROL_DIM
+    H, B = us.shape[0], us.shape[-1]
+    kw = dict(m=m, q=q, r=r, rho=rho, qe=qe, dt=dt, reg=reg)
+    if not _on_card("unified_sweep", m, _lanes_shapes(
+            m, H, B, p0=p0, ps=ps, us=us, z=z, y=y, g=g, target=target,
+            inv_depth=inv_depth)):
+        return unified_sweep_plain(p0, ps, us, z, y, g, target, inv_depth,
+                                   **kw)
+    out = _candidates_out(H, n, B, p0.device)
+    K = torch.empty((H, c, n, B), dtype=torch.float32, device=p0.device)
+    k = torch.empty((H, c, B), dtype=torch.float32, device=p0.device)
+    fn = _build.function("sweep", "unified_sweep_launch",
+                         [_INT] + [_PTR] * 13 + [_INT] * 2 + [_F32] * 6
+                         + [_PTR])
+    ptrs = [t.data_ptr() for t in (p0, ps, us, z, y, g, target, inv_depth,
+                                   *out, K, k)]
+    _build.launch(fn, "unified_sweep", p0, m, *ptrs, H, B, q, r, rho, qe, dt,
+                  reg)
+    unified_sweep.launches += 1
+    return out
+
+
+unified_sweep.launches = 0
+
+
+def backward_sweep(ps, us, z, y, g, target, inv_depth, *, m: int, q: float,
+                   r: float, rho: float, qe: float, dt: float,
+                   reg: float = REG):
+    """The Riccati backward of one sweep alone: returns the gains
+    K (H, c, n, B), k (H, c, B). CPU tensors run the plain version; CUDA
+    tensors launch ``backward_sweep_launch`` of ``csrc/sweep.cu``."""
+    n, c = 2 * m, CONTROL_DIM
+    H, B = us.shape[0], us.shape[-1]
+    if not _on_card("backward_sweep", m, _lanes_shapes(
+            m, H, B, ps=ps, us=us, z=z, y=y, g=g, target=target,
+            inv_depth=inv_depth)):
+        return backward_sweep_plain(ps, us, z, y, g, target, inv_depth, m=m,
+                                    q=q, r=r, rho=rho, qe=qe, dt=dt, reg=reg)
+    K = torch.empty((H, c, n, B), dtype=torch.float32, device=ps.device)
+    k = torch.empty((H, c, B), dtype=torch.float32, device=ps.device)
+    fn = _build.function("sweep", "backward_sweep_launch",
+                         [_INT] + [_PTR] * 9 + [_INT] * 2 + [_F32] * 6
+                         + [_PTR])
+    ptrs = [t.data_ptr() for t in (ps, us, z, y, g, target, inv_depth, K, k)]
+    _build.launch(fn, "backward_sweep", ps, m, *ptrs, H, B, q, r, rho, qe, dt,
+                  reg)
+    backward_sweep.launches += 1
+    return K, k
+
+
+backward_sweep.launches = 0
+
+
+def forward_sweep(p0, ps, us, K, k, z, y, g, target, inv_depth, *, m: int,
+                  q: float, r: float, rho: float, qe: float, dt: float):
+    """The line-searched forward of one sweep for the gains (K, k): returns
+    ps_c (H+1, A, n, B) with row 0 = p0, us_c (H, A, c, B) and J (A, B);
+    with zero gains candidate 0 is the rollout of ``us``. CPU tensors run
+    the plain version; CUDA tensors launch ``forward_sweep_launch`` of
+    ``csrc/sweep.cu``."""
+    n = 2 * m
+    H, B = us.shape[0], us.shape[-1]
+    kw = dict(m=m, q=q, r=r, rho=rho, qe=qe, dt=dt)
+    if not _on_card("forward_sweep", m, _lanes_shapes(
+            m, H, B, p0=p0, ps=ps, us=us, K=K, k=k, z=z, y=y, g=g,
+            target=target, inv_depth=inv_depth)):
+        return forward_sweep_plain(p0, ps, us, K, k, z, y, g, target,
+                                   inv_depth, **kw)
+    out = _candidates_out(H, n, B, p0.device)
+    fn = _build.function("sweep", "forward_sweep_launch",
+                         [_INT] + [_PTR] * 13 + [_INT] * 2 + [_F32] * 5
+                         + [_PTR])
+    ptrs = [t.data_ptr() for t in (p0, ps, us, K, k, z, y, g, target,
+                                   inv_depth, *out)]
+    _build.launch(fn, "forward_sweep", p0, m, *ptrs, H, B, q, r, rho, qe, dt)
+    forward_sweep.launches += 1
+    return out
+
+
+forward_sweep.launches = 0

@@ -2,9 +2,10 @@
 
 Same fields and defaults as ``openmp_parallel_computing_tpu.utils.config.
 MPCConfig`` (the JAX package documents the history behind each default).
-The port implements one slice of the JAX solver — the ``"sweep"`` backend
-with the multi-sweep kernel, the analytic edge sampler and float32 storage
-— so any other value of a field that selects a code path raises at
+The port implements part of the JAX solver — the ``"sweep"`` backend with
+the multi-sweep kernel (``edge_refresh`` "admm"/"solve") or the per-sweep
+kernels (``"ilqr"``), the analytic or the gather edge sampler, and float32
+storage — so any other value of a field that selects a code path raises at
 construction instead of being ignored.
 """
 
@@ -27,8 +28,11 @@ class MPCConfig:
     q_edge: float = 0.1               # edge-map attraction weight
     backend: str = "sweep"
     # "admm": edge term linearized once per ADMM iteration; "solve": once
-    # per solve at the warm-start trajectory.
+    # per solve at the warm-start trajectory; "ilqr": before every sweep.
     edge_refresh: str = "admm"
+    # "analytic": dense separable sampler (torch matmuls); "pallas" keeps
+    # the JAX package's name and selects the CUDA gather sampler
+    # (models/mpc/sampler.py, csrc/sampler.cu).
     edge_sampler: str = "analytic"
     sampler_dtype: str = "float32"
     full_solve: bool = False
@@ -44,8 +48,8 @@ class MPCConfig:
     def __post_init__(self):
         unsupported = {
             "backend": (self.backend, ("sweep",)),
-            "edge_refresh": (self.edge_refresh, ("admm", "solve")),
-            "edge_sampler": (self.edge_sampler, ("analytic",)),
+            "edge_refresh": (self.edge_refresh, ("admm", "solve", "ilqr")),
+            "edge_sampler": (self.edge_sampler, ("analytic", "pallas")),
             "sampler_dtype": (self.sampler_dtype, ("float32",)),
             "full_solve": (self.full_solve, (False,)),
         }

@@ -40,7 +40,7 @@ def test_solve_batch_matches_pinned_golden():
         jax.random.PRNGKey(int(gold["scen_key"])), int(gold["n_scen"]))
     rng = np.random.default_rng(int(gold["edge_seed"]))
     edge = torch.from_numpy(rng.uniform(0, 255, (64, 128)).astype(np.float32))
-    sol = VisualServoMPC(convert.config(jcfg)).solve_batch(
+    sol = VisualServoMPC(convert.config(jcfg), "cpu").solve_batch(
         edge, convert.scenario(scen))
     np.testing.assert_allclose(sol.us.numpy(), gold["us"], rtol=1e-3,
                                atol=1e-3)
@@ -117,7 +117,7 @@ def test_receding_horizon_frames_matches_jax(monkeypatch, H, m, B, steps,
     jax.effects_barrier()
 
     tlog = _TorchGateLog(monkeypatch)
-    u0s, cost_seq, scen = VisualServoMPC(convert.config(jcfg)).\
+    u0s, cost_seq, scen = VisualServoMPC(convert.config(jcfg), "cpu").\
         receding_horizon_frames(torch.from_numpy(frames),
                                 convert.scenario(JaxScenario(**arrs)), steps)
     assert u0s.shape == (steps, B, 6) and cost_seq.shape == (steps, B)
@@ -134,9 +134,64 @@ def test_receding_horizon_frames_matches_jax(monkeypatch, H, m, B, steps,
                                    rtol=LOOP_TOL, atol=LOOP_TOL)
 
 
+def test_receding_horizon_frames_ilqr_matches_jax(monkeypatch):
+    """The per-sweep path (edge_refresh="ilqr", gather sampler) against
+    JAX's, whose sampler and sweep kernels run in interpret mode."""
+    H, m, B, steps = 6, 2, 8, 4
+    frames = _frames(2, 72, 120, seed=5)
+    rng = np.random.default_rng(9)
+    arrs = dict(p0=rng.uniform(-0.6, 0.6, (B, 2 * m)),
+                target=rng.uniform(-0.5, 0.5, (B, 2 * m)),
+                depth=rng.uniform(1.0, 5.0, (B, m)),
+                us0=np.zeros((B, H, 6)))
+    arrs = {k: v.astype(np.float32) for k, v in arrs.items()}
+    jcfg = JaxConfig(horizon=H, num_features=m, edge_refresh="ilqr",
+                     edge_sampler="pallas")
+
+    jax.clear_caches()
+    jlog = _JaxGateLog(monkeypatch)
+    ju0s, jcosts, jscen = JaxMPC(jcfg).receding_horizon_frames(
+        jnp.asarray(frames), JaxScenario(**{k: jnp.asarray(v)
+                                            for k, v in arrs.items()}), steps)
+    ju0s, jcosts = np.asarray(ju0s), np.asarray(jcosts)
+    jax.effects_barrier()
+
+    tlog = _TorchGateLog(monkeypatch)
+    u0s, cost_seq, scen = VisualServoMPC(convert.config(jcfg), "cpu").\
+        receding_horizon_frames(torch.from_numpy(frames),
+                                convert.scenario(JaxScenario(**arrs)), steps)
+    assert len(tlog.fired) == steps and tlog.fired == jlog.fired
+    np.testing.assert_allclose(u0s.numpy(), ju0s, rtol=LOOP_TOL,
+                               atol=LOOP_TOL)
+    np.testing.assert_allclose(cost_seq.numpy(), jcosts, rtol=LOOP_TOL,
+                               atol=LOOP_TOL)
+    for name in ("p0", "us0", "y0"):
+        np.testing.assert_allclose(getattr(scen, name).numpy(),
+                                   np.asarray(getattr(jscen, name)),
+                                   rtol=LOOP_TOL, atol=LOOP_TOL)
+
+
+def test_solver_defaults_to_the_card():
+    """No device argument means the card: scenarios are made there, and
+    without one the solver raises instead of falling back to the CPU."""
+    mpc = VisualServoMPC(MPCConfig(horizon=4, num_features=2))
+    assert mpc.device == torch.device("cuda")
+    gen = torch.Generator().manual_seed(0)
+    if torch.cuda.is_available():
+        assert mpc.random_scenarios(3, gen).p0.device.type == "cuda"
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            mpc.random_scenarios(3, gen)
+    frame = torch.from_numpy(_frames(1, 40, 64, seed=2)[0])
+    cpu_scen = VisualServoMPC(MPCConfig(horizon=4, num_features=2),
+                              "cpu").random_scenarios(3, gen)
+    with pytest.raises(ValueError, match="solver on cuda"):
+        mpc.control_step(frame, cpu_scen)
+
+
 def test_receding_horizon_fixed_frame_and_control_step():
     cfg = MPCConfig(horizon=6, num_features=2, admm_iters_extra=0)
-    mpc = VisualServoMPC(cfg)
+    mpc = VisualServoMPC(cfg, "cpu")
     frame = torch.from_numpy(_frames(1, 40, 64, seed=2)[0])
     scen = mpc.random_scenarios(4, torch.Generator().manual_seed(0))
     u0s, costs_, out = mpc.receding_horizon(frame, scen, 3)
@@ -150,7 +205,7 @@ def test_receding_horizon_fixed_frame_and_control_step():
 
 
 def test_random_scenarios_follow_the_generator():
-    mpc = VisualServoMPC(MPCConfig(horizon=5, num_features=3))
+    mpc = VisualServoMPC(MPCConfig(horizon=5, num_features=3), "cpu")
     a = mpc.random_scenarios(6, torch.Generator().manual_seed(3))
     b = mpc.random_scenarios(6, torch.Generator().manual_seed(3))
     for x, y in zip(a[:4], b[:4]):
@@ -182,7 +237,7 @@ def test_layout_helpers_match_jax():
 
 @pytest.mark.parametrize("field,value", [
     ("backend", "fused"), ("full_solve", True), ("sampler_dtype", "bfloat16"),
-    ("edge_sampler", "pallas"), ("edge_refresh", "ilqr")])
+    ("edge_sampler", "xla"), ("backend", "assoc")])
 def test_config_rejects_unimplemented_paths(field, value):
     with pytest.raises(ValueError, match=field):
         MPCConfig(**{field: value})
@@ -211,7 +266,7 @@ def test_port_imports_without_jax():
         "from openmp_parallel_computing_tpu_torch.ops import pipeline,"
         " xla_ref\n"
         "from openmp_parallel_computing_tpu_torch.models.mpc import (costs,"
-        " dynamics, riccati_lanes, solver, sweep)\n"
+        " dynamics, riccati_lanes, sampler, solver, sweep)\n"
         "import chip_smoke\n"
         "bad = [k for k in sys.modules if k.startswith('jax')"
         " and sys.modules[k] is not None]\n"

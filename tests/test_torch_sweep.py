@@ -1,7 +1,8 @@
-"""Sweep helpers and the multi-sweep wrapper of the PyTorch port against
-the JAX package's Pallas sweep code (interpret mode). On CPU tensors the
-wrapper runs its plain version. Float32 throughout; the two frameworks
-order some sums differently, so results are held to rtol 1e-5."""
+"""Sweep helpers and the sweep wrappers of the PyTorch port (multi-sweep,
+unified, backward, forward) against the JAX package's Pallas sweep code
+(interpret mode). On CPU tensors each wrapper runs its plain version.
+Float32 throughout; the two frameworks order some sums differently, so
+results are held to rtol 1e-5 (summed costs J to atol 1e-5)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -158,3 +159,119 @@ def test_multi_sweep_wrapper_checks_inputs():
         sweep.multi_sweep(*bad, m=2, sweeps=1, **KW)
     sweep.multi_sweep(*arrs, m=2, sweeps=1, **KW)
     assert sweep.multi_sweep.launches == before
+
+
+SWEEP_KW = dict(KW, m=4)
+J_ATOL = 1e-5      # J sums H stage costs (tests/test_sweep_paths.py)
+
+
+def _close_cands(got, ref):
+    """(ps_c, us_c, J) against JAX's: states and controls at the module's
+    tolerance, the summed costs with atol 1e-5."""
+    for a, b in zip(got[:2], ref[:2]):
+        _close(a, b)
+    np.testing.assert_allclose(got[2].numpy(), np.asarray(ref[2]), rtol=RTOL,
+                               atol=J_ATOL)
+
+
+def test_unified_sweep_matches_jax_kernel():
+    arrs = _inputs(4, 6, 128, seed=31)
+    got = sweep.unified_sweep(*map(torch.from_numpy, arrs), **SWEEP_KW)
+    ref = jax_sp.unified_sweep(*map(jnp.asarray, arrs), **SWEEP_KW)
+    assert got[0].shape == (7, 4, 8, 128) and got[1].shape == (6, 4, 6, 128)
+    _close_cands(got, ref)
+    for a in range(len(sweep.ALPHAS)):             # row 0 = p0, every candidate
+        np.testing.assert_array_equal(got[0][0, a].numpy(), arrs[0])
+
+
+def test_backward_and_forward_sweeps_match_jax_kernels():
+    p0, ps, us, z, y, g, target, izd = _inputs(4, 6, 128, seed=32)
+    rest = (z, y, g, target, izd)
+    K, k = sweep.backward_sweep(*map(torch.from_numpy, (ps, us, *rest)),
+                                **SWEEP_KW)
+    rK, rk = jax_sp.backward_sweep(*map(jnp.asarray, (ps, us, *rest)),
+                                   **SWEEP_KW)
+    assert K.shape == (6, 6, 8, 128) and k.shape == (6, 6, 128)
+    _close(K, rK)
+    _close(k, rk)
+    # the forward half on the same gains
+    gains = (np.array(rK), np.array(rk))
+    got = sweep.forward_sweep(*map(torch.from_numpy, (p0, ps, us, *gains,
+                                                      *rest)), **SWEEP_KW)
+    ref = jax_sp.forward_sweep(*map(jnp.asarray, (p0, ps, us, *gains,
+                                                  *rest)), **SWEEP_KW)
+    _close_cands(got, ref)
+
+
+def test_split_sweep_equals_unified():
+    p0, ps, us, z, y, g, target, izd = map(torch.from_numpy,
+                                           _inputs(4, 6, 128, seed=33))
+    rest = (z, y, g, target, izd)
+    K, k = sweep.backward_sweep(ps, us, *rest, **SWEEP_KW)
+    split = sweep.forward_sweep(p0, ps, us, K, k, *rest, **SWEEP_KW)
+    unified = sweep.unified_sweep(p0, ps, us, *rest, **SWEEP_KW)
+    for a, b in zip(split, unified):
+        assert torch.equal(a, b)
+
+
+def test_zero_gain_forward_sweep_is_the_rollout():
+    """Candidate 0 of a zero-gain forward sweep is the ``_dyn_step``
+    rollout of the controls (the nominal-rollout form above
+    ROLLOUT_SCAN_MAX_BP); with zero gains every candidate is."""
+    m, H, B = 4, 6, 37
+    p0, ps, us, z, y, g, target, izd = map(torch.from_numpy,
+                                           _inputs(m, H, B, seed=34))
+    n, c = 2 * m, sweep.CONTROL_DIM
+    ps_c, _, _ = sweep.forward_sweep(
+        p0, torch.zeros_like(ps), us, torch.zeros((H, c, n, B)),
+        torch.zeros((H, c, B)), z, y, torch.zeros_like(g), target, izd,
+        **SWEEP_KW)
+    rows = [p0]
+    for t in range(H):
+        rows.append(sweep._dyn_step(rows[-1], us[t], izd, KW["dt"], m))
+    for a in range(len(sweep.ALPHAS)):
+        assert torch.equal(ps_c[:, a], torch.stack(rows))
+
+
+def test_sweep_wrappers_check_inputs():
+    p0, ps, us, z, y, g, target, izd = map(torch.from_numpy,
+                                           _inputs(2, 3, 8, seed=2))
+    rest = (z, y, g, target, izd)
+    K, k = sweep.backward_sweep(ps, us, *rest, m=2, **KW)
+    with pytest.raises(ValueError, match="shape"):
+        sweep.unified_sweep(p0, ps, us, *rest, m=4, **KW)
+    with pytest.raises(ValueError, match="K has shape"):
+        sweep.forward_sweep(p0, ps, us, K[:, :, :2], k, *rest, m=2, **KW)
+    with pytest.raises(TypeError):
+        sweep.backward_sweep(ps.double(), us, *rest, m=2, **KW)
+    counts = (sweep.unified_sweep.launches, sweep.backward_sweep.launches,
+              sweep.forward_sweep.launches)
+    sweep.unified_sweep(p0, ps, us, *rest, m=2, **KW)
+    sweep.forward_sweep(p0, ps, us, K, k, *rest, m=2, **KW)
+    assert counts == (sweep.unified_sweep.launches,
+                      sweep.backward_sweep.launches,
+                      sweep.forward_sweep.launches)   # CPU: no launches
+
+
+def test_sweep_kernels_rebuild_when_the_shared_header_changes(tmp_path,
+                                                              monkeypatch):
+    """csrc/multi_sweep.cu and csrc/sweep.cu include sweep_steps.cuh:
+    editing it changes both libraries' names (so neither reuses a stale
+    build) and no other kernel's."""
+    import shutil
+
+    from openmp_parallel_computing_tpu_torch import _build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    names = ("multi_sweep", "sweep", "sampler")
+    before = {n: _build._target(n)[0].name for n in names}
+    header = csrc / "sweep_steps.cuh"
+    assert header in _build._sources("sweep")
+    assert header in _build._sources("multi_sweep")
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: _build._target(n)[0].name for n in names}
+    assert after["multi_sweep"] != before["multi_sweep"]
+    assert after["sweep"] != before["sweep"]
+    assert after["sampler"] == before["sampler"]

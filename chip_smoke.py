@@ -24,7 +24,13 @@ Any failure raises and the script exits non-zero.
    conv3x3) bit-exact with their plain versions on the ring, the
    half-mega and 6MP photos, odd and 1-3-row frames, at passes 1 and 3,
    both borders and every conv mode of the CPU tests, with kernel and
-   plain times per pass at 1080p and 6MP.
+   plain times per pass at 1080p and 6MP. The one-launch solve kernel
+   within MULTI_SWEEP_TOL at m=8, H=20, B=4096 with 5 ADMM iterations of
+   1 sweep (the main path's relax 1.3), and at smaller shapes, and against
+   the chain of multi_sweep launches and eager updates (bit equality
+   reported); the batched Riccati kernel within RICCATI_TOL on the fused
+   path's own expansions at B=4096 (stride-0 cost Hessians) and on random
+   inputs at n = 4, 8, 16; both timed by CUDA events and the profiler.
 4. The main MPC path: ``VisualServoMPC.receding_horizon_frames`` at H=20,
    m=8, edge_refresh="solve" on the 8-frame 1080p ring at B=4096 and
    B=256 (solves/s), launch counts of every MPC kernel checked against
@@ -42,6 +48,14 @@ Any failure raises and the script exits non-zero.
    "pallas" in turns at B=4096 and 256 (solves/s); the two nominal
    rollout forms timed at B=256, 4096 and 16384; a torch.profiler split
    of the per-sweep path at B=4096.
+4d. The one-launch solve: the loop with full_solve=True,
+   edge_refresh="solve", admm_iters=5, admm_iters_extra=0 at B=4096 and
+   256 (one full_solve launch a step, no multi_sweep), the card vs CPU
+   checks, and an A/B (measurement only) against the same configuration
+   with full_solve=False, in turns.
+4e. The fused backend: the loop with backend="fused" at B=4096 and 256
+   (ilqr_iters x ADMM iterations batched Riccati launches a step), the
+   card vs CPU checks, and a torch.profiler split at B=4096.
 5. The image entry point: ``cli.main`` for grayscale, edge and blur at
    CLI_PASSES passes on the 1080p frame (launch counts = warm-up + timed
    run), the staged grayscale -> sobel driver and ``EdgeBatchRunner`` on
@@ -101,6 +115,29 @@ MPC_ROWS = {   # kernel -> (source, TPU kernel it replaces)
     "backward_sweep": ("csrc/sweep.cu", "models/mpc/sweep_pallas.py:225"),
     "forward_sweep": ("csrc/sweep.cu", "models/mpc/sweep_pallas.py:256"),
 }
+
+# The one-launch solve (phase 4d) and the fused backend (phase 4e).
+SOLVE_ROWS = {   # kernel -> (source, TPU kernel it replaces)
+    "full_solve": ("csrc/full_solve.cu", "models/mpc/sweep_pallas.py:797"),
+    "riccati_backward": ("csrc/riccati.cu",
+                         "models/mpc/riccati_pallas.py:125"),
+}
+FULL_ITERS = 5                   # ADMM iterations of the one-launch path
+# (m, H, B, sweeps, admm_iters, relax) of the full_solve checks: the main
+# path's, then other feature counts, sweep counts and relaxations.
+FULL_SHAPES = ((M, H, 4096, 1, FULL_ITERS, 1.3), (4, 8, 256, 2, 3, 1.0),
+               (2, 5, 100, 1, 2, 1.6))
+FULL_BATCHES = ((4096, 20), (256, 40))     # (scenarios, timed steps)
+FULL_AB_BATCHES = ((4096, 10), (256, 20))
+# The Riccati kernel vs its plain version: both float32, FMA contraction
+# and the sum order of nvcc differ in the last bits along the horizon.
+RICCATI_TOL = 1e-4               # rtol = atol
+RICCATI_SHAPES = ((5, 6, 8, 6), (5, 4, 16, 6), (37, 5, 4, 6))  # (B,H,n,c)
+FUSED_BATCHES = ((4096, 5), (256, 5))      # (scenarios, timed steps)
+# Depth of the new paths' card-vs-CPU loops and of the fused profile, cut
+# below LOOP_STEPS for the time limit: their CPU solves (the fused one
+# runs its Riccati recursion as ~20k eager ops) set these phases' time.
+FULL_LOOP_STEPS, FUSED_LOOP_STEPS, FUSED_PROFILE_STEPS = 6, 4, 3
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, 700 W): HBM3 bytes
 # per second and FP32 operations per second outside the tensor cores.
@@ -512,6 +549,184 @@ def phase_mpc_kernels(frames) -> dict:
     return rows
 
 
+def device_us(fn, key: str, iters: int):
+    """Mean device microseconds per launch of the kernels whose name holds
+    ``key`` over ``iters`` calls of ``fn``, from torch.profiler; None when
+    the profiler records no such kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for e in prof.key_averages():
+        us = (getattr(e, "self_device_time_total", None)
+              or getattr(e, "self_cuda_time_total", 0))
+        if e.device_type == torch.autograd.DeviceType.CUDA and key in e.key \
+                and us > 0:
+            total, count = total + us, count + e.count
+    return total / count if count else None
+
+
+def riccati_ops(b: int, h: int, n: int, c: int) -> float:
+    """FP32 operations of the batched Riccati backward (a multiply-add
+    counts two): per step Vxx fx and fx^T (Vxx fx) (2 n^3 each), Vxx fu,
+    fu^T (Vxx fx) and Qux^T K (n^2 c each), Quu (n c^2), the vector
+    products, the 6 x 6 Cholesky and the n + 1 triangular solves."""
+    per = (2 * (2 * n ** 3 + 3 * n * n * c + n * n + 2 * n * c + n * c * c
+                + c * c * (n + 1)) + c ** 3)
+    return float(b * h * per)
+
+
+def full_solve_chain(fargs, kw):
+    """The one-launch solve's chain as the scan path runs it on the card:
+    ``full_solve_plain`` with each ADMM iteration's sweeps one multi_sweep
+    kernel launch and the updates eager."""
+    from openmp_parallel_computing_tpu_torch.models.mpc import sweep
+
+    plain = sweep.multi_sweep_plain
+    sweep.multi_sweep_plain = sweep.multi_sweep
+    try:
+        return sweep.full_solve_plain(*fargs, **kw)
+    finally:
+        sweep.multi_sweep_plain = plain
+
+
+def full_solve_inputs(frame, m, h, b, sweeps, iters, relax):
+    """full_solve's inputs as the solver forms them (``sweep_inputs``'s
+    rollout and edge gradient) and its keywords."""
+    args, kw = sweep_inputs(frame, m, h, b)
+    p0, ps, us, _, _, g, tgt, izd = args
+    kw.update(sweeps=sweeps, admm_iters=iters, u_limit=1.0, relax=relax)
+    return (p0, ps, us, g, tgt, izd), kw
+
+
+def fused_riccati_inputs(frame, batch: int):
+    """The inputs backward_batched receives on the fused path: one
+    control_step at ``batch`` scenarios with the wrapper watched; the last
+    sweep's (nonzero controls, stride-0 cost Hessians)."""
+    import torch
+
+    from openmp_parallel_computing_tpu_torch.models.mpc import (
+        VisualServoMPC, riccati_lanes)
+    from openmp_parallel_computing_tpu_torch.utils.config import MPCConfig
+
+    cfg = MPCConfig(horizon=H, num_features=M, backend="fused",
+                    edge_refresh="solve")
+    mpc = VisualServoMPC(cfg, "cuda")
+    scen = mpc.random_scenarios(batch, torch.Generator().manual_seed(11))
+    seen = []
+    orig = riccati_lanes.backward_batched
+
+    def watch(*args, **kw):
+        seen.append(args)
+        return orig(*args, **kw)
+
+    watch.launches = 0      # the wrapper counts on its module-level name
+    riccati_lanes.backward_batched = watch
+    try:
+        mpc.control_step(frame, scen)
+    finally:
+        riccati_lanes.backward_batched = orig
+    return seen[-1]
+
+
+def random_riccati(rng, b: int, h: int, n: int, c: int):
+    """Dense random backward_batched inputs on the card, as the JAX
+    package's kernel test makes them."""
+    import numpy as np
+    import torch
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).cuda()
+
+    return (t(rng.normal(size=(b, h, n, n)) * 0.2 + np.eye(n)),
+            t(rng.normal(size=(b, h, n, c)) * 0.3),
+            t(rng.normal(size=(b, h, n))), t(rng.normal(size=(b, h, c))),
+            t(np.broadcast_to(2.0 * np.eye(n), (b, h, n, n))),
+            t(np.broadcast_to(0.5 * np.eye(c), (b, h, c, c))),
+            t(np.zeros((b, h, c, n))), t(rng.normal(size=(b, n))),
+            t(np.broadcast_to(2.0 * np.eye(n), (b, n, n))))
+
+
+def phase_solve_kernels(frames) -> dict:
+    """The one-launch solve and the batched Riccati kernels against their
+    plain versions; returns their rows of the summary (launches filled in
+    by phases 4d and 4e)."""
+    import numpy as np
+    import torch
+
+    from openmp_parallel_computing_tpu_torch.models.mpc import (
+        riccati_lanes, sweep)
+
+    rows = {}
+    frame = frames[0]
+    names = ("ps", "z", "us")
+    worst = 0.0
+    for m, h, b, sweeps, iters, relax in FULL_SHAPES:
+        fargs, kw = full_solve_inputs(frame, m, h, b, sweeps, iters, relax)
+        tag = f"m={m} H={h} B={b} {iters}x{sweeps} relax={relax}"
+        got = sweep.full_solve(*fargs, **kw)
+        err = check_close(f"full_solve {tag}", names, got,
+                          sweep.full_solve_plain(*fargs, **kw),
+                          MULTI_SWEEP_TOL)
+        worst = max(worst, err) if m == M else worst
+        chain = full_solve_chain(fargs, kw)
+        same = {k: torch.equal(a, c) for k, a, c in zip(names, got, chain)}
+        diff = max((a - c).abs().max().item() for a, c in zip(got, chain))
+        log(f"[kernel] full_solve {tag} vs the chain of multi_sweep launches "
+            f"and eager updates: bit-equal {same}, max abs diff {diff:.3e}")
+        check_close(f"full_solve vs chain {tag}", names, got, chain,
+                    MULTI_SWEEP_TOL)
+    m, h, b, sweeps, iters, relax = FULL_SHAPES[0]
+    fargs, kw = full_solve_inputs(frame, m, h, b, sweeps, iters, relax)
+    out = sweep.full_solve(*fargs, **kw)
+    ms = cuda_time_ms(lambda: sweep.full_solve(*fargs, **kw), 10)
+    plain_ms = cuda_time_ms(lambda: sweep.full_solve_plain(*fargs, **kw), 1)
+    dev = device_us(lambda: sweep.full_solve(*fargs, **kw),
+                    "full_solve_kernel", 5)
+    bnd = bound(nbytes(*fargs, *out), iters * sweeps * sweep_ops(m, h, b))
+    log(f"[kernel] full_solve m={m} H={h} B={b} {iters}x{sweeps}: kernel "
+        f"{ms:.4f} ms (device {dev} us), plain {plain_ms:.4f} ms, bound "
+        f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+    rows["full_solve"] = kernel_row("full_solve", *SOLVE_ROWS["full_solve"],
+                                    worst, ms, plain_ms, bnd, device_us=dev)
+
+    rng = np.random.default_rng(19)
+    cases = {f"random B={b} H={h} n={n}": random_riccati(rng, b, h, n, c)
+             for b, h, n, c in RICCATI_SHAPES}
+    main = fused_riccati_inputs(frame, 4096)
+    main_tag = f"fused path B=4096 H={H} n={2 * M}"
+    cases[main_tag] = main
+    for tag, args in cases.items():
+        got = riccati_lanes.backward_batched(*args)
+        plain = riccati_lanes.backward_batched_plain(*args)
+        err = check_close(f"riccati_backward {tag}", ("K", "k"),
+                          [a.movedim(0, -1) for a in got],
+                          [a.movedim(0, -1) for a in plain], RICCATI_TOL)
+    log(f"[kernel] riccati_backward strides on the fused path: "
+        f"{[tuple(a.stride()) for a in main]}")
+    out = riccati_lanes.backward_batched(*main)
+    ms = cuda_time_ms(lambda: riccati_lanes.backward_batched(*main), 20)
+    plain_ms = cuda_time_ms(
+        lambda: riccati_lanes.backward_batched_plain(*main), 2)
+    dev = device_us(lambda: riccati_lanes.backward_batched(*main),
+                    "riccati_kernel", 10)
+    bnd = bound(nbytes(*main, *out), riccati_ops(4096, H, 2 * M, 6))
+    log(f"[kernel] riccati_backward {main_tag}: kernel {ms:.4f} ms (device "
+        f"{dev} us), plain {plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+        f"({bnd['bound_by']}; inputs counted at their broadcast size)")
+    rows["riccati_backward"] = kernel_row(
+        "riccati_backward", *SOLVE_ROWS["riccati_backward"], err, ms,
+        plain_ms, bnd, device_us=dev)
+    return rows
+
+
 class GateLog:
     """Records the adaptive-budget gate's decisions by wrapping the
     solver's ``_adaptive_extra`` (observation only)."""
@@ -542,14 +757,17 @@ class GateLog:
 
 def counters() -> dict:
     """The launch counters of the MPC kernels' wrappers, by kernel."""
-    from openmp_parallel_computing_tpu_torch.models.mpc import sampler, sweep
+    from openmp_parallel_computing_tpu_torch.models.mpc import (
+        riccati_lanes, sampler, sweep)
     from openmp_parallel_computing_tpu_torch.ops import pipeline
 
     return {"edge_pyramid": pipeline.edge_pyramid_base, "sampler": sampler.sample,
             "multi_sweep": sweep.multi_sweep,
             "unified_sweep": sweep.unified_sweep,
             "backward_sweep": sweep.backward_sweep,
-            "forward_sweep": sweep.forward_sweep}
+            "forward_sweep": sweep.forward_sweep,
+            "full_solve": sweep.full_solve,
+            "riccati_backward": riccati_lanes.backward_batched}
 
 
 def reset_counts() -> None:
@@ -568,18 +786,29 @@ def read_counts() -> dict:
 def expected_launches(cfg, batch: int, steps: int, fired: int,
                       unified: bool = True) -> dict:
     """Launches of a receding-horizon run: one perception launch a step;
-    per ADMM iteration one multi_sweep launch (edge_refresh admm/solve) or
-    ilqr_iters per-sweep launches; the gather sampler once per
-    linearization and once a step for the final cost; and two zero-gain
-    forward sweeps a step above ROLLOUT_SCAN_MAX_BP scenarios."""
+    the fused backend: ilqr_iters batched Riccati launches per ADMM
+    iteration and nothing else; the sweep backend: one full_solve launch a
+    step (full_solve with edge_refresh "solve"), else per ADMM iteration
+    one multi_sweep launch (edge_refresh admm/solve) or ilqr_iters
+    per-sweep launches; the gather sampler once per linearization and once
+    a step for the final cost; and a zero-gain forward sweep for each
+    nominal and final rollout above ROLLOUT_SCAN_MAX_BP scenarios (the
+    full_solve kernel does its own final rollout)."""
     from openmp_parallel_computing_tpu_torch.models.mpc import solver
 
     admm = steps * cfg.admm_iters + fired * cfg.admm_iters_extra
     want = dict.fromkeys(("edge_pyramid", "multi_sweep", "unified_sweep",
-                          "backward_sweep", "forward_sweep", "sampler_vg",
-                          "sampler_vals"), 0)
+                          "backward_sweep", "forward_sweep", "full_solve",
+                          "riccati_backward", "sampler_vg", "sampler_vals"),
+                         0)
     want["edge_pyramid"] = steps
-    if cfg.edge_refresh == "ilqr":
+    full = cfg.full_solve and cfg.edge_refresh == "solve"
+    if cfg.backend == "fused":
+        want["riccati_backward"] = cfg.ilqr_iters * admm
+        return want
+    if full:
+        want["full_solve"] = steps
+    elif cfg.edge_refresh == "ilqr":
         sweeps = cfg.ilqr_iters * admm
         for k in (("unified_sweep",) if unified
                   else ("backward_sweep", "forward_sweep")):
@@ -591,7 +820,7 @@ def expected_launches(cfg, batch: int, steps: int, fired: int,
                               "solve": steps}[cfg.edge_refresh]
         want["sampler_vals"] = steps
     if batch > solver.ROLLOUT_SCAN_MAX_BP:
-        want["forward_sweep"] += 2 * steps
+        want["forward_sweep"] += (1 if full else 2) * steps
     return want
 
 
@@ -644,10 +873,11 @@ def run_loop(cfg, frames, batch: int, steps: int, label: str,
     return rate, launches
 
 
-def card_vs_cpu(frames, cfg, label: str) -> None:
+def card_vs_cpu(frames, cfg, label: str, steps: int = LOOP_STEPS) -> None:
     """The loop on the card against the port's CPU path, 32 scenarios:
-    each step from the card's own state solved on both (within STEP_TOL,
-    the same gate branch), then the free-running loop's costs."""
+    each of ``steps`` steps from the card's own state solved on both
+    (within STEP_TOL, the same gate branch), then the free-running loop's
+    costs."""
     import numpy as np
     import torch
 
@@ -658,7 +888,7 @@ def card_vs_cpu(frames, cfg, label: str) -> None:
     start = cpu.random_scenarios(32, torch.Generator().manual_seed(7))
     s = _to(start, "cuda")
     worst = {"u0s": 0.0, "costs": 0.0}
-    for i in range(LOOP_STEPS):
+    for i in range(steps):
         f = frames[i % RING][None].contiguous()
         with GateLog(solver) as g_gpu:
             u_g, c_g, s_next = mpc.receding_horizon_frames(f, s, 1)
@@ -672,15 +902,15 @@ def card_vs_cpu(frames, cfg, label: str) -> None:
                                        err_msg=f"{label} step {i} {what}")
             worst[what] = max(worst[what], (a - b.cpu()).abs().max().item())
         s = s_next
-    log(f"[{label}] card vs CPU, 32 scenarios, {LOOP_STEPS} steps each from "
+    log(f"[{label}] card vs CPU, 32 scenarios, {steps} steps each from "
         f"the same state: max abs err u0s {worst['u0s']:.3e}, costs "
         f"{worst['costs']:.3e}")
     # The free-running loop: rounding differences grow step over step.
-    u_c, c_c, _ = cpu.receding_horizon_frames(frames.cpu(), start, LOOP_STEPS)
+    u_c, c_c, _ = cpu.receding_horizon_frames(frames.cpu(), start, steps)
     u_g, c_g, _ = mpc.receding_horizon_frames(frames, _to(start, "cuda"),
-                                              LOOP_STEPS)
+                                              steps)
     rel = ((c_g.cpu() - c_c).abs() / c_c.abs()).max().item()
-    log(f"[{label}] card vs CPU, free-running {LOOP_STEPS} steps: max abs "
+    log(f"[{label}] card vs CPU, free-running {steps} steps: max abs "
         f"err u0s {(u_g.cpu() - u_c).abs().max().item():.3e}, max rel err "
         f"costs {rel:.3e}")
     np.testing.assert_allclose(c_g.cpu().numpy(), c_c.numpy(),
@@ -809,29 +1039,27 @@ def phase_ab(frames) -> None:
             f"{forms['kernel'][0]:.4f} ms; max abs diff {err:.3e}")
 
 
-def phase_profile(frames) -> None:
-    """Where the time goes on the per-sweep path at B=4096: device time by
-    kernel under torch.profiler, busy share of the profiled wall."""
+def phase_profile(frames, cfg, label: str,
+                  steps: int = PROFILE_STEPS) -> None:
+    """Where the time goes on a path at B=4096: device time by kernel
+    under torch.profiler, busy share of the profiled wall."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from openmp_parallel_computing_tpu_torch.models.mpc import VisualServoMPC
-    from openmp_parallel_computing_tpu_torch.utils.config import MPCConfig
 
-    cfg = MPCConfig(horizon=H, num_features=M, edge_refresh="ilqr",
-                    edge_sampler="pallas")
     mpc = VisualServoMPC(cfg, "cuda")
     scen = mpc.random_scenarios(4096, torch.Generator().manual_seed(0))
     _, _, scen = mpc.receding_horizon_frames(frames, scen, 2)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    _, _, scen = mpc.receding_horizon_frames(frames, scen, PROFILE_STEPS)
+    _, _, scen = mpc.receding_horizon_frames(frames, scen, steps)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        mpc.receding_horizon_frames(frames, scen, PROFILE_STEPS)
+        mpc.receding_horizon_frames(frames, scen, steps)
         torch.cuda.synchronize()
         prof_wall = time.perf_counter() - t0
     cuda = torch.autograd.DeviceType.CUDA
@@ -844,17 +1072,60 @@ def phase_profile(frames) -> None:
         elif e.key.startswith("aten::"):
             host_ops += e.count
     busy = sum(d[0] for d in dev) / 1e3
-    log(f"[profile] ilqr/pallas B=4096, {PROFILE_STEPS} steps: unprofiled "
+    log(f"[profile] {label} B=4096, {steps} steps: unprofiled "
         f"wall {1e3 * wall:.1f} ms, profiled wall {1e3 * prof_wall:.1f} ms, "
         f"device busy {busy:.1f} ms ({busy / (1e3 * prof_wall):.2f} of the "
-        f"profiled wall), {host_ops / PROFILE_STEPS:.0f} aten ops a step")
-    ours = ("sample_kernel", "sweep_kernel", "edge_pyramid", "multi_sweep")
+        f"profiled wall), {host_ops / steps:.0f} aten ops a step")
+    ours = ("sample_kernel", "sweep_kernel", "edge_pyramid", "multi_sweep",
+            "full_solve_kernel", "riccati_kernel")
     for us, count, key in sorted(dev, reverse=True):
         if any(k in key for k in ours):
             log(f"[profile]   port kernel {us / 1e3:9.3f} ms {count:6d}x "
                 f"({us / count:.2f} us each)  {key[:70]}")
     for us, count, key in sorted(dev, reverse=True)[:12]:
         log(f"[profile]   {us / 1e3:9.3f} ms {count:6d}x  {key[:90]}")
+
+
+def phase_full(frames, rows: dict) -> None:
+    """The one-launch solve: full_solve=True, edge_refresh="solve", a fixed
+    budget of FULL_ITERS ADMM iterations; then, measurement only, the same
+    configuration with full_solve=False in turns."""
+    import dataclasses
+
+    from openmp_parallel_computing_tpu_torch.utils.config import MPCConfig
+
+    cfg = MPCConfig(horizon=H, num_features=M, edge_refresh="solve",
+                    full_solve=True, admm_iters=FULL_ITERS,
+                    admm_iters_extra=0)
+    for batch, steps in FULL_BATCHES:
+        _, launches = run_loop(cfg, frames, batch, steps, "full")
+        if batch == FULL_BATCHES[0][0]:
+            rows["full_solve"]["launches"] = launches["full_solve"]
+    card_vs_cpu(frames, cfg, "full", FULL_LOOP_STEPS)
+    for batch, steps in FULL_AB_BATCHES:
+        rates = {True: [], False: []}
+        for flag in (True, False, False, True):
+            rate, _ = run_loop(dataclasses.replace(cfg, full_solve=flag),
+                               frames, batch, steps, f"ab full_solve={flag}")
+            rates[flag].append(rate)
+        log(f"[ab] full_solve A/B B={batch}, {FULL_ITERS} ADMM iterations: "
+            f"solves/s full_solve {rates[True]}, multi_sweep scan "
+            f"{rates[False]}")
+
+
+def phase_fused(frames, rows: dict) -> None:
+    """The fused backend: backend="fused", edge_refresh="solve", the other
+    fields at their defaults."""
+    from openmp_parallel_computing_tpu_torch.utils.config import MPCConfig
+
+    cfg = MPCConfig(horizon=H, num_features=M, backend="fused",
+                    edge_refresh="solve")
+    for batch, steps in FUSED_BATCHES:
+        _, launches = run_loop(cfg, frames, batch, steps, "fused")
+        if batch == FUSED_BATCHES[0][0]:
+            rows["riccati_backward"]["launches"] = launches["riccati_backward"]
+    card_vs_cpu(frames, cfg, "fused", FUSED_LOOP_STEPS)
+    phase_profile(frames, cfg, "fused", FUSED_PROFILE_STEPS)
 
 
 def _to(scen, device):
@@ -1114,6 +1385,7 @@ def main() -> int:
     phase_device()
     phase_build()
     from openmp_parallel_computing_tpu_torch import data
+    from openmp_parallel_computing_tpu_torch.utils.config import MPCConfig
 
     frames = frame_ring(data.load_frame_planar("cuda"), RING)
     t0 = time.perf_counter()
@@ -1121,20 +1393,33 @@ def main() -> int:
               "6mp": load_planar(data.six_mp_path(), "cuda")}
     log(f"[data] photos decoded in {time.perf_counter() - t0:.1f} s: "
         f"{ {k: tuple(v.shape) for k, v in photos.items()} }")
-    rows = phase_kernels(frames)
-    rows.update(phase_mpc_kernels(frames))
-    rows.update(phase_image_kernels(frames, photos))
-    phase_slice(frames, rows)
-    phase_ilqr(frames, rows)
-    phase_ab(frames)
-    phase_profile(frames)
-    phase_image_cli(frames, photos, rows)
+    rows = {}
+    ilqr = MPCConfig(horizon=H, num_features=M, edge_refresh="ilqr",
+                     edge_sampler="pallas")
+    for name, run in (
+            ("kernels", lambda: rows.update(phase_kernels(frames))),
+            ("mpc kernels", lambda: rows.update(phase_mpc_kernels(frames))),
+            ("image kernels",
+             lambda: rows.update(phase_image_kernels(frames, photos))),
+            ("solve kernels",
+             lambda: rows.update(phase_solve_kernels(frames))),
+            ("slice", lambda: phase_slice(frames, rows)),
+            ("ilqr", lambda: phase_ilqr(frames, rows)),
+            ("ab", lambda: phase_ab(frames)),
+            ("profile", lambda: phase_profile(frames, ilqr, "ilqr/pallas")),
+            ("full", lambda: phase_full(frames, rows)),
+            ("fused", lambda: phase_fused(frames, rows)),
+            ("image cli", lambda: phase_image_cli(frames, photos, rows))):
+        t0 = time.perf_counter()
+        run()
+        log(f"[time] phase {name}: {time.perf_counter() - t0:.1f} s")
     for name, row in rows.items():
         if not row["launches"]:
             raise AssertionError(f"kernel {name} was not launched on its path")
     log(nvidia_smi_line())
     log(json.dumps({"kernels": [rows[k] for k in (
-        "edge_pyramid", "multi_sweep", *IMAGE_ROWS, *MPC_ROWS)]}))
+        "edge_pyramid", "multi_sweep", *IMAGE_ROWS, *MPC_ROWS,
+        *SOLVE_ROWS)]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -4,9 +4,9 @@
 // openmp_parallel_computing_tpu/models/mpc/sweep_pallas.py (called through
 // `multi_sweep`) and its helpers `_backward_step`, `_spd_solve_lanes`
 // (riccati_pallas.py), `_forward_cand_step`, `_terminal_cost_accum`,
-// `_select_winner` and `_dyn_step`. The Riccati step, the candidate step and
-// `dyn_step` come from csrc/sweep_steps.cuh, which csrc/sweep.cu (the
-// per-sweep kernels) shares. Per sweep, per scenario:
+// `_select_winner` and `_dyn_step`. The whole sweep (`sweep::ilqr_sweep`)
+// comes from csrc/sweep_steps.cuh, which csrc/sweep.cu (the per-sweep
+// kernels) and csrc/full_solve.cu share. Per sweep, per scenario:
 //   1. Riccati backward over tau = H-1 .. 0: closed-form IBVS Jacobian
 //      (four diagonal m x m blocks in split layout) and fu, the expansion
 //      of tracking + effort + ADMM augmentation + linearized edge term,
@@ -44,12 +44,10 @@
 
 namespace {
 
-using sweep::A;
 using sweep::C;
 using sweep::kThreads;
 using sweep::lane;
 using sweep::load_row;
-using sweep::store_row;
 
 struct Params {
   int H, B, sweeps;
@@ -85,68 +83,9 @@ multi_sweep_kernel(const float* __restrict__ p0g, const float* __restrict__ ps,
 #pragma unroll
     for (int c = 0; c < C; ++c) us_out[lane(t, c, C, B, b)] = us[lane(t, c, C, B, b)];
 
-  for (int sw = 0; sw < P.sweeps; ++sw) {
-    sweep::backward_pass<M>(ps_out, us_out, zg, yg, g, tgt, iz, W, H, B, b,
-                            Kg, kg);
-    // ---- forward: the A candidates -------------------------------------
-    float pa[A][N], J[A];
-#pragma unroll
-    for (int a = 0; a < A; ++a) {
-      J[a] = 0.0f;
-#pragma unroll
-      for (int i = 0; i < N; ++i) pa[a][i] = p0[i];
-    }
-    for (int tau = 0; tau < H; ++tau) {
-      float pn[N], un[C], zt[C], yt[C], gt[N], kt[C];
-      load_row<N>(ps_out, tau, B, b, pn);
-      load_row<N>(g, tau, B, b, gt);
-      load_row<C>(us_out, tau, B, b, un);
-      load_row<C>(zg, tau, B, b, zt);
-      load_row<C>(yg, tau, B, b, yt);
-      load_row<C>(kg, tau, B, b, kt);
-      const float* Kt = Kg + lane(tau * C, 0, N, B, b);
-#pragma unroll
-      for (int a = 0; a < A; ++a) {
-        float ua[C], nxt[N];
-        J[a] = J[a] + sweep::cand_step<M>(sweep::alpha_of(a), pa[a], pn, un,
-                                          kt, Kt, B, zt, yt, gt, tgt, iz, W,
-                                          ua, nxt);
-#pragma unroll
-        for (int i = 0; i < N; ++i) pa[a][i] = nxt[i];
-        if (a > 0) {
-          store_row<C>(uc, (a - 1) * H + tau, B, b, ua);
-          store_row<N>(pc, (a - 1) * H + tau, B, b, nxt);
-        }
-      }
-    }
-    // ---- terminal cost and select --------------------------------------
-    float pterm[N], gterm[N];
-    load_row<N>(ps_out, H, B, b, pterm);
-    load_row<N>(g, H, B, b, gterm);
-#pragma unroll
-    for (int a = 0; a < A; ++a) {
-      J[a] = sweep::add_terminal<M>(J[a], pa[a], pterm, gterm, tgt, W);
-      if (!isfinite(J[a])) J[a] = INFINITY;
-    }
-    float jmin = J[0];
-#pragma unroll
-    for (int a = 1; a < A; ++a) jmin = fminf(jmin, J[a]);
-    int win = 0;
-#pragma unroll
-    for (int a = A - 1; a >= 0; --a)
-      if (J[a] == jmin) win = a;                 // first wins
-    if (win > 0) {
-      for (int t = 0; t < H; ++t) {
-#pragma unroll
-        for (int i = 0; i < N; ++i)
-          ps_out[lane(t + 1, i, N, B, b)] = pc[lane((win - 1) * H + t, i, N, B, b)];
-#pragma unroll
-        for (int c = 0; c < C; ++c)
-          us_out[lane(t, c, C, B, b)] = uc[lane((win - 1) * H + t, c, C, B, b)];
-      }
-    }
-    store_row<N>(ps_out, 0, B, b, p0);
-  }
+  for (int sw = 0; sw < P.sweeps; ++sw)
+    sweep::ilqr_sweep<M>(p0, tgt, iz, ps_out, us_out, zg, yg, g, W, H, B, b,
+                         Kg, kg, pc, uc);
 }
 
 template <int M>

@@ -1,5 +1,6 @@
-// The iLQR sweep's per-scenario steps, shared by csrc/multi_sweep.cu and
-// csrc/sweep.cu: one source of the recursion, as `_backward_step`,
+// The iLQR sweep's per-scenario steps, shared by csrc/multi_sweep.cu,
+// csrc/full_solve.cu and csrc/sweep.cu: one source of the recursion, as
+// `_backward_step`,
 // `_forward_step` and `_dyn_step` of
 // openmp_parallel_computing_tpu/models/mpc/sweep_pallas.py are for the TPU
 // kernels. Each function works on one scenario held by the calling thread.
@@ -321,6 +322,81 @@ __device__ __forceinline__ float add_terminal(float J, const float* pa,
     ed += gterm[i] * (pa[i] - pterm[i]);
   }
   return J + W.q * tr + W.qe * ed;
+}
+
+// One iLQR sweep with a winner select, about the nominal held in place in
+// ps_nom (H+1, N, B) and us_nom (H, C, B), with the ADMM pair (z, y) and the
+// edge linearization g fixed: the backward pass into the gains (Kg, kg), the
+// forward of the A candidates alpha = (0, 1, 0.5, 0.25) with the non-nominal
+// ones stored in pc (A-1, H, N, B) and uc (A-1, H, C, B), the terminal cost,
+// then a first-wins argmin with a non-finite cost counted as +inf. The
+// winner's stored trajectory replaces the nominal (a choice, never a one-hot
+// product: 0 * NaN would poison the winner); row 0 of ps_nom is set to p0.
+template <int M>
+__device__ __forceinline__ void ilqr_sweep(
+    const float* p0, const float* tgt, const float* iz, float* ps_nom,
+    float* us_nom, const float* zg, const float* yg, const float* g,
+    const Weights& W, int H, size_t B, int b, float* Kg, float* kg,
+    float* pc, float* uc) {
+  constexpr int N = 2 * M;
+  backward_pass<M>(ps_nom, us_nom, zg, yg, g, tgt, iz, W, H, B, b, Kg, kg);
+  // ---- forward: the A candidates ---------------------------------------
+  float pa[A][N], J[A];
+#pragma unroll
+  for (int a = 0; a < A; ++a) {
+    J[a] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < N; ++i) pa[a][i] = p0[i];
+  }
+  for (int tau = 0; tau < H; ++tau) {
+    float pn[N], un[C], zt[C], yt[C], gt[N], kt[C];
+    load_row<N>(ps_nom, tau, B, b, pn);
+    load_row<N>(g, tau, B, b, gt);
+    load_row<C>(us_nom, tau, B, b, un);
+    load_row<C>(zg, tau, B, b, zt);
+    load_row<C>(yg, tau, B, b, yt);
+    load_row<C>(kg, tau, B, b, kt);
+    const float* Kt = Kg + lane(tau * C, 0, N, B, b);
+#pragma unroll
+    for (int a = 0; a < A; ++a) {
+      float ua[C], nxt[N];
+      J[a] = J[a] + cand_step<M>(alpha_of(a), pa[a], pn, un, kt, Kt, B, zt,
+                                 yt, gt, tgt, iz, W, ua, nxt);
+#pragma unroll
+      for (int i = 0; i < N; ++i) pa[a][i] = nxt[i];
+      if (a > 0) {
+        store_row<C>(uc, (a - 1) * H + tau, B, b, ua);
+        store_row<N>(pc, (a - 1) * H + tau, B, b, nxt);
+      }
+    }
+  }
+  // ---- terminal cost and select ----------------------------------------
+  float pterm[N], gterm[N];
+  load_row<N>(ps_nom, H, B, b, pterm);
+  load_row<N>(g, H, B, b, gterm);
+#pragma unroll
+  for (int a = 0; a < A; ++a) {
+    J[a] = add_terminal<M>(J[a], pa[a], pterm, gterm, tgt, W);
+    if (!isfinite(J[a])) J[a] = INFINITY;
+  }
+  float jmin = J[0];
+#pragma unroll
+  for (int a = 1; a < A; ++a) jmin = fminf(jmin, J[a]);
+  int win = 0;
+#pragma unroll
+  for (int a = A - 1; a >= 0; --a)
+    if (J[a] == jmin) win = a;                   // first wins
+  if (win > 0) {
+    for (int t = 0; t < H; ++t) {
+#pragma unroll
+      for (int i = 0; i < N; ++i)
+        ps_nom[lane(t + 1, i, N, B, b)] = pc[lane((win - 1) * H + t, i, N, B, b)];
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+        us_nom[lane(t, c, C, B, b)] = uc[lane((win - 1) * H + t, c, C, B, b)];
+    }
+  }
+  store_row<N>(ps_nom, 0, B, b, p0);
 }
 
 }  // namespace sweep

@@ -1,7 +1,7 @@
-"""The visual-servo MPC engine, sweep backend (PyTorch port of
+"""The visual-servo MPC engine, sweep and fused backends (PyTorch port of
 ``openmp_parallel_computing_tpu.models.mpc.solver``).
 
-Solve structure, per scenario batch:
+Sweep backend (the default), per scenario batch:
 
     nominal rollout of the warm start
     ADMM (admm_iters, plus admm_iters_extra when the batch-max primal
@@ -14,6 +14,19 @@ Solve structure, per scenario batch:
         forward_sweep pair), then the first-wins pick of the candidates
         u^ = relax*us + (1-relax)*z;  z = clip(u^ + y);  y = y + u^ - z
     feasible rollout of z and its cost
+
+With ``full_solve=True`` and ``edge_refresh="solve"`` everything after the
+nominal rollout and the one edge linearization — the ADMM loop and the
+feasible rollout — is one ``full_solve`` kernel launch; the duals then
+start at zero and are not returned.
+
+Fused backend (``backend="fused"``, ``_solve_batch_fused``): the same ADMM
+loop around an iLQR solve in the scenario-first layout, whose Riccati
+backward is one ``riccati_lanes.backward_batched`` launch per sweep over the
+dense linearization and cost expansion; the forward tries alpha =
+(1, 0.5, 0.25) and keeps the best only if it lowers the cost. The
+receding-horizon loops of this backend are a Python loop over whole
+solves.
 
 The edge linearization is the value + gradient of the pyramid edge cost:
 the dense analytic sampler (``costs.edge_vg_pyramid_xy``,
@@ -42,7 +55,14 @@ from typing import NamedTuple
 
 import torch
 
-from openmp_parallel_computing_tpu_torch.models.mpc import costs, sampler, sweep
+from openmp_parallel_computing_tpu_torch.models.mpc import (
+    costs,
+    dynamics,
+    riccati,
+    riccati_lanes,
+    sampler,
+    sweep,
+)
 from openmp_parallel_computing_tpu_torch.models.mpc.dynamics import CONTROL_DIM
 from openmp_parallel_computing_tpu_torch.utils.config import MPCConfig
 
@@ -50,6 +70,10 @@ from openmp_parallel_computing_tpu_torch.utils.config import MPCConfig
 # is a loop of _dyn_step, above it the zero-gain forward_sweep kernel. The
 # JAX package's value, kept until the port's own rollout A/B decides it.
 ROLLOUT_SCAN_MAX_BP = 8192
+
+# The fused backend's line-search candidates (the reference backends'; the
+# sweep kernels use sweep.ALPHAS = (0, 1, 0.5, 0.25)).
+_ALPHAS = (1.0, 0.5, 0.25)
 
 
 def _to_split(a: torch.Tensor) -> torch.Tensor:
@@ -118,7 +142,9 @@ class Solution(NamedTuple):
     ps: torch.Tensor        # (B, H+1, 2m) predicted feature trajectory
     cost: torch.Tensor      # (B,) final trajectory cost (unaugmented)
     primal_residual: torch.Tensor   # (B,) max |us - z| over the horizon
-    dual: torch.Tensor | None = None  # (B, H, 6) final scaled duals
+    # (B, H, 6) final scaled duals when Scenario.y0 was given; None on the
+    # full_solve path
+    dual: torch.Tensor | None = None
 
 
 class _SweepLanes:
@@ -132,7 +158,9 @@ class _SweepLanes:
     forward pair. The unified kernel keeps its gains in global scratch, so
     nothing on the card bounds its admission and it is taken for every
     configuration; setting the attribute to False (on an instance, or on
-    the class for the solves of a loop) selects the split pair."""
+    the class for the solves of a loop) selects the split pair.
+    ``use_full``: the whole ADMM loop in one full_solve launch
+    (``full_solve=True`` with ``edge_refresh="solve"``)."""
 
     use_unified = True
 
@@ -145,6 +173,13 @@ class _SweepLanes:
         self.kw = dict(m=self.m, q=cfg.q_track, r=cfg.r_ctrl, rho=cfg.rho,
                        qe=self.qe, dt=cfg.dt)
         self.use_multi = cfg.edge_refresh in ("admm", "solve")
+        self.use_full = cfg.full_solve and cfg.edge_refresh == "solve"
+        if cfg.full_solve and cfg.admm_iters_extra:
+            raise ValueError(
+                "admm_iters_extra needs the iteration-by-iteration path (the "
+                "adaptive continuation is a branch between iterations); "
+                "full_solve runs a fixed budget inside one kernel: unset one "
+                "of them")
 
     # -- layout ------------------------------------------------------------
 
@@ -227,7 +262,8 @@ class _SweepLanes:
         ``y0_l``: optional warm-start scaled duals (h, c, B); None = zeros.
         Returns ``(z_l, ps_final_l, resid_l, y_l)``: the feasible controls
         (h, c, B), their rollout (h+1, n, B), the per-scenario primal
-        residual (B,) and the final scaled duals (h, c, B)."""
+        residual (B,) and the final scaled duals (h, c, B), None under
+        ``use_full``."""
         cfg, kw = self.cfg, self.kw
 
         def ilqr_once(us_l, ps_l, z_l, y_l, g_fix=None):
@@ -254,10 +290,8 @@ class _SweepLanes:
             else:
                 for _ in range(cfg.ilqr_iters):
                     us_l, ps_l = ilqr_once(us_l, ps_l, z_l, y_l, g_fix)
-            uh_l = (us_l if cfg.admm_relax == 1.0
-                    else cfg.admm_relax * us_l + (1.0 - cfg.admm_relax) * z_l)
-            z_l = torch.clamp(uh_l + y_l, -cfg.u_limit, cfg.u_limit)
-            y_l = y_l + uh_l - z_l
+            z_l, y_l = sweep.admm_update(us_l, z_l, y_l, cfg.admm_relax,
+                                         cfg.u_limit)
             return us_l, ps_l, z_l, y_l, g_solve
 
         def run(carry, iters):
@@ -270,14 +304,27 @@ class _SweepLanes:
         ps_l = self.rollout_nominal(p0_l, us_l, z0, y0, target_l, izd_l)
         g_solve0 = (self.edge_grads(ps_l) if cfg.edge_refresh == "solve"
                     else None)
-        carry = run((us_l, ps_l, z0, y0, g_solve0), cfg.admm_iters)
-        if cfg.admm_iters_extra:
-            carry = _adaptive_extra(
-                carry, carry[0], carry[2], cfg,
-                lambda c: run(c, cfg.admm_iters_extra))
-        us_l, ps_l, z_l, y_l, _ = carry
-        ps_final_l = self.rollout_nominal(p0_l, z_l, z_l, y_l, target_l,
-                                          izd_l)
+        if self.use_full:
+            if y0_l is not None:
+                raise ValueError(
+                    "full_solve starts its ADMM duals at zero inside the "
+                    "kernel and cannot take a dual warm start: an explicit "
+                    "Scenario.y0 cannot be honored with "
+                    "MPCConfig.full_solve=True; unset one of them")
+            ps_final_l, z_l, us_l = sweep.full_solve(
+                p0_l, ps_l, us_l, g_solve0, target_l, izd_l,
+                sweeps=cfg.ilqr_iters, admm_iters=cfg.admm_iters,
+                u_limit=cfg.u_limit, relax=cfg.admm_relax, **kw)
+            y_l = None
+        else:
+            carry = run((us_l, ps_l, z0, y0, g_solve0), cfg.admm_iters)
+            if cfg.admm_iters_extra:
+                carry = _adaptive_extra(
+                    carry, carry[0], carry[2], cfg,
+                    lambda c: run(c, cfg.admm_iters_extra))
+            us_l, ps_l, z_l, y_l, _ = carry
+            ps_final_l = self.rollout_nominal(p0_l, z_l, z_l, y_l, target_l,
+                                              izd_l)
         resid_l = (us_l - z_l).abs().amax(dim=(0, 1))
         return z_l, ps_final_l, resid_l, y_l
 
@@ -310,14 +357,108 @@ def _solve_batch_sweep(pyramid, shape, scen: Scenario,
     )
 
 
+def _solve_batch_fused(pyramid, shape, scen: Scenario,
+                       cfg: MPCConfig) -> Solution:
+    """The fused backend's batched solve, scenario-first (B, H, ...): per
+    iLQR sweep the rollout, the analytic linearization (smooth dynamics),
+    the cost expansion (the constant Hessians as broadcasts), one
+    ``backward_batched`` launch, three ``riccati.forward`` candidates and
+    the strict ``J < j0`` pick; the ADMM loop with the shared adaptive
+    gate; the feasible rollout of z and its cost. ``edge_sampler`` is not
+    used: the edge term is the analytic dense sampler's."""
+    B, h = scen.us0.shape[0], cfg.horizon
+    n, c = scen.p0.shape[-1], CONTROL_DIM
+    p0, target, depth = scen.p0, scen.target, scen.depth
+    rho, q, r, qe, dt = cfg.rho, cfg.q_track, cfg.r_ctrl, cfg.q_edge, cfg.dt
+    f32 = dict(dtype=torch.float32, device=p0.device)
+    eye_n = torch.eye(n, **f32)
+    lxx = (2.0 * q * eye_n).expand(B, h, n, n)
+    luu = ((2.0 * r + rho) * torch.eye(c, **f32)).expand(B, h, c, c)
+    lux = torch.zeros((), **f32).expand(B, h, c, n)
+    vxx = (2.0 * q * eye_n).expand(B, n, n)
+
+    def step(p, u):
+        return dynamics.step(p, u, depth, dt)
+
+    def rollout(us):
+        return dynamics.rollout(p0, us, depth, dt)
+
+    def quad_cost(ps, us):              # (B, H+1, n), (B, H, c) -> (B,)
+        return (q * ((ps - target[:, None]) ** 2).sum(dim=(1, 2))
+                + r * (us ** 2).sum(dim=(1, 2)))
+
+    def sample_edge(us):
+        ps_s = rollout(us)
+        if qe:
+            return costs.edge_vg_batch(pyramid, ps_s, *shape)
+        return ps_s.new_zeros(ps_s.shape[:2]), torch.zeros_like(ps_s)
+
+    def ilqr_once(us, z, y, eg):
+        ps = rollout(us)
+        fx, fu = dynamics.linearize_analytic(ps[:, :-1], us, depth[:, None],
+                                             dt)
+        e_ref, g_ref = eg if eg is not None else sample_edge(us)
+        lx = 2.0 * q * (ps[:, :-1] - target[:, None]) + qe * g_ref[:, :-1]
+        lu = 2.0 * r * us + rho * (us - z + y)
+        vx = 2.0 * q * (ps[:, -1] - target) + qe * g_ref[:, -1]
+        K, kff = riccati_lanes.backward_batched(fx, fu, lx, lu, lxx, luu,
+                                                lux, vx, vxx)
+
+        def aug_cost_lin(ps_c, us_c):
+            edge = qe * (e_ref.sum(dim=1)
+                         + (g_ref * (ps_c - ps)).sum(dim=(1, 2)))
+            admm = 0.5 * rho * ((us_c - z + y) ** 2).sum(dim=(1, 2))
+            return quad_cost(ps_c, us_c) + edge + admm
+
+        us_c, J_c = [], []
+        for alpha in _ALPHAS:
+            ps_a, us_a = riccati.forward(step, p0, ps, us,
+                                         riccati.Gains(K, kff), alpha)
+            us_c.append(us_a)
+            J_c.append(aug_cost_lin(ps_a, us_a))
+        J_c = torch.stack(J_c)                                  # (A, B)
+        best = torch.argmin(J_c, dim=0)
+        us_best = torch.stack(us_c)[best, torch.arange(B, device=p0.device)]
+        # a NaN candidate makes the min NaN, and NaN < j0 keeps us
+        improved = J_c.min(dim=0).values < aug_cost_lin(ps, us)
+        return torch.where(improved[:, None, None], us_best, us)
+
+    us0 = scen.us0
+    eg_solve = sample_edge(us0) if cfg.edge_refresh == "solve" else None
+
+    def run(carry, iters):
+        us, z, y = carry
+        for _ in range(iters):
+            eg = sample_edge(us) if cfg.edge_refresh == "admm" else eg_solve
+            for _ in range(cfg.ilqr_iters):
+                us = ilqr_once(us, z, y, eg)
+            z, y = sweep.admm_update(us, z, y, cfg.admm_relax, cfg.u_limit)
+        return us, z, y
+
+    z0 = torch.clamp(us0, -cfg.u_limit, cfg.u_limit)
+    y0 = scen.y0 if scen.y0 is not None else torch.zeros_like(us0)
+    us, z, y = run((us0, z0, y0), cfg.admm_iters)
+    if cfg.admm_iters_extra:
+        us, z, y = _adaptive_extra(
+            (us, z, y), us, z, cfg, lambda c: run(c, cfg.admm_iters_extra))
+    ps = rollout(z)
+    if qe:
+        edge = qe * costs.edge_cost_pyramid(pyramid, ps, *shape).sum(dim=1)
+    else:
+        edge = torch.zeros(B, **f32)
+    return Solution(us=z, ps=ps, cost=quad_cost(ps, z) + edge,
+                    primal_residual=(us - z).abs().amax(dim=(1, 2)),
+                    dual=y if scen.y0 is not None else None)
+
+
 class VisualServoMPC:
     """Batched visual-servo MPC over Sobel edge-feature maps.
 
     Holds no parameters: ``cfg`` fixes the problem and the solver budget,
     ``device`` is where scenarios are made and where every input must
     lie: the card unless the caller asks for the CPU. On a CUDA device the
-    perception, sampler and sweep kernels run; on the CPU their plain
-    PyTorch versions do."""
+    perception, sampler, sweep and Riccati kernels run; on the CPU their
+    plain PyTorch versions do."""
 
     def __init__(self, cfg: MPCConfig | None = None, device="cuda"):
         self.cfg = cfg or MPCConfig()
@@ -358,7 +499,13 @@ class VisualServoMPC:
         cost pyramid is built once and shared by the batch."""
         self._check(edge_map, *scen)
         pyramid = costs.build_cost_pyramid(edge_map)
-        return _solve_batch_sweep(pyramid, edge_map.shape, scen, self.cfg)
+        return self._solve_pyramid(pyramid, edge_map.shape, scen)
+
+    def _solve_pyramid(self, pyramid, shape, scen: Scenario) -> Solution:
+        """Backend dispatch over a prebuilt cost pyramid."""
+        if self.cfg.backend == "fused":
+            return _solve_batch_fused(pyramid, shape, scen, self.cfg)
+        return _solve_batch_sweep(pyramid, shape, scen, self.cfg)
 
     @torch.no_grad()
     def control_step(self, frame: torch.Tensor, scen: Scenario):
@@ -366,8 +513,44 @@ class VisualServoMPC:
         kernel, pyramid, batched solve."""
         self._check(frame, *scen)
         pyramid = costs.build_cost_pyramid_from_frame(frame)
-        sol = _solve_batch_sweep(pyramid, frame.shape[1:], scen, self.cfg)
+        sol = self._solve_pyramid(pyramid, frame.shape[1:], scen)
         return sol.us[:, 0], sol
+
+    def _seed_duals(self, scen: Scenario) -> Scenario:
+        """With ``cfg.dual_warm_start``, start the receding loop's dual
+        carry at zeros when the caller gave no ``Scenario.y0`` (a given y0
+        is carried regardless); under ``cfg.full_solve`` there is no
+        carry."""
+        if (self.cfg.dual_warm_start and scen.y0 is None
+                and not self.cfg.full_solve):
+            return scen._replace(y0=torch.zeros_like(scen.us0))
+        return scen
+
+    def _advance(self, s: Scenario, sol: Solution):
+        """One receding-horizon step: the first control applied to the
+        true dynamics, the plan shifted, the decayed duals shifted when the
+        carry is on. Returns (scenario', u0)."""
+        u0 = sol.us[:, 0]
+        y0 = (self.cfg.dual_decay * _shift_tail_zero(sol.dual, 1)
+              if s.y0 is not None else None)
+        return s._replace(p0=dynamics.step(s.p0, u0, s.depth, self.cfg.dt),
+                          us0=_shift_tail_zero(sol.us, 1), y0=y0), u0
+
+    def _receding(self, pyramid_at, shape, scen: Scenario, n_steps: int):
+        """Receding-horizon loop; ``pyramid_at(step)`` gives each step's
+        cost pyramid. The sweep backend keeps its state in lanes layout
+        (``_receding_lanes``); the fused backend loops over whole solves.
+        Returns ``(u0s (T, B, c), costs (T, B), scen')``."""
+        if self.cfg.backend == "sweep":
+            return self._receding_lanes(pyramid_at, shape, scen, n_steps)
+        s = self._seed_duals(scen)
+        u0s, cost_seq = [], []
+        for idx in range(n_steps):
+            sol = self._solve_pyramid(pyramid_at(idx), shape, s)
+            s, u0 = self._advance(s, sol)
+            u0s.append(u0)
+            cost_seq.append(sol.cost)
+        return torch.stack(u0s), torch.stack(cost_seq), s
 
     def _receding_lanes(self, pyramid_at, shape, scen: Scenario,
                         n_steps: int):
@@ -376,11 +559,14 @@ class VisualServoMPC:
         pyramid. Returns ``(u0s (T, B, c), costs (T, B), scen')``."""
         cfg = self.cfg
         lanes, unlanes = _SweepLanes.lanes, _SweepLanes.unlanes
-        dual_carry = cfg.dual_warm_start or scen.y0 is not None
+        if cfg.full_solve and scen.y0 is not None:
+            raise ValueError("full_solve cannot honor Scenario.y0 (its ADMM "
+                             "duals start at zero in the kernel): unset one "
+                             "of them")
+        y0 = self._seed_duals(scen).y0
+        dual_carry = y0 is not None
         p0_l, target_l, izd_l, us_l = _SweepLanes.lanes_scenario(scen)
-        y_l = (None if not dual_carry
-               else lanes(scen.y0, 3) if scen.y0 is not None
-               else torch.zeros_like(us_l))
+        y_l = lanes(y0, 3) if dual_carry else None
         u0s, cost_seq = [], []
         for idx in range(n_steps):
             sw = _SweepLanes(pyramid_at(idx), shape, cfg)
@@ -408,8 +594,8 @@ class VisualServoMPC:
         its first control to the true dynamics."""
         self._check(frame, *scen)
         pyramid = costs.build_cost_pyramid_from_frame(frame)
-        return self._receding_lanes(lambda i: pyramid, frame.shape[1:], scen,
-                                    n_frames)
+        return self._receding(lambda i: pyramid, frame.shape[1:], scen,
+                              n_frames)
 
     @torch.no_grad()
     def receding_horizon_frames(self, frames: torch.Tensor, scen: Scenario,
@@ -422,6 +608,6 @@ class VisualServoMPC:
         Returns ``(u0s (n_steps, B, c), costs (n_steps, B), scen')``."""
         self._check(frames, *scen)
         n_ring = frames.shape[0]
-        return self._receding_lanes(
+        return self._receding(
             lambda i: costs.build_cost_pyramid_from_frame(frames[i % n_ring]),
             frames.shape[2:], scen, n_steps)

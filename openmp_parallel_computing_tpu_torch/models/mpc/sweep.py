@@ -1,7 +1,8 @@
 """The iLQR sweep of the sweep backend: plain split-layout helpers and the
 sweep kernels' wrappers (PyTorch port of
 ``openmp_parallel_computing_tpu.models.mpc.sweep_pallas``: ``multi_sweep``,
-``unified_sweep``, ``backward_sweep`` and ``forward_sweep``).
+``full_solve``, ``unified_sweep``, ``backward_sweep`` and
+``forward_sweep``).
 
 Layout: scenario batch B last everywhere — ps (H+1, n, B), us/z/y
 (H, c, B), gains K (H, c, n, B). The state axis is in SPLIT order
@@ -12,8 +13,8 @@ Line search: candidates alpha = (0, 1, 0.5, 0.25). alpha=0 reproduces the
 nominal, so "did anything improve" is the argmin over the candidates.
 
 Each wrapper launches its kernel on CUDA tensors (``csrc/multi_sweep.cu``,
-or an entry point of ``csrc/sweep.cu``; both build on
-``csrc/sweep_steps.cuh``) and runs its ``*_plain`` version, built from the
+``csrc/full_solve.cu``, or an entry point of ``csrc/sweep.cu``; all build
+on ``csrc/sweep_steps.cuh``) and runs its ``*_plain`` version, built from the
 helpers below, on CPU tensors. Each counts its launches in
 ``<wrapper>.launches``.
 """
@@ -30,6 +31,7 @@ from openmp_parallel_computing_tpu_torch.models.mpc.dynamics import (
     STATE_LIMIT,
 )
 from openmp_parallel_computing_tpu_torch.models.mpc.riccati_lanes import (
+    REG,
     _mm,
     _mtm,
     _mtv,
@@ -38,7 +40,6 @@ from openmp_parallel_computing_tpu_torch.models.mpc.riccati_lanes import (
 )
 
 ALPHAS = (0.0, 1.0, 0.5, 0.25)
-REG = 1e-6                     # Quu regularization of the Riccati solve
 KERNEL_FEATURES = (2, 4, 8)    # m values the CUDA kernel is built for
 
 
@@ -263,6 +264,37 @@ def multi_sweep_plain(p0, ps, us, z, y, g, target, inv_depth, *, m: int,
     return ps_nom, us_nom
 
 
+def admm_update(us, z, y, relax: float, u_limit: float):
+    """The ADMM projection and dual ascent after an iteration's sweeps:
+    u^ = relax * us + (1 - relax) * z (u^ = us when relax is 1),
+    z' = clip(u^ + y, +-u_limit), y' = y + u^ - z'. Returns (z', y')."""
+    uh = us if relax == 1.0 else relax * us + (1.0 - relax) * z
+    z = torch.clamp(uh + y, -u_limit, u_limit)
+    return z, y + uh - z
+
+
+def full_solve_plain(p0, ps, us, g, target, inv_depth, *, m: int, q: float,
+                     r: float, rho: float, qe: float, dt: float, sweeps: int,
+                     admm_iters: int, u_limit: float, reg: float = REG,
+                     relax: float = 1.0):
+    """Plain version of ``full_solve``: z = clip(us), y = 0; ``admm_iters``
+    rounds of ``multi_sweep_plain`` from the nominal (ps, us), each followed
+    by ``admm_update``; then the ``_dyn_step`` rollout of z from p0.
+    Returns (ps_final
+    (H+1, n, B) with row 0 = p0, z (H, c, B), us (H, c, B))."""
+    kw = dict(m=m, q=q, r=r, rho=rho, qe=qe, dt=dt, sweeps=sweeps, reg=reg)
+    z = torch.clamp(us, -u_limit, u_limit)
+    y = torch.zeros_like(us)
+    for _ in range(admm_iters):
+        ps, us = multi_sweep_plain(p0, ps, us, z, y, g, target, inv_depth,
+                                   **kw)
+        z, y = admm_update(us, z, y, relax, u_limit)
+    rows = [p0]
+    for t in range(us.shape[0]):
+        rows.append(_dyn_step(rows[-1], z[t], inv_depth, dt, m))
+    return torch.stack(rows), z, us
+
+
 def _on_card(what: str, m: int, arrays: dict) -> bool:
     """Check a sweep wrapper's inputs, ``{name: (tensor, shape)}``: every
     shape, float32, one device. False for CPU tensors (the plain version
@@ -339,6 +371,53 @@ def multi_sweep(p0, ps, us, z, y, g, target, inv_depth, *, m: int,
 
 
 multi_sweep.launches = 0
+
+
+def full_solve(p0, ps, us, g, target, inv_depth, *, m: int, q: float,
+               r: float, rho: float, qe: float, dt: float, sweeps: int,
+               admm_iters: int, u_limit: float, reg: float = REG,
+               relax: float = 1.0):
+    """The whole ADMM solve with the edge linearization ``g`` fixed
+    (``edge_refresh="solve"``) in one launch: ``admm_iters`` rounds of
+    ``sweeps`` iLQR sweeps, each round followed by the projection and dual
+    update, then the feasible rollout of z.
+
+    p0 (n, B), ps (H+1, n, B) the rollout of us (H, c, B), g (H+1, n, B),
+    target (n, B), inv_depth (m, B), float32. Returns (ps_final
+    (H+1, n, B) with row 0 = p0, z (H, c, B), us (H, c, B) the final
+    unprojected controls). CPU tensors run the plain version; CUDA tensors
+    launch ``csrc/full_solve.cu``."""
+    n, c = 2 * m, CONTROL_DIM
+    H, B = us.shape[0], us.shape[-1]
+    kw = dict(m=m, q=q, r=r, rho=rho, qe=qe, dt=dt, sweeps=sweeps,
+              admm_iters=admm_iters, u_limit=u_limit, reg=reg, relax=relax)
+    if not _on_card("full_solve", m, _lanes_shapes(
+            m, H, B, p0=p0, ps=ps, us=us, g=g, target=target,
+            inv_depth=inv_depth)):
+        return full_solve_plain(p0, ps, us, g, target, inv_depth, **kw)
+    A = len(ALPHAS)
+    f32 = dict(dtype=torch.float32, device=p0.device)
+    ps_out = torch.empty((H + 1, n, B), **f32)
+    z_out = torch.empty((H, c, B), **f32)
+    us_out = torch.empty((H, c, B), **f32)
+    scratch = (torch.empty((H, c, B), **f32),               # y
+               torch.empty((H, c, n, B), **f32),            # K
+               torch.empty((H, c, B), **f32),               # k
+               torch.empty((A - 1, H, n, B), **f32),        # pc
+               torch.empty((A - 1, H, c, B), **f32))        # uc
+    fn = _build.function("full_solve", "full_solve_launch",
+                         [_INT] + [_PTR] * 14 + [_INT] * 5 + [_F32] * 9
+                         + [_PTR])
+    ptrs = [t.data_ptr() for t in (p0, ps, us, g, target, inv_depth, ps_out,
+                                   z_out, us_out, *scratch)]
+    _build.launch(fn, "full_solve", p0, m, *ptrs, H, B, sweeps, admm_iters,
+                  int(relax != 1.0), q, r, rho, qe, dt, reg, u_limit, relax,
+                  1.0 - relax)
+    full_solve.launches += 1
+    return ps_out, z_out, us_out
+
+
+full_solve.launches = 0
 
 
 def _candidates_out(H: int, n: int, B: int, dev):

@@ -3,10 +3,13 @@
 Same fields and defaults as ``openmp_parallel_computing_tpu.utils.config.
 MPCConfig`` (the JAX package documents the history behind each default).
 The port implements part of the JAX solver — the ``"sweep"`` backend with
-the multi-sweep kernel (``edge_refresh`` "admm"/"solve") or the per-sweep
-kernels (``"ilqr"``), the analytic or the gather edge sampler, and float32
-storage — so any other value of a field that selects a code path raises at
-construction instead of being ignored.
+the multi-sweep kernel (``edge_refresh`` "admm"/"solve"), the per-sweep
+kernels (``"ilqr"``) or the one-launch solve (``full_solve=True`` with
+``"solve"``), the ``"fused"`` backend, the analytic or the gather edge
+sampler, and float32 storage — so any other value of a field that selects
+a code path raises at construction instead of being ignored. As in JAX,
+``full_solve`` with ``admm_iters_extra > 0`` constructs and raises when
+the sweep backend solves.
 """
 
 from __future__ import annotations
@@ -26,6 +29,8 @@ class MPCConfig:
     q_track: float = 1.0              # feature tracking weight
     r_ctrl: float = 1e-2              # control effort weight
     q_edge: float = 0.1               # edge-map attraction weight
+    # "sweep": the sweep kernels; "fused": the batched Riccati backward
+    # kernel (csrc/riccati.cu) with eager PyTorch around it.
     backend: str = "sweep"
     # "admm": edge term linearized once per ADMM iteration; "solve": once
     # per solve at the warm-start trajectory; "ilqr": before every sweep.
@@ -35,6 +40,8 @@ class MPCConfig:
     # (models/mpc/sampler.py, csrc/sampler.cu).
     edge_sampler: str = "analytic"
     sampler_dtype: str = "float32"
+    # Sweep backend with edge_refresh="solve": the whole ADMM loop and the
+    # final rollout in one kernel launch (csrc/full_solve.cu).
     full_solve: bool = False
     # Adaptive budget: admm_iters_extra further iterations when the
     # batch-max primal residual after the base iterations exceeds admm_tol.
@@ -47,11 +54,10 @@ class MPCConfig:
 
     def __post_init__(self):
         unsupported = {
-            "backend": (self.backend, ("sweep",)),
+            "backend": (self.backend, ("sweep", "fused")),
             "edge_refresh": (self.edge_refresh, ("admm", "solve", "ilqr")),
             "edge_sampler": (self.edge_sampler, ("analytic", "pallas")),
             "sampler_dtype": (self.sampler_dtype, ("float32",)),
-            "full_solve": (self.full_solve, (False,)),
         }
         for name, (value, allowed) in unsupported.items():
             if value not in allowed:

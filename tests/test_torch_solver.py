@@ -236,8 +236,9 @@ def test_layout_helpers_match_jax():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("backend", "fused"), ("full_solve", True), ("sampler_dtype", "bfloat16"),
-    ("edge_sampler", "xla"), ("backend", "assoc")])
+    ("backend", "reference"), ("backend", "assoc"),
+    ("sampler_dtype", "bfloat16"), ("edge_sampler", "xla"),
+    ("edge_refresh", "never")])
 def test_config_rejects_unimplemented_paths(field, value):
     with pytest.raises(ValueError, match=field):
         MPCConfig(**{field: value})
@@ -266,7 +267,11 @@ def test_port_imports_without_jax():
         "from openmp_parallel_computing_tpu_torch.ops import pipeline,"
         " xla_ref\n"
         "from openmp_parallel_computing_tpu_torch.models.mpc import (costs,"
-        " dynamics, riccati_lanes, sampler, solver, sweep)\n"
+        " dynamics, riccati, riccati_lanes, sampler, solver, sweep)\n"
+        "from openmp_parallel_computing_tpu_torch.models.mpc.sweep import"
+        " full_solve\n"
+        "from openmp_parallel_computing_tpu_torch.models.mpc.riccati_lanes"
+        " import backward_batched\n"
         "import chip_smoke\n"
         "bad = [k for k in sys.modules if k.startswith('jax')"
         " and sys.modules[k] is not None]\n"

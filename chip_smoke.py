@@ -92,7 +92,9 @@ MULTI_SWEEP_TOL = 1e-4           # rtol = atol
 # after 10 steps), so only the costs are held there.
 STEP_TOL = 1e-4                  # rtol = atol, per step from one state
 LOOP_COST_RTOL = 1e-3            # free-running costs (measured 1.7e-4)
-LOOP_STEPS = 10
+# Steps of the card-vs-CPU loops (solve and per-sweep paths, one-launch
+# solve, fused backend), cut for the time limit: their CPU solves set it.
+LOOP_STEPS, FULL_LOOP_STEPS, FUSED_LOOP_STEPS = 6, 6, 4
 
 H, M = 20, 8
 BATCHES = ((4096, 20), (256, 40))  # (scenarios, timed steps)
@@ -127,17 +129,17 @@ FULL_ITERS = 5                   # ADMM iterations of the one-launch path
 # path's, then other feature counts, sweep counts and relaxations.
 FULL_SHAPES = ((M, H, 4096, 1, FULL_ITERS, 1.3), (4, 8, 256, 2, 3, 1.0),
                (2, 5, 100, 1, 2, 1.6))
-FULL_BATCHES = ((4096, 20), (256, 40))     # (scenarios, timed steps)
-FULL_AB_BATCHES = ((4096, 10), (256, 20))
+# (scenarios, timed steps); the counted run is the first full_solve=True
+# sample of the A/B against the scan.
+FULL_BATCHES = ((4096, 10), (256, 20))
 # The Riccati kernel vs its plain version: both float32, FMA contraction
 # and the sum order of nvcc differ in the last bits along the horizon.
 RICCATI_TOL = 1e-4               # rtol = atol
 RICCATI_SHAPES = ((5, 6, 8, 6), (5, 4, 16, 6), (37, 5, 4, 6))  # (B,H,n,c)
-FUSED_BATCHES = ((4096, 5), (256, 5))      # (scenarios, timed steps)
-# Depth of the new paths' card-vs-CPU loops and of the fused profile, cut
-# below LOOP_STEPS for the time limit: their CPU solves (the fused one
-# runs its Riccati recursion as ~20k eager ops) set these phases' time.
-FULL_LOOP_STEPS, FUSED_LOOP_STEPS, FUSED_PROFILE_STEPS = 6, 4, 3
+FUSED_BATCHES = ((4096, 3), (256, 3))      # (scenarios, timed steps)
+# One profiled step: reading the profile of a fused step (~46k aten ops)
+# takes seconds.
+FUSED_PROFILE_STEPS = 1
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, 700 W): HBM3 bytes
 # per second and FP32 operations per second outside the tensor cores.
@@ -200,7 +202,30 @@ def cuda_time_ms(fn, iters: int) -> float:
 
 
 def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
+    """Bytes of the distinct elements the tensors address: a broadcast
+    (stride-0) dimension is read from one copy, so it counts once."""
+    total = 0
+    for t in tensors:
+        n = 1
+        for size, stride in zip(t.shape, t.stride()):
+            n *= size if stride else 1
+        total += n * t.element_size()
+    return total
+
+
+def timed_call(fn):
+    """One call of ``fn``, unwarmed: (its result, milliseconds by CUDA
+    events)."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
 
 
 def bound(n_bytes: float, ops: float = 0.0) -> dict:
@@ -667,15 +692,19 @@ def phase_solve_kernels(frames) -> dict:
     rows = {}
     frame = frames[0]
     names = ("ps", "z", "us")
-    worst = 0.0
-    for m, h, b, sweeps, iters, relax in FULL_SHAPES:
+    worst, main_full = 0.0, None
+    for shape in FULL_SHAPES:
+        m, h, b, sweeps, iters, relax = shape
         fargs, kw = full_solve_inputs(frame, m, h, b, sweeps, iters, relax)
         tag = f"m={m} H={h} B={b} {iters}x{sweeps} relax={relax}"
         got = sweep.full_solve(*fargs, **kw)
-        err = check_close(f"full_solve {tag}", names, got,
-                          sweep.full_solve_plain(*fargs, **kw),
+        # The plain version is timed on this one call (seconds at B=4096).
+        plain, plain_ms = timed_call(
+            lambda: sweep.full_solve_plain(*fargs, **kw))
+        err = check_close(f"full_solve {tag}", names, got, plain,
                           MULTI_SWEEP_TOL)
-        worst = max(worst, err) if m == M else worst
+        if shape == FULL_SHAPES[0]:
+            worst, main_full = err, (fargs, kw, got, plain_ms)
         chain = full_solve_chain(fargs, kw)
         same = {k: torch.equal(a, c) for k, a, c in zip(names, got, chain)}
         diff = max((a - c).abs().max().item() for a, c in zip(got, chain))
@@ -684,15 +713,14 @@ def phase_solve_kernels(frames) -> dict:
         check_close(f"full_solve vs chain {tag}", names, got, chain,
                     MULTI_SWEEP_TOL)
     m, h, b, sweeps, iters, relax = FULL_SHAPES[0]
-    fargs, kw = full_solve_inputs(frame, m, h, b, sweeps, iters, relax)
-    out = sweep.full_solve(*fargs, **kw)
+    fargs, kw, out, plain_ms = main_full
     ms = cuda_time_ms(lambda: sweep.full_solve(*fargs, **kw), 10)
-    plain_ms = cuda_time_ms(lambda: sweep.full_solve_plain(*fargs, **kw), 1)
     dev = device_us(lambda: sweep.full_solve(*fargs, **kw),
                     "full_solve_kernel", 5)
     bnd = bound(nbytes(*fargs, *out), iters * sweeps * sweep_ops(m, h, b))
     log(f"[kernel] full_solve m={m} H={h} B={b} {iters}x{sweeps}: kernel "
-        f"{ms:.4f} ms (device {dev} us), plain {plain_ms:.4f} ms, bound "
+        f"{ms:.4f} ms (device {dev} us), plain {plain_ms:.4f} ms (one "
+        f"call), bound "
         f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
     rows["full_solve"] = kernel_row("full_solve", *SOLVE_ROWS["full_solve"],
                                     worst, ms, plain_ms, bnd, device_us=dev)
@@ -705,22 +733,22 @@ def phase_solve_kernels(frames) -> dict:
     cases[main_tag] = main
     for tag, args in cases.items():
         got = riccati_lanes.backward_batched(*args)
-        plain = riccati_lanes.backward_batched_plain(*args)
+        plain, plain_ms = timed_call(
+            lambda: riccati_lanes.backward_batched_plain(*args))
         err = check_close(f"riccati_backward {tag}", ("K", "k"),
                           [a.movedim(0, -1) for a in got],
                           [a.movedim(0, -1) for a in plain], RICCATI_TOL)
     log(f"[kernel] riccati_backward strides on the fused path: "
         f"{[tuple(a.stride()) for a in main]}")
-    out = riccati_lanes.backward_batched(*main)
+    out = got                       # the last case is the fused path's
     ms = cuda_time_ms(lambda: riccati_lanes.backward_batched(*main), 20)
-    plain_ms = cuda_time_ms(
-        lambda: riccati_lanes.backward_batched_plain(*main), 2)
     dev = device_us(lambda: riccati_lanes.backward_batched(*main),
                     "riccati_kernel", 10)
     bnd = bound(nbytes(*main, *out), riccati_ops(4096, H, 2 * M, 6))
     log(f"[kernel] riccati_backward {main_tag}: kernel {ms:.4f} ms (device "
-        f"{dev} us), plain {plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
-        f"({bnd['bound_by']}; inputs counted at their broadcast size)")
+        f"{dev} us), plain {plain_ms:.4f} ms (one call), bound "
+        f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}; {nbytes(*main, *out)} "
+        f"bytes, the stride-0 cost Hessians counted once)")
     rows["riccati_backward"] = kernel_row(
         "riccati_backward", *SOLVE_ROWS["riccati_backward"], err, ms,
         plain_ms, bnd, device_us=dev)
@@ -853,7 +881,7 @@ def run_loop(cfg, frames, batch: int, steps: int, label: str,
     mpc = VisualServoMPC(cfg, "cuda")
     scen = mpc.random_scenarios(batch, torch.Generator().manual_seed(0))
     for _ in range(2):      # warm up; the first window adds the dual carry
-        _, _, scen = mpc.receding_horizon_frames(frames, scen, 2)
+        _, _, scen = mpc.receding_horizon_frames(frames, scen, 1)
     u0s, cost_seq, scen, launches, fired, wall = drive(mpc, frames, scen,
                                                        steps)
     want = expected_launches(cfg, batch, steps, fired, unified)
@@ -877,24 +905,34 @@ def card_vs_cpu(frames, cfg, label: str, steps: int = LOOP_STEPS) -> None:
     """The loop on the card against the port's CPU path, 32 scenarios:
     each of ``steps`` steps from the card's own state solved on both
     (within STEP_TOL, the same gate branch), then the free-running loop's
-    costs."""
+    costs. The CPU's free-running loop starts from the same state as the
+    first step, so its first step stands for that step's CPU solve."""
     import numpy as np
     import torch
 
     from openmp_parallel_computing_tpu_torch.models.mpc import (
         VisualServoMPC, solver)
 
+    t0 = time.perf_counter()
     mpc, cpu = VisualServoMPC(cfg, "cuda"), VisualServoMPC(cfg, "cpu")
     start = cpu.random_scenarios(32, torch.Generator().manual_seed(7))
+    with GateLog(solver) as g_free:
+        u_free, c_free, _ = cpu.receding_horizon_frames(frames.cpu(), start,
+                                                        steps)
     s = _to(start, "cuda")
     worst = {"u0s": 0.0, "costs": 0.0}
     for i in range(steps):
         f = frames[i % RING][None].contiguous()
         with GateLog(solver) as g_gpu:
             u_g, c_g, s_next = mpc.receding_horizon_frames(f, s, 1)
-        with GateLog(solver) as g_cpu:
-            u_c, c_c, _ = cpu.receding_horizon_frames(f.cpu(), _to(s, "cpu"), 1)
-        if g_cpu.fired != g_gpu.fired:
+        if i == 0:
+            u_c, c_c, fired = u_free[:1], c_free[:1], g_free.fired[:1]
+        else:
+            with GateLog(solver) as g_cpu:
+                u_c, c_c, _ = cpu.receding_horizon_frames(f.cpu(),
+                                                          _to(s, "cpu"), 1)
+            fired = g_cpu.fired
+        if fired != g_gpu.fired:
             raise AssertionError(f"{label} step {i}: gate branches differ")
         for what, a, b in (("u0s", u_c, u_g), ("costs", c_c, c_g)):
             np.testing.assert_allclose(b.cpu().numpy(), a.numpy(),
@@ -906,14 +944,14 @@ def card_vs_cpu(frames, cfg, label: str, steps: int = LOOP_STEPS) -> None:
         f"the same state: max abs err u0s {worst['u0s']:.3e}, costs "
         f"{worst['costs']:.3e}")
     # The free-running loop: rounding differences grow step over step.
-    u_c, c_c, _ = cpu.receding_horizon_frames(frames.cpu(), start, steps)
     u_g, c_g, _ = mpc.receding_horizon_frames(frames, _to(start, "cuda"),
                                               steps)
-    rel = ((c_g.cpu() - c_c).abs() / c_c.abs()).max().item()
+    rel = ((c_g.cpu() - c_free).abs() / c_free.abs()).max().item()
     log(f"[{label}] card vs CPU, free-running {steps} steps: max abs "
-        f"err u0s {(u_g.cpu() - u_c).abs().max().item():.3e}, max rel err "
-        f"costs {rel:.3e}")
-    np.testing.assert_allclose(c_g.cpu().numpy(), c_c.numpy(),
+        f"err u0s {(u_g.cpu() - u_free).abs().max().item():.3e}, max rel err "
+        f"costs {rel:.3e}; card vs CPU checks took "
+        f"{time.perf_counter() - t0:.1f} s")
+    np.testing.assert_allclose(c_g.cpu().numpy(), c_free.numpy(),
                                rtol=LOOP_COST_RTOL,
                                err_msg=f"{label} free-running costs")
 
@@ -1056,6 +1094,7 @@ def phase_profile(frames, cfg, label: str,
     _, _, scen = mpc.receding_horizon_frames(frames, scen, steps)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    t_read = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1075,7 +1114,9 @@ def phase_profile(frames, cfg, label: str,
     log(f"[profile] {label} B=4096, {steps} steps: unprofiled "
         f"wall {1e3 * wall:.1f} ms, profiled wall {1e3 * prof_wall:.1f} ms, "
         f"device busy {busy:.1f} ms ({busy / (1e3 * prof_wall):.2f} of the "
-        f"profiled wall), {host_ops / steps:.0f} aten ops a step")
+        f"profiled wall), {host_ops / steps:.0f} aten ops a step; starting, "
+        f"stopping and reading the profiler took "
+        f"{time.perf_counter() - t_read - prof_wall:.1f} s")
     ours = ("sample_kernel", "sweep_kernel", "edge_pyramid", "multi_sweep",
             "full_solve_kernel", "riccati_kernel")
     for us, count, key in sorted(dev, reverse=True):
@@ -1089,7 +1130,8 @@ def phase_profile(frames, cfg, label: str,
 def phase_full(frames, rows: dict) -> None:
     """The one-launch solve: full_solve=True, edge_refresh="solve", a fixed
     budget of FULL_ITERS ADMM iterations; then, measurement only, the same
-    configuration with full_solve=False in turns."""
+    configuration with full_solve=False in turns with it (the counted run
+    is the first full_solve sample)."""
     import dataclasses
 
     from openmp_parallel_computing_tpu_torch.utils.config import MPCConfig
@@ -1097,14 +1139,13 @@ def phase_full(frames, rows: dict) -> None:
     cfg = MPCConfig(horizon=H, num_features=M, edge_refresh="solve",
                     full_solve=True, admm_iters=FULL_ITERS,
                     admm_iters_extra=0)
+    card_vs_cpu(frames, cfg, "full", FULL_LOOP_STEPS)
     for batch, steps in FULL_BATCHES:
-        _, launches = run_loop(cfg, frames, batch, steps, "full")
+        rate, launches = run_loop(cfg, frames, batch, steps, "full")
         if batch == FULL_BATCHES[0][0]:
             rows["full_solve"]["launches"] = launches["full_solve"]
-    card_vs_cpu(frames, cfg, "full", FULL_LOOP_STEPS)
-    for batch, steps in FULL_AB_BATCHES:
-        rates = {True: [], False: []}
-        for flag in (True, False, False, True):
+        rates = {True: [rate], False: []}
+        for flag in (False, False, True):
             rate, _ = run_loop(dataclasses.replace(cfg, full_solve=flag),
                                frames, batch, steps, f"ab full_solve={flag}")
             rates[flag].append(rate)

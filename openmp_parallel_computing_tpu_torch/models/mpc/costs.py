@@ -103,39 +103,30 @@ def build_cost_pyramid_from_frame(frame: torch.Tensor,
     return pyramid_from_base(edge_pyramid_base(frame, s=scales[0]), scales)
 
 
-def separable_sample(field: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
-    """Bilinear sample of a small (Hf, Wf) field at (..., 2) pixel
-    coordinates (x, y), clamped to the border, as ``w_y^T F w_x`` with
-    dense hat weights -> (...)."""
-    hf, wf = field.shape
-    wx = _hat_weights(_clip_coord(xy[..., 0], float(wf - 1)), wf)
-    wy = _hat_weights(_clip_coord(xy[..., 1], float(hf - 1)), hf)
-    return ((wy @ field) * wx).sum(-1)
+def _xy_rows(ps: torch.Tensor):
+    """Interleaved states ps (..., 2m) as (N, m) x and y coordinate rows,
+    the split layout of ``edge_cost_pyramid_xy``."""
+    pts = ps.reshape(-1, ps.shape[-1] // 2, 2)
+    return pts[..., 0], pts[..., 1]
 
 
-def edge_cost_pyramid(pyramid, p: torch.Tensor, height: int, width: int,
-                      scales=PYRAMID_SCALES) -> torch.Tensor:
-    """Edge cost at interleaved states p (..., 2m) -> (...), the mean over
-    levels and features (the JAX package's per-scenario form)."""
-    pts = p.reshape(p.shape[:-1] + (-1, 2))
-    xy = torch.stack([(pts[..., 0] + 1.0) * 0.5 * (width - 1),
-                      (pts[..., 1] + 1.0) * 0.5 * (height - 1)], dim=-1)
-    total = 0.0
-    for level, s in zip(pyramid, scales):
-        e = separable_sample(level, (xy - (s - 1) / 2.0) / s) / 255.0
-        total = total + (1.0 - e).mean(dim=-1)
-    return total / len(pyramid)
+def edge_val_batch(pyramid, ps: torch.Tensor, height: int,
+                   width: int) -> torch.Tensor:
+    """The fused backend's edge cost at interleaved states ps (B, K, 2m)
+    -> (B, K), by ``edge_cost_pyramid_xy`` on (B*K, m) coordinate rows
+    (the JAX package's ``edge_cost_pyramid`` up to reassociation of the
+    level sums)."""
+    return edge_cost_pyramid_xy(pyramid, *_xy_rows(ps), height,
+                                width).reshape(ps.shape[:-1])
 
 
 def edge_vg_batch(pyramid, ps: torch.Tensor, height: int, width: int):
     """The fused backend's edge linearization at interleaved states
     ps (B, K, 2m): values (B, K) and the gradient of each state's cost
-    (B, K, 2m), by the analytic sampler ``edge_vg_pyramid_xy`` on the
-    states laid out as (B*K, m) coordinate rows (the JAX package takes
-    the same gradient by autodiff of ``edge_cost_pyramid``)."""
-    pts = ps.reshape(-1, ps.shape[-1] // 2, 2)
-    vals, gx, gy = edge_vg_pyramid_xy(pyramid, pts[..., 0], pts[..., 1],
-                                      height, width)
+    (B, K, 2m), by the analytic sampler ``edge_vg_pyramid_xy`` on (B*K, m)
+    coordinate rows (the JAX package takes the same gradient by autodiff
+    of ``edge_cost_pyramid``)."""
+    vals, gx, gy = edge_vg_pyramid_xy(pyramid, *_xy_rows(ps), height, width)
     return (vals.reshape(ps.shape[:-1]),
             torch.stack([gx, gy], dim=-1).reshape(ps.shape))
 

@@ -443,7 +443,7 @@ def _solve_batch_fused(pyramid, shape, scen: Scenario,
             (us, z, y), us, z, cfg, lambda c: run(c, cfg.admm_iters_extra))
     ps = rollout(z)
     if qe:
-        edge = qe * costs.edge_cost_pyramid(pyramid, ps, *shape).sum(dim=1)
+        edge = qe * costs.edge_val_batch(pyramid, ps, *shape).sum(dim=1)
     else:
         edge = torch.zeros(B, **f32)
     return Solution(us=z, ps=ps, cost=quad_cost(ps, z) + edge,

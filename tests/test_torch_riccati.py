@@ -153,11 +153,12 @@ def test_linearize_analytic_and_step_match_jax():
 
 
 def test_edge_cost_pyramid_and_fused_value_gradient_match_jax():
-    """``costs.edge_cost_pyramid`` and ``edge_vg_batch`` (the analytic
-    sampler on (B*K, m) rows) against JAX's ``_edge_val_batch`` and
-    ``_edge_vg_batch`` (autodiff of edge_cost_pyramid) on a 64x128 map,
-    points on and off the frame, borders and integer cells included;
-    1e-5 (they agree to reassociation of the level sums)."""
+    """``costs.edge_val_batch`` and ``edge_vg_batch`` (the split-layout
+    cost and analytic sampler on (B*K, m) rows) against JAX's
+    ``_edge_val_batch`` (edge_cost_pyramid) and ``_edge_vg_batch`` (its
+    autodiff) on a 64x128 map, points on and off the frame, borders and
+    integer cells included; 1e-5 (they agree to reassociation of the
+    level sums)."""
     rng = np.random.default_rng(5)
     edge = rng.uniform(0, 255, (64, 128)).astype(np.float32)
     B, K, m = 3, 7, 4
@@ -169,19 +170,11 @@ def test_edge_cost_pyramid_and_fused_value_gradient_match_jax():
     val_ref = jax_solver._edge_val_batch(jpyr, jnp.asarray(ps), (64, 128))
     pyr = costs.build_cost_pyramid(torch.from_numpy(edge))
     v, g = costs.edge_vg_batch(pyr, torch.from_numpy(ps), 64, 128)
-    val = costs.edge_cost_pyramid(pyr, torch.from_numpy(ps), 64, 128)
-    assert v.shape == (B, K) and g.shape == (B, K, 2 * m)
+    val = costs.edge_val_batch(pyr, torch.from_numpy(ps), 64, 128)
+    assert v.shape == val.shape == (B, K) and g.shape == (B, K, 2 * m)
     np.testing.assert_allclose(v.numpy(), np.asarray(v_ref), rtol=1e-5,
                                atol=1e-5)
     np.testing.assert_allclose(g.numpy(), np.asarray(g_ref), rtol=1e-5,
                                atol=1e-5)
     np.testing.assert_allclose(val.numpy(), np.asarray(val_ref), rtol=1e-5,
                                atol=1e-5)
-    # the interleaved sampler at pixel coordinates
-    xy = rng.uniform(-3, 70, (5, 2)).astype(np.float32)
-    np.testing.assert_allclose(
-        costs.separable_sample(torch.from_numpy(edge[:40, :60]),
-                               torch.from_numpy(xy)).numpy(),
-        np.asarray(jax_costs.separable_sample(jnp.asarray(edge[:40, :60]),
-                                              jnp.asarray(xy))),
-        rtol=1e-5, atol=1e-4)

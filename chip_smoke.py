@@ -62,6 +62,22 @@ Any failure raises and the script exits non-zero.
    the ring; then every output against its plain version on the card,
    and grayscale and edge against the reference binaries' goldens at
    1080p, half-mega and 6MP (the ladder of tests/test_golden_parity.py).
+   Then the two reduction kernels (channel_sum, gray_minmax) against their
+   plain versions: bit-exact on u8 (the image kernels' inputs, C=4 at
+   1080p, 1-pixel-wide frames, all-0 and all-255, the legacy input) and on
+   int32, float32 within SUM_F32_RTOL, the same bits on a second call, the
+   card against the CPU at 1080p; times by CUDA events and the profiler at
+   1080p and 6MP, the library's int64 ``torch.sum`` beside channel_sum.
+6. The reductions' path: ``ops.channel_mean``, ``ops.channel_sum`` and
+   ``ops.grayscale_mean_minmax`` over the ring and on the legacy input,
+   launches counted (channel_sum two a call), the legacy golden's gray
+   planes and min/max (2, 249) reproduced bit for bit.
+7. The probe: ``probe.probe()`` reports the kernel path supported on the
+   card.
+8. The headline bench, ``bench.headline.run`` at HEADLINE_RUN (bench.py's
+   batches, fewer steps and trials): its JSON line, finite positive
+   rates, the perception and multi_sweep launches of every step and gated
+   solve, no other MPC kernel.
 
 The last three lines of standard output are the card's name and power
 limit, a JSON object describing each kernel, and
@@ -170,6 +186,25 @@ IMAGE_ROWS = {   # kernel -> (source, TPU kernel it replaces)
 TIME_PASSES = 100
 CLI_PASSES = 100
 GOLDEN = ROOT / "tests" / "golden"
+LEGACY = GOLDEN / "legacy" / "legacy_golden.npz"
+
+# The reductions (phase 3 and phase 6).
+REDUCTION_ROWS = {   # kernel -> (source, TPU kernel it replaces)
+    "channel_sum": ("csrc/reductions.cu", "ops/reductions.py:36"),
+    "gray_minmax": ("csrc/reductions.cu", "ops/reductions.py:75"),
+}
+# Frames besides the image kernels' inputs: a 1-pixel-wide plane, one
+# pixel, and extremes as tests/test_fuzz.py makes them.
+REDUCTION_FRAMES = ((3, 29, 1), (3, 1, 1), (4, 1, 1))
+CONSTANT_SHAPE = (3, 40, 136)
+# channel_sum of float32 against its plain version: both sum in double
+# and round once to float32, in different orders, so the last bit may
+# differ.
+SUM_F32_RTOL = 1e-6
+# The headline bench (phase 7), cut in depth: bench.py's batches, fewer
+# steps and trials.
+HEADLINE_RUN = dict(scenarios=4096, steps=10, scenarios_small=256,
+                    steps_small=20, trials=2)
 
 
 def log(*args):
@@ -574,10 +609,11 @@ def phase_mpc_kernels(frames) -> dict:
     return rows
 
 
-def device_us(fn, key: str, iters: int):
-    """Mean device microseconds per launch of the kernels whose name holds
-    ``key`` over ``iters`` calls of ``fn``, from torch.profiler; None when
-    the profiler records no such kernel."""
+def device_us(fn, key: str, iters: int, per_call: bool = False):
+    """Mean device microseconds per launch (per call of ``fn`` with
+    ``per_call``) of the kernels whose name holds ``key`` over ``iters``
+    calls of ``fn``, from torch.profiler; None when the profiler records
+    no such kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -595,7 +631,9 @@ def device_us(fn, key: str, iters: int):
         if e.device_type == torch.autograd.DeviceType.CUDA and key in e.key \
                 and us > 0:
             total, count = total + us, count + e.count
-    return total / count if count else None
+    if not count:
+        return None
+    return total / (iters if per_call else count)
 
 
 def riccati_ops(b: int, h: int, n: int, c: int) -> float:
@@ -1307,6 +1345,245 @@ def phase_image_kernels(frames, photos) -> dict:
     return rows
 
 
+def legacy_input(device):
+    """The legacy golden's input as a planar tensor, and the golden."""
+    import numpy as np
+    import torch
+
+    legacy = np.load(LEGACY)
+    img = torch.from_numpy(np.ascontiguousarray(
+        np.transpose(legacy["input"], (2, 0, 1)))).to(device)
+    return img, legacy
+
+
+def phase_reduction_kernels(frames, photos) -> dict:
+    """The two reduction kernels against their plain versions: u8 inputs
+    (the ring, the photos, odd, short and 1-pixel-wide frames, C=4 at
+    1080p, all-0 and all-255, the legacy input) bit-exact, twice each
+    (the same bits again); channel_sum on int32 bit-exact and on float32
+    within SUM_F32_RTOL; the card against the CPU's plain version at
+    1080p. Returns their rows of the summary (launches filled in by
+    phase 6)."""
+    import torch
+
+    from openmp_parallel_computing_tpu_torch import ops
+    from openmp_parallel_computing_tpu_torch.ops import reductions as red
+
+    gen = torch.Generator().manual_seed(13)
+
+    def rand(shape):
+        return torch.randint(0, 256, shape, generator=gen,
+                             dtype=torch.uint8).cuda()
+
+    inputs = {f"ring[{k}]": frames[k] for k in range(frames.shape[0])}
+    inputs.update(photos)
+    inputs.update({str(s): rand(s) for s in
+                   ODD_FRAMES + SHORT_FRAMES + REDUCTION_FRAMES})
+    inputs["C=4 1080p"] = torch.cat([frames[0], rand((1, *frames.shape[2:]))])
+    for v in (0, 255):
+        inputs[f"all {v}"] = torch.full(CONSTANT_SHAPE, v, dtype=torch.uint8,
+                                        device="cuda")
+    inputs["legacy"] = legacy_input("cuda")[0]
+    n_cmp, worst = {"channel_sum": 0, "gray_minmax": 0}, 0.0
+
+    def same(kernel, what, got, plain):
+        for g_, p_ in zip(got, plain):
+            if (g_.dtype != p_.dtype or g_.shape != p_.shape
+                    or not torch.equal(g_, p_)):
+                raise AssertionError(f"{kernel} kernel != plain on {what}")
+        n_cmp[kernel] += 1
+
+    sums = {"channel_sum": (ops.channel_sum, red.channel_sum_plain),
+            "channel_mean": (ops.channel_mean, red.channel_mean_plain)}
+    for what, img in inputs.items():
+        gray = ops.grayscale_mean_minmax(img)
+        same("gray_minmax", what, gray, red.grayscale_mean_minmax_plain(img))
+        same("gray_minmax", f"{what} again", ops.grayscale_mean_minmax(img),
+             gray)
+        for name, (kern, plain) in sums.items():
+            got = kern(img)
+            same("channel_sum", f"{name} {what}", (got,), (plain(img),))
+            same("channel_sum", f"{name} {what} again", (kern(img),), (got,))
+    i32 = {"ring[0]": frames[0].to(torch.int32),
+           "full range (3, 517, 333)": torch.randint(
+               -2 ** 31, 2 ** 31 - 1, (3, 517, 333), generator=gen,
+               dtype=torch.int32).cuda()}
+    for what, img in i32.items():
+        for name, (kern, plain) in sums.items():
+            got = kern(img)
+            same("channel_sum", f"int32 {name} {what}", (got,), (plain(img),))
+            same("channel_sum", f"int32 {name} {what} again", (kern(img),),
+                 (got,))
+    f32 = {"ring[0] + 0.375": frames[0].float() + 0.375,
+           "uniform (3, 517, 333)": (1000 * torch.rand(
+               (3, 517, 333), generator=gen)).cuda()}
+    for what, img in f32.items():
+        for name, (kern, plain) in sums.items():
+            got, want = kern(img), plain(img)
+            err = (got - want).abs()
+            if not (err <= SUM_F32_RTOL * want.abs()).all():
+                raise AssertionError(f"float32 {name} {what}: kernel {got} "
+                                     f"vs plain {want}")
+            worst = max(worst, err.max().item())
+            same("channel_sum", f"float32 {name} {what} again", (kern(img),),
+                 (got,))
+    f0, f0_cpu = frames[0], frames[0].cpu()
+    same("channel_sum", "ring[0] vs CPU", (ops.channel_sum(f0).cpu(),),
+         (red.channel_sum_plain(f0_cpu),))
+    same("channel_sum", "ring[0] mean vs CPU", (ops.channel_mean(f0).cpu(),),
+         (red.channel_mean_plain(f0_cpu),))
+    same("gray_minmax", "ring[0] vs CPU",
+         [t.cpu() for t in ops.grayscale_mean_minmax(f0)],
+         red.grayscale_mean_minmax_plain(f0_cpu))
+    log(f"[kernel] reductions: bit-exact with their plain versions (u8, "
+        f"int32; gray, min, max) and the same on a second call: {n_cmp} "
+        f"comparisons; float32 channel_sum max abs err {worst:.3e} (rtol "
+        f"{SUM_F32_RTOL})")
+
+    rows = {}
+    for label, img in (("1080p", frames[0]), ("6mp", photos["6mp"])):
+        out = ops.channel_sum(img)
+        gray, mn, mx = ops.grayscale_mean_minmax(img)
+        # The one library call that computes channel_sum's exact sums.
+        timed = {
+            "channel_sum": (
+                lambda: ops.channel_sum(img),
+                lambda: red.channel_sum_plain(img), "channel_sum_",
+                bound(nbytes(img, out)),
+                lambda: torch.sum(img, dim=(1, 2), dtype=torch.int64)),
+            "gray_minmax": (
+                lambda: ops.grayscale_mean_minmax(img),
+                lambda: red.grayscale_mean_minmax_plain(img),
+                "gray_minmax_kernel", bound(nbytes(img[:3], gray, mn, mx)),
+                None),
+        }
+        for name, (kern, plain, key, bnd, library) in timed.items():
+            ms = cuda_time_ms(kern, 200)
+            plain_ms = cuda_time_ms(plain, 50)
+            dev = device_us(kern, key, 20, per_call=True)
+            lib = lib_dev = None
+            if library is not None:
+                lib = cuda_time_ms(library, 200)
+                lib_dev = device_us(library, "reduce_kernel", 20,
+                                    per_call=True)
+            log(f"[kernel] {name} {label} {tuple(img.shape)}: kernel "
+                f"{ms:.4f} ms a call (device {dev} us a call), plain "
+                f"{plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+                f"({bnd['bound_by']}), library "
+                f"{'none' if lib is None else f'{lib:.4f} ms'} (device "
+                f"{lib_dev} us)")
+            if label == "1080p":
+                rows[name] = kernel_row(
+                    name, *REDUCTION_ROWS[name],
+                    worst if name == "channel_sum" else 0.0, ms, plain_ms,
+                    bnd, lib, device_us=dev, library_device_us=lib_dev)
+            else:
+                rows[name].update(ms_6mp=ms, plain_ms_6mp=plain_ms,
+                                  bound_ms_6mp=bnd["bound_ms"],
+                                  device_us_6mp=dev, library_ms_6mp=lib,
+                                  library_device_us_6mp=lib_dev)
+    return rows
+
+
+def phase_reductions(frames, rows: dict) -> None:
+    """The reductions' path: the public ops API over the ring and the
+    legacy input, counts set to 0 just before and read just after; each
+    result against its plain version, the legacy golden bit for bit."""
+    import numpy as np
+    import torch
+
+    from openmp_parallel_computing_tpu_torch import ops
+    from openmp_parallel_computing_tpu_torch.ops import reductions as red
+
+    legacy_img, legacy = legacy_input("cuda")
+    torch.cuda.synchronize()
+    ops.channel_sum.launches = ops.grayscale_mean_minmax.launches = 0
+    outs = [(ops.channel_mean(f), ops.channel_sum(f),
+             ops.grayscale_mean_minmax(f)) for f in frames]
+    gray, mn, mx = ops.grayscale_mean_minmax(legacy_img)
+    torch.cuda.synchronize()
+    got = {"channel_sum": ops.channel_sum.launches,
+           "gray_minmax": ops.grayscale_mean_minmax.launches}
+    # channel_sum: two launches a call, two calls a frame; gray_minmax:
+    # one a frame and one for the legacy input.
+    want = {"channel_sum": 2 * 2 * frames.shape[0],
+            "gray_minmax": frames.shape[0] + 1}
+    if got != want:
+        raise AssertionError(f"reductions: launch counts {got} != {want}")
+    for name in want:
+        rows[name]["launches"] = got[name]
+    for f, (mean, total, g) in zip(frames, outs):
+        if not (torch.equal(mean, red.channel_mean_plain(f))
+                and torch.equal(total, red.channel_sum_plain(f))
+                and all(torch.equal(a, b) for a, b in
+                        zip(g, red.grayscale_mean_minmax_plain(f)))):
+            raise AssertionError("reductions on the ring != plain")
+    if not (np.array_equal(gray.cpu().numpy(),
+                           np.transpose(legacy["gray"], (2, 0, 1)))
+            and [mn.item(), mx.item()] == legacy["minmax"].tolist()):
+        raise AssertionError(f"legacy golden not reproduced: min/max "
+                             f"{mn.item()}, {mx.item()}")
+    log(f"[reductions] launches {got} over {frames.shape[0]} ring frames "
+        f"and the legacy input; all equal the plain versions; legacy gray "
+        f"and min/max {legacy['minmax'].tolist()} bit-exact; ring[0] mean "
+        f"{outs[0][0].tolist()}")
+
+
+def phase_probe() -> None:
+    import torch
+
+    from openmp_parallel_computing_tpu_torch import probe
+
+    info = probe.probe()
+    log(f"[probe] {info}")
+    if (info["kernels"] != "supported"
+            or torch.cuda.get_device_name(0) not in info["devices"]):
+        raise AssertionError(f"probe: kernel path not supported: {info}")
+
+
+def phase_headline() -> None:
+    """The headline bench at HEADLINE_RUN, its launches counted: one
+    perception launch a step (one a window on the fixed-frame ceiling),
+    admm_iters multi_sweep launches a solve and admm_iters_extra more on
+    each gated solve, no other MPC kernel."""
+    import math
+
+    import torch
+
+    from openmp_parallel_computing_tpu_torch.bench import headline
+    from openmp_parallel_computing_tpu_torch.models.mpc import solver
+    from openmp_parallel_computing_tpu_torch.utils.config import MPCConfig
+
+    k = HEADLINE_RUN
+    windows = 2 + k["trials"]               # two warm windows, the trials
+    loop_steps = windows * (k["steps"] + k["steps_small"])
+    solves = loop_steps + (1 + k["trials"]) * k["steps"]
+    torch.cuda.synchronize()
+    reset_counts()
+    with GateLog(solver) as gates:
+        t0 = time.perf_counter()
+        out = headline.run(**k)
+        wall = time.perf_counter() - t0
+    launches = read_counts()
+    cfg = MPCConfig(horizon=20, num_features=8, edge_refresh="solve")
+    want = {n: 0 for n in launches}
+    want["edge_pyramid"] = loop_steps + 1 + k["trials"]
+    want["multi_sweep"] = (solves * cfg.admm_iters
+                           + sum(gates.fired) * cfg.admm_iters_extra)
+    if launches != want or len(gates.fired) != solves:
+        raise AssertionError(f"headline: launch counts {launches} != {want} "
+                             f"({len(gates.fired)} gated solves of {solves})")
+    log(f"[headline] {json.dumps(out)}")
+    for key in ("value", "value_256", "solver_only_ceiling"):
+        rates = [out[key]] + out[{"value": "trials", "value_256": "trials_256",
+                                  "solver_only_ceiling": "ceiling_trials"}[key]]
+        if not all(math.isfinite(r) and r > 0 for r in rates):
+            raise AssertionError(f"headline {key}: {rates}")
+    log(f"[headline] {wall:.1f} s; launches "
+        f"{ {n: c for n, c in launches.items() if c} }; gate fired on "
+        f"{sum(gates.fired)}/{solves} solves")
+
+
 def golden_ladder(kernel: str, ours, size: str) -> str:
     """Hold an output plane to the reference binary's golden as
     tests/test_golden_parity.py does; returns a summary."""
@@ -1450,17 +1727,24 @@ def main() -> int:
             ("profile", lambda: phase_profile(frames, ilqr, "ilqr/pallas")),
             ("full", lambda: phase_full(frames, rows)),
             ("fused", lambda: phase_fused(frames, rows)),
-            ("image cli", lambda: phase_image_cli(frames, photos, rows))):
+            ("image cli", lambda: phase_image_cli(frames, photos, rows)),
+            ("reduction kernels",
+             lambda: rows.update(phase_reduction_kernels(frames, photos))),
+            ("reductions", lambda: phase_reductions(frames, rows)),
+            ("probe", phase_probe),
+            ("headline", phase_headline)):
         t0 = time.perf_counter()
         run()
         log(f"[time] phase {name}: {time.perf_counter() - t0:.1f} s")
+    order = ("edge_pyramid", "multi_sweep", *IMAGE_ROWS, *REDUCTION_ROWS,
+             *MPC_ROWS, *SOLVE_ROWS)
+    if sorted(order) != sorted(rows):
+        raise AssertionError(f"kernel rows {sorted(rows)} != {sorted(order)}")
     for name, row in rows.items():
         if not row["launches"]:
             raise AssertionError(f"kernel {name} was not launched on its path")
     log(nvidia_smi_line())
-    log(json.dumps({"kernels": [rows[k] for k in (
-        "edge_pyramid", "multi_sweep", *IMAGE_ROWS, *MPC_ROWS,
-        *SOLVE_ROWS)]}))
+    log(json.dumps({"kernels": [rows[k] for k in order]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -5,17 +5,22 @@ backend (the fused perception kernel ``csrc/edge_pyramid.cu``, the
 analytic edge linearization, the multi-sweep iLQR kernel
 ``csrc/multi_sweep.cu``), and the image-kernel entry point (the CLI and
 kernel registry over ``csrc/grayscale.cu``, ``csrc/stencil.cu`` and
-``csrc/conv3x3.cu``). Kernels are compiled with nvcc at first use
-(``_build``); on CPU tensors every kernel wrapper runs its plain PyTorch
-version instead. This package imports neither JAX nor the JAX package.
+``csrc/conv3x3.cu``), with the reductions (``csrc/reductions.cu``), the
+capability probe and the headline MPC bench. Kernels are compiled with
+nvcc at first use (``_build``); on CPU tensors every kernel wrapper runs
+its plain PyTorch version instead. This package imports neither JAX nor
+the JAX package.
 
 Layout:
     cli.py, __main__.py    <in> <out.png> [passes] --kernel ... on the card
+    probe.py               python -m openmp_parallel_computing_tpu_torch.probe
+    bench/                 headline (bench.py on the card), mpc_batch, _chain
     utils/config.py        MPCConfig
     data/                  fixture paths (the JAX package's PNG files)
     imgio.py               zlib + numpy PNG decoder and encoder
-    ops/xla_ref.py         plain luma, grayscale, Sobel, edge, conv3x3
-    ops/grayscale.py, sobel.py, pipeline.py, conv.py
+    ops/xla_ref.py         plain luma, grayscale, Sobel, edge, conv3x3,
+                           channel_mean, grayscale_mean_minmax
+    ops/grayscale.py, sobel.py, pipeline.py, conv.py, reductions.py
                            kernel wrappers + plain versions
     ops/runner.py          kernel registry, make_runner
     models/vision/         EdgeBatchRunner

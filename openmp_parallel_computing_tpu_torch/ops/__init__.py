@@ -1,5 +1,6 @@
 """Image ops of the PyTorch port: hand-written CUDA kernels, each with its
-plain PyTorch twin, and the kernel registry."""
+plain PyTorch twin (stencils, conv, reductions), and the kernel
+registry."""
 
 from openmp_parallel_computing_tpu_torch.ops import xla_ref  # noqa: F401
 from openmp_parallel_computing_tpu_torch.ops.conv import (  # noqa: F401
@@ -10,6 +11,11 @@ from openmp_parallel_computing_tpu_torch.ops.grayscale import grayscale  # noqa:
 from openmp_parallel_computing_tpu_torch.ops.pipeline import (  # noqa: F401
     edge_pipeline,
     edge_pyramid_base,
+)
+from openmp_parallel_computing_tpu_torch.ops.reductions import (  # noqa: F401
+    channel_mean,
+    channel_sum,
+    grayscale_mean_minmax,
 )
 from openmp_parallel_computing_tpu_torch.ops.sobel import sobel  # noqa: F401
 from openmp_parallel_computing_tpu_torch.ops.xla_ref import (  # noqa: F401

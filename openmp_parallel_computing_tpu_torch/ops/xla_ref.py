@@ -2,9 +2,11 @@
 
 Torch twins of ``openmp_parallel_computing_tpu.ops.xla_ref``: fixed-point
 BT.601 luma and grayscale, the 3x3 Sobel magnitude, the edge pipeline
-built from them, and the 3x3 weighted convolution. Layout is planar
-``(C, H, W)``. Each function is one pass; the ``passes`` loops live with
-the kernel wrappers in ``grayscale``, ``sobel``, ``pipeline`` and ``conv``.
+built from them, the 3x3 weighted convolution, and the reductions (the
+per-channel mean, the channel-mean grayscale with its min and max).
+Layout is planar ``(C, H, W)``. Each function is one pass; the
+``passes`` loops live with the kernel wrappers in ``grayscale``,
+``sobel``, ``pipeline`` and ``conv``.
 """
 
 from __future__ import annotations
@@ -141,3 +143,22 @@ def conv3x3(img: torch.Tensor, taps=GBLUR_KERNEL,
     if integer:
         return torch.div(acc, scale, rounding_mode="trunc")
     return acc * torch.tensor(scale, dtype=torch.float32, device=img.device)
+
+
+def channel_mean(img: torch.Tensor) -> torch.Tensor:
+    """Per-channel mean over all pixels: (C, H, W) -> (C,) float32, the
+    plain per-channel mean (sum / (H*W)) that the reference's
+    ``parallel_avg_pixel`` reduction approximates."""
+    return img.to(torch.float32).mean(dim=(1, 2))
+
+
+def grayscale_mean_minmax(img: torch.Tensor
+                          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Channel-mean grayscale with its min and max, the reference's
+    ``parallel_to_grayscale``: planar (C, H, W) u8, C >= 3, alpha ignored
+    -> ((3, H, W) int32 contiguous, min, max), gray = (r+g+b)/3 with C
+    integer division (the sum is non-negative, so floor is truncation);
+    min and max are 0-d int32 tensors on the input's device."""
+    gray = img[:3].to(torch.int32).sum(dim=0, dtype=torch.int32) // 3
+    return gray[None].expand(3, *gray.shape).contiguous(), gray.amin(), \
+        gray.amax()

@@ -1,0 +1,148 @@
+"""The port's benches and probe on the CPU, against the JAX package's.
+
+``bench.headline.run`` and ``bench.mpc_batch.measure`` run at a few
+scenarios and steps on the CPU (``device="cpu"``); their outputs must
+carry the JAX benches' keys (read from the JAX sources, which these tests
+do not run) and finite positive rates. The warm-start chain is held to
+the same chain of ``control_step`` calls written out by hand, bit for
+bit (the same calls on the same device). The probe on a machine without
+a card reports the kernel path as not supported and does not raise.
+"""
+
+import ast
+import importlib.util
+import math
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from openmp_parallel_computing_tpu_torch import probe
+from openmp_parallel_computing_tpu_torch.bench import _chain, headline, mpc_batch
+from openmp_parallel_computing_tpu_torch.models.mpc import VisualServoMPC
+from openmp_parallel_computing_tpu_torch.utils.config import MPCConfig
+
+torch.set_num_threads(2)
+
+ROOT = Path(__file__).resolve().parents[1]
+JAX_BENCH = ROOT / "openmp_parallel_computing_tpu" / "bench"
+
+
+def _dict_keys(path: Path, first_key: str) -> set:
+    """The keys of the dict literal in ``path`` whose first key is
+    ``first_key``."""
+    for node in ast.walk(ast.parse(path.read_text())):
+        if (isinstance(node, ast.Dict) and node.keys
+                and isinstance(node.keys[0], ast.Constant)
+                and node.keys[0].value == first_key):
+            return {k.value for k in node.keys}
+    raise AssertionError(f"no dict starting with {first_key!r} in {path}")
+
+
+def _options(path: Path) -> list:
+    """The option strings of every ``add_argument`` call in ``path``."""
+    return [c.args[0].value for c in ast.walk(ast.parse(path.read_text()))
+            if isinstance(c, ast.Call) and isinstance(c.func, ast.Attribute)
+            and c.func.attr == "add_argument"]
+
+
+@pytest.fixture(scope="module")
+def frame():
+    return _chain.load_headline_frame("cpu")
+
+
+def test_headline_run_has_bench_py_keys_and_positive_rates():
+    out = headline.run(scenarios=4, steps=2, scenarios_small=4,
+                       steps_small=2, trials=1, device="cpu")
+    assert set(out) == _dict_keys(ROOT / "bench.py", "metric") | {"device"}
+    assert out["metric"] == headline.METRIC and out["unit"] == "solves/s"
+    assert out["device"] == "cpu" and out["batch"] == 4
+    for key in ("value", "value_256", "solver_only_ceiling", "vs_baseline"):
+        assert math.isfinite(out[key]) and out[key] > 0, key
+    for key in ("trials", "trials_256", "ceiling_trials"):
+        assert len(out[key]) == 1 and all(math.isfinite(v) and v > 0
+                                          for v in out[key]), key
+
+
+def test_headline_constants_and_ring_match_bench_py():
+    spec = importlib.util.spec_from_file_location("bench", ROOT / "bench.py")
+    bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench)
+    for name in ("SCENARIOS", "SCENARIOS_SMALL", "STEPS", "STEPS_SMALL",
+                 "RING", "TRIALS"):
+        assert getattr(headline, name) == getattr(bench, name), name
+    img = np.random.default_rng(0).integers(0, 256, (3, 5, 37), np.uint8)
+    np.testing.assert_array_equal(
+        headline.frame_ring(torch.from_numpy(img), 8).numpy(),
+        np.asarray(bench._frame_ring(img, 8)))
+
+
+def test_mpc_batch_measure_has_jax_keys(frame):
+    row = mpc_batch.measure(4, 2, frame, trials=2)
+    assert set(row) == _dict_keys(JAX_BENCH / "mpc_batch.py", "batch")
+    assert row["batch"] == 4 and len(row["trials"]) == 2
+    assert row["solves_per_s"] > 0 and row["ms"] > 0
+    assert _options(Path(mpc_batch.__file__)) == _options(
+        JAX_BENCH / "mpc_batch.py")
+
+
+def test_chain_final_controls_equal_the_chain_by_hand(frame):
+    cfg = MPCConfig(horizon=6, num_features=8, scenarios=3,
+                    edge_refresh="solve")
+    mpc = VisualServoMPC(cfg, "cpu")
+    seen = []
+    orig = mpc.control_step
+
+    def watched(f, s):
+        u0, sol = orig(f, s)
+        seen.append(u0)
+        return u0, sol
+
+    mpc.control_step = watched
+    vals = _chain.chain_throughput(mpc, frame, 3, reps=2, trials=2, seed=5)
+    assert len(vals) == 2 and all(v > 0 for v in vals)
+    assert len(seen) == 1 + 2 * 2
+
+    s = VisualServoMPC(cfg, "cpu").random_scenarios(
+        3, generator=torch.Generator().manual_seed(5))
+    for _ in range(len(seen)):
+        u0, sol = orig(frame, s)
+        s = s._replace(us0=torch.roll(sol.us, -1, dims=1))
+    assert torch.isfinite(u0).all()
+    assert torch.equal(seen[-1], u0)
+
+
+def test_non_finite_controls_fail_the_bench():
+    _chain.check_finite(torch.zeros(3, 6))
+    with pytest.raises(RuntimeError, match="not finite"):
+        _chain.check_finite(torch.tensor([[0.0, float("nan")]]))
+
+
+def test_probe_reports_no_card_without_raising():
+    info = probe.probe()
+    assert info["device_count"] == torch.cuda.device_count()
+    if torch.cuda.is_available():
+        pytest.skip("a card is attached: the probe's CPU case does not apply")
+    assert info["kernels"].startswith("NOT supported")
+    assert info["devices"] == []
+
+
+def test_bench_and_probe_import_without_jax():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['openmp_parallel_computing_tpu'] = None\n"
+        "from openmp_parallel_computing_tpu_torch import probe\n"
+        "from openmp_parallel_computing_tpu_torch.bench import (_chain,"
+        " headline, mpc_batch)\n"
+        "bad = [k for k in sys.modules if k.startswith('jax')"
+        " and sys.modules[k] is not None]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

@@ -9,13 +9,22 @@ Any failure raises and the script exits non-zero.
    and nvcc versions and the card's name and power limit.
 2. Build: compiles every kernel of ``openmp_parallel_computing_tpu_torch/
    csrc/`` with nvcc for sm_90a, one process per source, and prints the
-   seconds it took and each kernel's ptxas register/spill report.
+   seconds it took and each kernel's ptxas register/spill report; fails
+   if ptxas reports spill stores for an instance of the group-sweep
+   kernels (multi_sweep, full_solve).
 3. Kernel vs plain: each kernel against its plain PyTorch version on the
    same inputs at the shapes the main path gives it, with both times and
    the least time the card could take (``bound``). The perception kernel
    bit-exact on the 1080p fixture and its ring of 8 shifted frames; the
-   multi-sweep kernel within MULTI_SWEEP_TOL at m=8, H=20, B=4096 on a
-   real nominal rollout; the gather sampler bit-exact in both modes on
+   multi-sweep kernel within MULTI_SWEEP_TOL at MULTI_SHAPES (m=8, H=20,
+   B=4096 on a real nominal rollout, smaller feature counts, ragged
+   batches B=999, 1 and 254 whose last block holds groups past the end),
+   and on a batch with NaNs in g (NaNs where the plain version has them),
+   timed at B=4096 and B=256 by CUDA events and the profiler; at a horizon
+   whose gains do not fit one block's shared memory (TOO_LONG_H) the
+   solver takes the per-sweep path instead of it and the one-launch
+   solve, and a direct launch fails without upsetting the next; the gather
+   sampler bit-exact in both modes on
    that rollout's points and on off-frame, on-border and integer
    coordinates (1080p, and a 64x128 map with a one-row level); the
    unified, backward and forward sweeps within MULTI_SWEEP_TOL at
@@ -26,9 +35,9 @@ Any failure raises and the script exits non-zero.
    both borders and every conv mode of the CPU tests, with kernel and
    plain times per pass at 1080p and 6MP. The one-launch solve kernel
    within MULTI_SWEEP_TOL at m=8, H=20, B=4096 with 5 ADMM iterations of
-   1 sweep (the main path's relax 1.3), and at smaller shapes, and against
-   the chain of multi_sweep launches and eager updates (bit equality
-   reported); the batched Riccati kernel within RICCATI_TOL on the fused
+   1 sweep (the main path's relax 1.3), at smaller and ragged shapes and
+   on the NaN batch, and against the chain of multi_sweep launches and
+   eager updates (bit equality reported); the batched Riccati kernel within RICCATI_TOL on the fused
    path's own expansions at B=4096 (stride-0 cost Hessians) and on random
    inputs at n = 4, 8, 16; both timed by CUDA events and the profiler.
 4. The main MPC path: ``VisualServoMPC.receding_horizon_frames`` at H=20,
@@ -127,6 +136,19 @@ PROFILE_STEPS = 5
 # (m, H, B) of the sweep kernels' checks: the main path, and two smaller
 # instances of the other feature counts the kernels are built for.
 SWEEP_SHAPES = ((M, H, 4096), (4, 8, 256), (2, 5, 100))
+# (m, H, B) of the group-sweep kernels' checks (multi_sweep, full_solve):
+# those shapes and ragged batches, whose last block holds groups past the
+# end (a block is one warp: 32 / 2m scenarios).
+MULTI_SHAPES = SWEEP_SHAPES + ((M, H, 999), (M, H, 1), (4, 8, 254))
+# A horizon too long for one block's shared memory at m=8 (the solver
+# routes around the group-sweep kernels; a direct launch fails), solved at
+# LONG_BATCH scenarios; and a batch with NaNs in g at three scenarios
+# (nan_sweep_inputs).
+TOO_LONG_H, LONG_BATCH = 400, 64
+NAN_BATCH, NAN_SCENARIOS = 256, (5, 77, 200)
+# The group-sweep kernels must not spill: ptxas reports 0 bytes of spill
+# stores for each of their instances.
+NO_SPILL = ("multi_sweep", "full_solve")
 MPC_ROWS = {   # kernel -> (source, TPU kernel it replaces)
     "sampler": ("csrc/sampler.cu", "models/mpc/sampler_pallas.py:57"),
     "unified_sweep": ("csrc/sweep.cu", "models/mpc/sweep_pallas.py:460"),
@@ -144,7 +166,8 @@ FULL_ITERS = 5                   # ADMM iterations of the one-launch path
 # (m, H, B, sweeps, admm_iters, relax) of the full_solve checks: the main
 # path's, then other feature counts, sweep counts and relaxations.
 FULL_SHAPES = ((M, H, 4096, 1, FULL_ITERS, 1.3), (4, 8, 256, 2, 3, 1.0),
-               (2, 5, 100, 1, 2, 1.6))
+               (2, 5, 100, 1, 2, 1.6), (M, H, 999, 1, FULL_ITERS, 1.3),
+               (M, H, 1, 2, 2, 1.0))
 # (scenarios, timed steps); the counted run is the first full_solve=True
 # sample of the A/B against the scan.
 FULL_BATCHES = ((4096, 10), (256, 20))
@@ -336,6 +359,11 @@ def phase_build() -> dict:
                 log(f"[build] {name}: instance m={inst.group(1)}")
             elif "registers" in line or "spill" in line or "error" in line:
                 log(f"[build] {name}: {line.strip()}")
+    for name in NO_SPILL:
+        stores = re.findall(r"(\d+) bytes spill stores", reports[name])
+        if len(stores) < 3 or any(int(n) for n in stores):
+            raise AssertionError(f"{name}: ptxas spill stores {stores} for "
+                                 f"its m = 2, 4, 8 instances, want none")
     return reports
 
 
@@ -378,35 +406,137 @@ def phase_kernels(frames) -> dict:
 
     # -- kernel 2: multi_sweep on a real nominal rollout -------------------
     worst = 0.0
-    for m, h, b in ((M, H, 4096), (4, 8, 256), (2, 5, 100)):
+    for m, h, b in MULTI_SHAPES:
         args, kw = sweep_inputs(frames[0], m, h, b)
-        got = sweep.multi_sweep(*args, **kw)
-        plain = sweep.multi_sweep_plain(*args, **kw)
-        for name, g_, p_ in zip(("ps", "us"), got, plain):
-            if not torch.isfinite(g_).all():
-                raise AssertionError(f"multi_sweep {name} not finite (m={m})")
-            err = (g_ - p_).abs()
-            bad = err > MULTI_SWEEP_TOL + MULTI_SWEEP_TOL * p_.abs()
-            n_bad = int(bad.any(dim=tuple(range(bad.dim() - 1))).sum())
-            log(f"[kernel] multi_sweep m={m} H={h} B={b} {name}: max abs err "
-                f"{err.max().item():.3e}, scenarios out of tolerance {n_bad}")
-            if n_bad:
-                raise AssertionError(f"multi_sweep {name} (m={m}) differs "
-                                     f"from plain beyond {MULTI_SWEEP_TOL}")
-            if m == M:
-                worst = max(worst, err.max().item())
+        err = check_close(f"multi_sweep m={m} H={h} B={b}", ("ps", "us"),
+                          sweep.multi_sweep(*args, **kw),
+                          sweep.multi_sweep_plain(*args, **kw),
+                          MULTI_SWEEP_TOL)
+        if m == M:
+            worst = max(worst, err)
+    args, kw = nan_sweep_inputs(frames[0])
+    check_nan_batch("multi_sweep", ("ps", "us"),
+                    sweep.multi_sweep(*args, **kw),
+                    sweep.multi_sweep_plain(*args, **kw), MULTI_SWEEP_TOL)
+    check_horizon_too_large(frames[0], kw)
+    times = {}
+    for b in (4096, 256):
+        args, kw = sweep_inputs(frames[0], M, H, b)
+        run = lambda: sweep.multi_sweep(*args, **kw)  # noqa: E731
+        times[b] = (cuda_time_ms(run, 20), device_us(run, "multi_sweep", 5))
+        log(f"[kernel] multi_sweep m={M} H={H} B={b}: kernel "
+            f"{times[b][0]:.4f} ms (device {times[b][1]} us)")
     args, kw = sweep_inputs(frames[0], M, H, 4096)
-    ms = cuda_time_ms(lambda: sweep.multi_sweep(*args, **kw), 20)
     plain_ms = cuda_time_ms(lambda: sweep.multi_sweep_plain(*args, **kw), 3)
     bnd = bound(nbytes(*args, *sweep.multi_sweep(*args, **kw)),
                 kw["sweeps"] * sweep_ops(M, H, 4096))
-    log(f"[kernel] multi_sweep m={M} H={H} B=4096: kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+    log(f"[kernel] multi_sweep m={M} H={H} B=4096: kernel {times[4096][0]:.4f} "
+        f"ms, plain {plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
         f"({bnd['bound_by']})")
     rows["multi_sweep"] = kernel_row(
         "multi_sweep", "csrc/multi_sweep.cu", "models/mpc/sweep_pallas.py:686",
-        worst, ms, plain_ms, bnd)
+        worst, times[4096][0], plain_ms, bnd, device_us=times[4096][1],
+        ms_b256=times[256][0], device_us_b256=times[256][1])
     return rows
+
+
+def check_horizon_too_large(frame, kw) -> None:
+    """At a horizon (TOO_LONG_H) whose gains do not fit one block's shared
+    memory, the solver admits neither group-sweep kernel (it does at H) and
+    a one-launch solve of LONG_BATCH scenarios runs the per-sweep path to
+    finite controls; a direct launch of either kernel raises, and the next
+    CUDA call is unharmed."""
+    import ctypes
+
+    import torch
+
+    from openmp_parallel_computing_tpu_torch import _build
+    from openmp_parallel_computing_tpu_torch.models.mpc import costs, sweep
+    from openmp_parallel_computing_tpu_torch.models.mpc.solver import (
+        VisualServoMPC, _SweepLanes)
+    from openmp_parallel_computing_tpu_torch.utils.config import MPCConfig
+
+    pyramid = costs.build_cost_pyramid_from_frame(frame)
+    for h in (H, TOO_LONG_H):
+        cfg = MPCConfig(horizon=h, num_features=M, edge_refresh="solve",
+                        full_solve=True, admm_iters_extra=0)
+        sw = _SweepLanes(pyramid, frame.shape[1:], cfg)
+        need = {k: _build.function(k, f"{k}_smem_bytes",
+                                   [ctypes.c_int] * 2)(M, h)
+                for k in NO_SPILL}
+        log(f"[kernel] H={h}: shared memory a block {need} B, the card's "
+            f"opt-in limit "
+            f"{torch.cuda.get_device_properties(0).shared_memory_per_block_optin}"
+            f" B; use_multi {sw.use_multi}, use_full {sw.use_full}")
+        if (sw.use_multi, sw.use_full) != ((h == H),) * 2:
+            raise AssertionError(f"group-sweep admission wrong at H={h}")
+    before = (sweep.multi_sweep.launches, sweep.full_solve.launches,
+              sweep.unified_sweep.launches)
+    mpc = VisualServoMPC(cfg, "cuda")
+    scen = mpc.random_scenarios(LONG_BATCH, torch.Generator().manual_seed(5))
+    u0, sol = mpc.control_step(frame, scen)
+    after = (sweep.multi_sweep.launches, sweep.full_solve.launches,
+             sweep.unified_sweep.launches)
+    log(f"[kernel] one-launch solve at H={TOO_LONG_H}, B={LONG_BATCH}: "
+        f"launches (multi_sweep, full_solve, unified_sweep) {before} -> "
+        f"{after}, cost finite {bool(torch.isfinite(sol.cost).all())}")
+    if after[:2] != before[:2] or after[2] == before[2]:
+        raise AssertionError("the long horizon did not take the per-sweep "
+                             "path")
+    if not (torch.isfinite(u0).all() and torch.isfinite(sol.cost).all()):
+        raise AssertionError(f"solve at H={TOO_LONG_H} not finite")
+    h, b, n, c = TOO_LONG_H, 2, 2 * M, 6
+    z = lambda *shape: torch.zeros(shape, device="cuda")  # noqa: E731
+    ms_args = (z(n, b), z(h + 1, n, b), z(h, c, b), z(h, c, b), z(h, c, b),
+               z(h + 1, n, b), z(n, b), z(M, b) + 1.0)
+    fs_args = (*ms_args[:3], *ms_args[5:])
+    fs_kw = dict(kw, admm_iters=1, u_limit=1.0)
+    for name, call in (
+            ("multi_sweep", lambda: sweep.multi_sweep(*ms_args, **kw)),
+            ("full_solve", lambda: sweep.full_solve(*fs_args, **fs_kw))):
+        try:
+            call()
+        except RuntimeError as exc:
+            log(f"[kernel] {name} launched at H={h}: fails as it should: "
+                f"{exc}")
+        else:
+            raise AssertionError(f"{name} at H={h} launched")
+        if z(4).add_(1.0).sum().item() != 4.0:
+            raise AssertionError(f"the CUDA call after {name} failed")
+
+
+def nan_sweep_inputs(frame):
+    """multi_sweep inputs at m=8, H=20, B=NAN_BATCH with NaNs in g: one
+    entry of scenario NAN_SCENARIOS[0], the terminal row of [1], all of
+    [2]."""
+    args, kw = sweep_inputs(frame, M, H, NAN_BATCH)
+    g = args[5].clone()
+    a, b_, c = NAN_SCENARIOS
+    g[3, 2, a] = float("nan")
+    g[H, 0, b_] = float("nan")
+    g[:, :, c] = float("nan")
+    return (*args[:5], g, *args[6:]), kw
+
+
+def check_nan_batch(what: str, names, got, ref, tol: float) -> None:
+    """Hold outputs of inputs with NaNs to the plain version's: NaNs in the
+    same places, every other entry within rtol = atol = ``tol``."""
+    import torch
+
+    for name, g_, p_ in zip(names, got, ref):
+        if not torch.equal(torch.isnan(g_), torch.isnan(p_)):
+            raise AssertionError(f"{what} {name}: NaNs not where the plain "
+                                 f"version has them")
+        ok = torch.isclose(g_, p_, rtol=tol, atol=tol, equal_nan=True)
+        n_bad = int((~ok).any(dim=tuple(range(ok.dim() - 1))).sum())
+        both = torch.isfinite(g_) & torch.isfinite(p_)
+        err = (g_ - p_)[both].abs().max().item()
+        log(f"[kernel] {what} NaN batch {name}: {int(torch.isnan(p_).sum())} "
+            f"NaNs in the same places, max abs err elsewhere {err:.3e}, "
+            f"scenarios out of tolerance {n_bad}")
+        if n_bad:
+            raise AssertionError(f"{what} NaN batch {name} differs beyond "
+                                 f"{tol}")
 
 
 def sweep_inputs(frame, m: int, h: int, b: int):
@@ -612,28 +742,30 @@ def phase_mpc_kernels(frames) -> dict:
 def device_us(fn, key: str, iters: int, per_call: bool = False):
     """Mean device microseconds per launch (per call of ``fn`` with
     ``per_call``) of the kernels whose name holds ``key`` over ``iters``
-    calls of ``fn``, from torch.profiler; None when the profiler records
-    no such kernel."""
+    calls of ``fn``, from torch.profiler. A profile that records no such
+    kernel is taken once more (one has come back without the full_solve
+    kernel it timed); None when the second does not record it either."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total, count = 0.0, 0
-    for e in prof.key_averages():
-        us = (getattr(e, "self_device_time_total", None)
-              or getattr(e, "self_cuda_time_total", 0))
-        if e.device_type == torch.autograd.DeviceType.CUDA and key in e.key \
-                and us > 0:
-            total, count = total + us, count + e.count
-    if not count:
-        return None
-    return total / (iters if per_call else count)
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total, count = 0.0, 0
+        for e in prof.key_averages():
+            us = (getattr(e, "self_device_time_total", None)
+                  or getattr(e, "self_cuda_time_total", 0))
+            if e.device_type == torch.autograd.DeviceType.CUDA \
+                    and key in e.key and us > 0:
+                total, count = total + us, count + e.count
+        if count:
+            return total / (iters if per_call else count)
+    return None
 
 
 def riccati_ops(b: int, h: int, n: int, c: int) -> float:
@@ -750,6 +882,11 @@ def phase_solve_kernels(frames) -> dict:
             f"and eager updates: bit-equal {same}, max abs diff {diff:.3e}")
         check_close(f"full_solve vs chain {tag}", names, got, chain,
                     MULTI_SWEEP_TOL)
+    (p0, ps, us, _, _, g, tgt, izd), kw = nan_sweep_inputs(frame)
+    kw.update(sweeps=1, admm_iters=FULL_ITERS, u_limit=1.0, relax=1.3)
+    fargs = (p0, ps, us, g, tgt, izd)
+    check_nan_batch("full_solve", names, sweep.full_solve(*fargs, **kw),
+                    sweep.full_solve_plain(*fargs, **kw), MULTI_SWEEP_TOL)
     m, h, b, sweeps, iters, relax = FULL_SHAPES[0]
     fargs, kw, out, plain_ms = main_full
     ms = cuda_time_ms(lambda: sweep.full_solve(*fargs, **kw), 10)
@@ -1700,6 +1837,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import torch
 
+    start = time.perf_counter()
     phase_device()
     phase_build()
     from openmp_parallel_computing_tpu_torch import data
@@ -1743,6 +1881,8 @@ def main() -> int:
     for name, row in rows.items():
         if not row["launches"]:
             raise AssertionError(f"kernel {name} was not launched on its path")
+    log(f"[time] all phases, the build included: "
+        f"{time.perf_counter() - start:.1f} s")
     log(nvidia_smi_line())
     log(json.dumps({"kernels": [rows[k] for k in order]}))
     log(json.dumps({"ok": True, "device": {

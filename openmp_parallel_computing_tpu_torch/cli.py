@@ -9,7 +9,8 @@ before encode), and the same one-line report.
         [--kernel grayscale|edge|blur] [--devices N]
 
 The command line always runs on a CUDA card through the registry's
-kernels, and raises when there is none. ``--devices`` above 1 raises
+kernels, and raises when there is none. ``--devices`` is clamped to the
+attached cards, and raises only when more than one remains
 (``make_runner``). One warm-up run precedes the timed one; it also pays
 the kernels' nvcc build at first use.
 """

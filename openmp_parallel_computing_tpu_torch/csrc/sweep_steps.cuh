@@ -1,9 +1,11 @@
-// The iLQR sweep's per-scenario steps, shared by csrc/multi_sweep.cu,
-// csrc/full_solve.cu and csrc/sweep.cu: one source of the recursion, as
-// `_backward_step`,
-// `_forward_step` and `_dyn_step` of
+// The iLQR sweep's steps with one thread per scenario, for the per-sweep
+// kernels of csrc/sweep.cu (unified, backward and forward), as
+// `_backward_step`, `_forward_step` and `_dyn_step` of
 // openmp_parallel_computing_tpu/models/mpc/sweep_pallas.py are for the TPU
 // kernels. Each function works on one scenario held by the calling thread.
+// csrc/multi_sweep.cu and csrc/full_solve.cu run the same recursion on a
+// thread group per scenario (csrc/sweep_group.cuh); the two designs share
+// csrc/sweep_common.cuh (weights, step sizes, dynamics).
 //
 // Layout of every array: the scenario index b is the fastest axis, so a
 // warp's 32 threads touch 32 consecutive floats. Element [t][i] of a
@@ -12,23 +14,11 @@
 // IBVS state Jacobian is four diagonal m x m blocks (A, Bc, C, D).
 #pragma once
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "sweep_common.cuh"
 
 namespace sweep {
 
-constexpr int C = 6;          // control dimension
-constexpr int A = 4;          // line-search candidates
 constexpr int kThreads = 32;  // small blocks: a batch of 4096 spans all SMs
-
-struct Weights {
-  float q, r, rho, qe, dt, reg;
-};
-
-// Line-search step sizes, ALPHAS = (0, 1, 0.5, 0.25).
-__device__ __forceinline__ float alpha_of(int a) {
-  return a == 0 ? 0.0f : a == 1 ? 1.0f : a == 2 ? 0.5f : 0.25f;
-}
 
 __device__ __forceinline__ size_t lane(int t, int i, int R, size_t B, int b) {
   return ((size_t)t * R + i) * B + b;
@@ -47,25 +37,6 @@ __device__ __forceinline__ void store_row(float* arr, int t, size_t B, int b,
                                           const float* in) {
 #pragma unroll
   for (int i = 0; i < R; ++i) arr[lane(t, i, R, B, b)] = in[i];
-}
-
-// Split-layout clipped Euler step p' = clip(p + dt L(p) u, +-4).
-template <int M>
-__device__ __forceinline__ void dyn_step(const float* p, const float* u,
-                                         const float* iz, float dt,
-                                         float* out) {
-  const float vx = u[0], vy = u[1], vz = u[2];
-  const float wx = u[3], wy = u[4], wz = u[5];
-#pragma unroll
-  for (int j = 0; j < M; ++j) {
-    const float x = p[j], y = p[M + j];
-    const float xdot = -vx * iz[j] + x * vz * iz[j] + x * y * wx -
-                       (1.0f + x * x) * wy + y * wz;
-    const float ydot = -vy * iz[j] + y * vz * iz[j] + (1.0f + y * y) * wx -
-                       x * y * wy - x * wz;
-    out[j] = fminf(fmaxf(x + dt * xdot, -4.0f), 4.0f);
-    out[M + j] = fminf(fmaxf(y + dt * ydot, -4.0f), 4.0f);
-  }
 }
 
 // Terminal expansion: Vx = 2q (p_H - target) + qe g_H, Vxx = 2q I.
@@ -322,81 +293,6 @@ __device__ __forceinline__ float add_terminal(float J, const float* pa,
     ed += gterm[i] * (pa[i] - pterm[i]);
   }
   return J + W.q * tr + W.qe * ed;
-}
-
-// One iLQR sweep with a winner select, about the nominal held in place in
-// ps_nom (H+1, N, B) and us_nom (H, C, B), with the ADMM pair (z, y) and the
-// edge linearization g fixed: the backward pass into the gains (Kg, kg), the
-// forward of the A candidates alpha = (0, 1, 0.5, 0.25) with the non-nominal
-// ones stored in pc (A-1, H, N, B) and uc (A-1, H, C, B), the terminal cost,
-// then a first-wins argmin with a non-finite cost counted as +inf. The
-// winner's stored trajectory replaces the nominal (a choice, never a one-hot
-// product: 0 * NaN would poison the winner); row 0 of ps_nom is set to p0.
-template <int M>
-__device__ __forceinline__ void ilqr_sweep(
-    const float* p0, const float* tgt, const float* iz, float* ps_nom,
-    float* us_nom, const float* zg, const float* yg, const float* g,
-    const Weights& W, int H, size_t B, int b, float* Kg, float* kg,
-    float* pc, float* uc) {
-  constexpr int N = 2 * M;
-  backward_pass<M>(ps_nom, us_nom, zg, yg, g, tgt, iz, W, H, B, b, Kg, kg);
-  // ---- forward: the A candidates ---------------------------------------
-  float pa[A][N], J[A];
-#pragma unroll
-  for (int a = 0; a < A; ++a) {
-    J[a] = 0.0f;
-#pragma unroll
-    for (int i = 0; i < N; ++i) pa[a][i] = p0[i];
-  }
-  for (int tau = 0; tau < H; ++tau) {
-    float pn[N], un[C], zt[C], yt[C], gt[N], kt[C];
-    load_row<N>(ps_nom, tau, B, b, pn);
-    load_row<N>(g, tau, B, b, gt);
-    load_row<C>(us_nom, tau, B, b, un);
-    load_row<C>(zg, tau, B, b, zt);
-    load_row<C>(yg, tau, B, b, yt);
-    load_row<C>(kg, tau, B, b, kt);
-    const float* Kt = Kg + lane(tau * C, 0, N, B, b);
-#pragma unroll
-    for (int a = 0; a < A; ++a) {
-      float ua[C], nxt[N];
-      J[a] = J[a] + cand_step<M>(alpha_of(a), pa[a], pn, un, kt, Kt, B, zt,
-                                 yt, gt, tgt, iz, W, ua, nxt);
-#pragma unroll
-      for (int i = 0; i < N; ++i) pa[a][i] = nxt[i];
-      if (a > 0) {
-        store_row<C>(uc, (a - 1) * H + tau, B, b, ua);
-        store_row<N>(pc, (a - 1) * H + tau, B, b, nxt);
-      }
-    }
-  }
-  // ---- terminal cost and select ----------------------------------------
-  float pterm[N], gterm[N];
-  load_row<N>(ps_nom, H, B, b, pterm);
-  load_row<N>(g, H, B, b, gterm);
-#pragma unroll
-  for (int a = 0; a < A; ++a) {
-    J[a] = add_terminal<M>(J[a], pa[a], pterm, gterm, tgt, W);
-    if (!isfinite(J[a])) J[a] = INFINITY;
-  }
-  float jmin = J[0];
-#pragma unroll
-  for (int a = 1; a < A; ++a) jmin = fminf(jmin, J[a]);
-  int win = 0;
-#pragma unroll
-  for (int a = A - 1; a >= 0; --a)
-    if (J[a] == jmin) win = a;                   // first wins
-  if (win > 0) {
-    for (int t = 0; t < H; ++t) {
-#pragma unroll
-      for (int i = 0; i < N; ++i)
-        ps_nom[lane(t + 1, i, N, B, b)] = pc[lane((win - 1) * H + t, i, N, B, b)];
-#pragma unroll
-      for (int c = 0; c < C; ++c)
-        us_nom[lane(t, c, C, B, b)] = uc[lane((win - 1) * H + t, c, C, B, b)];
-    }
-  }
-  store_row<N>(ps_nom, 0, B, b, p0);
 }
 
 }  // namespace sweep

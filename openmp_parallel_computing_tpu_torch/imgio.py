@@ -68,12 +68,21 @@ def _unfilter_row(ftype: int, line: bytes, prev: bytes, bpp: int) -> bytes:
 
 def load(path: str | os.PathLike) -> np.ndarray:
     """Decode an 8-bit grey, grey+alpha, RGB or RGBA PNG to an interleaved
-    (H, W, C) u8 array, C = 1, 2, 3 or 4. Raises ``ValueError`` on any
-    other kind of PNG (palette, 16-bit, interlaced) and on other files."""
+    (H, W, C) u8 array, C = 1, 2, 3 or 4. Raises ``ValueError`` naming the
+    file on any other kind of PNG (palette, 16-bit, interlaced), on other
+    files and on a malformed PNG (a cut chunk, a short IHDR, a bad zlib
+    stream, too little image data)."""
     with open(path, "rb") as f:
         raw = f.read()
     if raw[:8] != _SIGNATURE:
         raise ValueError(f"{path}: not a PNG file")
+    try:
+        return _decode(raw, path)
+    except (struct.error, zlib.error) as exc:
+        raise ValueError(f"{path}: malformed PNG ({exc})") from exc
+
+
+def _decode(raw: bytes, path) -> np.ndarray:
     pos = 8
     idat = []
     header = None

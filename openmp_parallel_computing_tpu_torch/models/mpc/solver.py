@@ -18,7 +18,9 @@ Sweep backend (the default), per scenario batch:
 With ``full_solve=True`` and ``edge_refresh="solve"`` everything after the
 nominal rollout and the one edge linearization — the ADMM loop and the
 feasible rollout — is one ``full_solve`` kernel launch; the duals then
-start at zero and are not returned.
+start at zero and are not returned. A horizon too long for the one-launch
+kernels' shared memory on the card takes the iteration-by-iteration path
+instead (``_SweepLanes``).
 
 Fused backend (``backend="fused"``, ``_solve_batch_fused``): the same ADMM
 loop around an iLQR solve in the scenario-first layout, whose Riccati
@@ -153,14 +155,19 @@ class _SweepLanes:
     the final cost.
 
     ``use_multi``: all sweeps of an ADMM iteration in one multi_sweep
-    launch (the edge term is fixed across them). ``use_unified``: a
+    launch (the edge term is fixed across them), taken when the kernel's
+    gains for the horizon fit one block's shared memory on the card
+    (``sweep.group_sweep_fits``, as the JAX package admits its one-launch
+    kernels by their VMEM estimates); else the per-sweep iteration runs.
+    ``use_unified``: a
     per-sweep iteration runs the unified kernel, else the split backward +
     forward pair. The unified kernel keeps its gains in global scratch, so
     nothing on the card bounds its admission and it is taken for every
     configuration; setting the attribute to False (on an instance, or on
     the class for the solves of a loop) selects the split pair.
     ``use_full``: the whole ADMM loop in one full_solve launch
-    (``full_solve=True`` with ``edge_refresh="solve"``)."""
+    (``full_solve=True`` with ``edge_refresh="solve"``), admitted the same
+    way; else the loop of ADMM iterations runs."""
 
     use_unified = True
 
@@ -172,8 +179,13 @@ class _SweepLanes:
         self.qe = cfg.q_edge
         self.kw = dict(m=self.m, q=cfg.q_track, r=cfg.r_ctrl, rho=cfg.rho,
                        qe=self.qe, dt=cfg.dt)
-        self.use_multi = cfg.edge_refresh in ("admm", "solve")
-        self.use_full = cfg.full_solve and cfg.edge_refresh == "solve"
+        dev = pyramid[0].device if pyramid else torch.device("cpu")
+        self.use_multi = (cfg.edge_refresh in ("admm", "solve")
+                          and sweep.group_sweep_fits(
+                              "multi_sweep", self.m, cfg.horizon, dev))
+        self.use_full = (cfg.full_solve and cfg.edge_refresh == "solve"
+                         and sweep.group_sweep_fits(
+                             "full_solve", self.m, cfg.horizon, dev))
         if cfg.full_solve and cfg.admm_iters_extra:
             raise ValueError(
                 "admm_iters_extra needs the iteration-by-iteration path (the "

@@ -12,9 +12,11 @@ m x m blocks and applying it is a few elementwise multiply-adds.
 Line search: candidates alpha = (0, 1, 0.5, 0.25). alpha=0 reproduces the
 nominal, so "did anything improve" is the argmin over the candidates.
 
-Each wrapper launches its kernel on CUDA tensors (``csrc/multi_sweep.cu``,
-``csrc/full_solve.cu``, or an entry point of ``csrc/sweep.cu``; all build
-on ``csrc/sweep_steps.cuh``) and runs its ``*_plain`` version, built from the
+Each wrapper launches its kernel on CUDA tensors (``csrc/multi_sweep.cu``
+and ``csrc/full_solve.cu``, a thread group a scenario on
+``csrc/sweep_group.cuh``, with the gains in shared memory and no global
+scratch; or an entry point of ``csrc/sweep.cu``, a thread a scenario on
+``csrc/sweep_steps.cuh``) and runs its ``*_plain`` version, built from the
 helpers below, on CPU tensors. Each counts its launches in
 ``<wrapper>.launches``.
 """
@@ -22,6 +24,7 @@ helpers below, on CPU tensors. Each counts its launches in
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -335,6 +338,21 @@ def _lanes_shapes(m: int, H: int, B: int, **arrays) -> dict:
 _PTR, _INT, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
+@functools.lru_cache(maxsize=None)
+def group_sweep_fits(kernel: str, m: int, H: int,
+                     device: torch.device) -> bool:
+    """Whether one block of ``csrc/<kernel>.cu`` (``"multi_sweep"`` or
+    ``"full_solve"``, which keep the gains of the whole horizon in shared
+    memory) fits the card of ``device`` at horizon H. True off the card:
+    the plain versions have no such limit."""
+    if device.type != "cuda":
+        return True
+    need = _build.function(kernel, f"{kernel}_smem_bytes",
+                           [_INT, _INT])(m, H)
+    props = torch.cuda.get_device_properties(device)
+    return need <= props.shared_memory_per_block_optin
+
+
 def multi_sweep(p0, ps, us, z, y, g, target, inv_depth, *, m: int,
                 q: float, r: float, rho: float, qe: float, dt: float,
                 sweeps: int, reg: float = REG):
@@ -343,7 +361,9 @@ def multi_sweep(p0, ps, us, z, y, g, target, inv_depth, *, m: int,
     p0 (n, B), ps (H+1, n, B), us/z/y (H, c, B), g (H+1, n, B),
     target (n, B), inv_depth (m, B), float32. Returns the final nominal
     (ps (H+1, n, B) with row 0 = p0, us (H, c, B)). CPU tensors run the
-    plain version; CUDA tensors launch ``csrc/multi_sweep.cu``."""
+    plain version; CUDA tensors launch ``csrc/multi_sweep.cu``, whose
+    launch fails (RuntimeError) at a horizon that ``group_sweep_fits``
+    refuses."""
     n, c = 2 * m, CONTROL_DIM
     H, B = us.shape[0], us.shape[-1]
     kw = dict(m=m, q=q, r=r, rho=rho, qe=qe, dt=dt, sweeps=sweeps, reg=reg)
@@ -351,19 +371,14 @@ def multi_sweep(p0, ps, us, z, y, g, target, inv_depth, *, m: int,
             m, H, B, p0=p0, ps=ps, us=us, z=z, y=y, g=g, target=target,
             inv_depth=inv_depth)):
         return multi_sweep_plain(p0, ps, us, z, y, g, target, inv_depth, **kw)
-    A = len(ALPHAS)
     f32 = dict(dtype=torch.float32, device=p0.device)
     ps_out = torch.empty((H + 1, n, B), **f32)
     us_out = torch.empty((H, c, B), **f32)
-    K = torch.empty((H, c, n, B), **f32)
-    k = torch.empty((H, c, B), **f32)
-    pc = torch.empty((A - 1, H, n, B), **f32)
-    uc = torch.empty((A - 1, H, c, B), **f32)
     fn = _build.function("multi_sweep", "multi_sweep_launch",
-                         [_INT] + [_PTR] * 14 + [_INT] * 3 + [_F32] * 6
+                         [_INT] + [_PTR] * 10 + [_INT] * 3 + [_F32] * 6
                          + [_PTR])
     ptrs = [t.data_ptr() for t in (p0, ps, us, z, y, g, target, inv_depth,
-                                   ps_out, us_out, K, k, pc, uc)]
+                                   ps_out, us_out)]
     _build.launch(fn, "multi_sweep", p0, m, *ptrs, H, B, sweeps, q, r, rho,
                   qe, dt, reg)
     multi_sweep.launches += 1
@@ -386,7 +401,7 @@ def full_solve(p0, ps, us, g, target, inv_depth, *, m: int, q: float,
     target (n, B), inv_depth (m, B), float32. Returns (ps_final
     (H+1, n, B) with row 0 = p0, z (H, c, B), us (H, c, B) the final
     unprojected controls). CPU tensors run the plain version; CUDA tensors
-    launch ``csrc/full_solve.cu``."""
+    launch ``csrc/full_solve.cu``, as ``multi_sweep`` does."""
     n, c = 2 * m, CONTROL_DIM
     H, B = us.shape[0], us.shape[-1]
     kw = dict(m=m, q=q, r=r, rho=rho, qe=qe, dt=dt, sweeps=sweeps,
@@ -395,21 +410,15 @@ def full_solve(p0, ps, us, g, target, inv_depth, *, m: int, q: float,
             m, H, B, p0=p0, ps=ps, us=us, g=g, target=target,
             inv_depth=inv_depth)):
         return full_solve_plain(p0, ps, us, g, target, inv_depth, **kw)
-    A = len(ALPHAS)
     f32 = dict(dtype=torch.float32, device=p0.device)
     ps_out = torch.empty((H + 1, n, B), **f32)
     z_out = torch.empty((H, c, B), **f32)
     us_out = torch.empty((H, c, B), **f32)
-    scratch = (torch.empty((H, c, B), **f32),               # y
-               torch.empty((H, c, n, B), **f32),            # K
-               torch.empty((H, c, B), **f32),               # k
-               torch.empty((A - 1, H, n, B), **f32),        # pc
-               torch.empty((A - 1, H, c, B), **f32))        # uc
     fn = _build.function("full_solve", "full_solve_launch",
-                         [_INT] + [_PTR] * 14 + [_INT] * 5 + [_F32] * 9
+                         [_INT] + [_PTR] * 9 + [_INT] * 5 + [_F32] * 9
                          + [_PTR])
     ptrs = [t.data_ptr() for t in (p0, ps, us, g, target, inv_depth, ps_out,
-                                   z_out, us_out, *scratch)]
+                                   z_out, us_out)]
     _build.launch(fn, "full_solve", p0, m, *ptrs, H, B, sweeps, admm_iters,
                   int(relax != 1.0), q, r, rho, qe, dt, reg, u_limit, relax,
                   1.0 - relax)

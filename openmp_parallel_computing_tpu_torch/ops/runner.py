@@ -54,13 +54,16 @@ def kernel_names() -> tuple[str, ...]:
 def make_runner(kernel: str, passes: int = 1, devices: int = 1
                 ) -> Callable[[torch.Tensor], torch.Tensor]:
     """``run(img_chw) -> img_chw``: the registered ``kernel``, ``passes``
-    times, on the tensor's device. Raises ``NotImplementedError`` for
-    ``devices > 1``: row sharding over several cards is not ported yet
-    (ROADMAP.md, Queue 1 item 9), and a run never falls back to one card
-    quietly."""
+    times, on the tensor's device. ``devices`` is first clamped to the
+    attached cards (at least 1), as the JAX runner clamps to its devices:
+    a job asking for more devices than the host has runs on what it has.
+    Raises ``NotImplementedError`` when more than one card remains: row
+    sharding over several cards is not ported yet (ROADMAP.md, Queue 1
+    item 9), and a run never falls back to one card quietly."""
     spec = _REGISTRY.get(kernel)
     if spec is None:
         raise KeyError(f"unknown kernel {kernel!r}; one of {kernel_names()}")
+    devices = min(devices, max(1, torch.cuda.device_count()))
     if devices > 1:
         raise NotImplementedError(
             f"devices={devices}: sharding a kernel over several cards is not "

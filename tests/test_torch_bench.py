@@ -21,8 +21,9 @@ import pytest
 import torch
 
 from openmp_parallel_computing_tpu_torch import probe
-from openmp_parallel_computing_tpu_torch.bench import _chain, headline, mpc_batch
-from openmp_parallel_computing_tpu_torch.models.mpc import VisualServoMPC
+from openmp_parallel_computing_tpu_torch.bench import (
+    _chain, headline, mpc_batch, sweep_kernels)
+from openmp_parallel_computing_tpu_torch.models.mpc import VisualServoMPC, sweep
 from openmp_parallel_computing_tpu_torch.utils.config import MPCConfig
 
 torch.set_num_threads(2)
@@ -121,6 +122,55 @@ def test_non_finite_controls_fail_the_bench():
         _chain.check_finite(torch.tensor([[0.0, float("nan")]]))
 
 
+def test_chip_smoke_sweep_inputs_drive_the_sweeps(frame):
+    """chip_smoke's sweep inputs, which bench/sweep_kernels.py times (the
+    solver's own rollout and edge gradient), have the kernels' shapes and
+    solve on the CPU: multi_sweep keeps row 0 = p0, full_solve's z stays
+    in the box."""
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    m, h, b = 2, 4, 3
+    args, kw = smoke.sweep_inputs(frame, m, h, b)
+    shapes = [(2 * m, b), (h + 1, 2 * m, b), (h, 6, b), (h, 6, b),
+              (h, 6, b), (h + 1, 2 * m, b), (2 * m, b), (m, b)]
+    assert [tuple(a.shape) for a in args] == shapes
+    assert all(a.dtype == torch.float32 and torch.isfinite(a).all()
+               for a in args)
+    assert kw["m"] == m and kw["sweeps"] == 1
+    ps, us = sweep.multi_sweep(*args, **kw)
+    assert torch.equal(ps[0], args[0]) and torch.isfinite(us).all()
+    fargs, fkw = smoke.full_solve_inputs(frame, m, h, b, 1, 2, 1.3)
+    assert fkw["admm_iters"] == 2 and fkw["relax"] == 1.3
+    ps, z, us = sweep.full_solve(*fargs, **fkw)
+    assert z.abs().max() <= fkw["u_limit"] and torch.equal(ps[0], fargs[0])
+
+
+def test_sweep_kernels_bench_needs_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is attached: the bench would run")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sweep_kernels.main([])
+
+
+def test_sweep_kernels_root_imports_the_package_of_that_checkout(tmp_path):
+    """``--root DIR`` (the route of an A/B against another checkout) times
+    the package found at DIR: a stub package there is the one imported,
+    before the bench stops for want of a card."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is attached: the bench would run")
+    stub = tmp_path / "openmp_parallel_computing_tpu_torch"
+    stub.mkdir()
+    (stub / "__init__.py").write_text("print('stub package at', __file__)\n")
+    out = subprocess.run(
+        [sys.executable, sweep_kernels.__file__, "--root", str(tmp_path)],
+        cwd=tmp_path, capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert f"stub package at {stub / '__init__.py'}" in out.stdout
+    assert "no CUDA device" in out.stderr
+
+
 def test_probe_reports_no_card_without_raising():
     info = probe.probe()
     assert info["device_count"] == torch.cuda.device_count()
@@ -137,7 +187,7 @@ def test_bench_and_probe_import_without_jax():
         "sys.modules['openmp_parallel_computing_tpu'] = None\n"
         "from openmp_parallel_computing_tpu_torch import probe\n"
         "from openmp_parallel_computing_tpu_torch.bench import (_chain,"
-        " headline, mpc_batch)\n"
+        " headline, mpc_batch, sweep_kernels)\n"
         "bad = [k for k in sys.modules if k.startswith('jax')"
         " and sys.modules[k] is not None]\n"
         "assert not bad, bad\n"

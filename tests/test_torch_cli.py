@@ -65,9 +65,20 @@ def test_make_runner_repeats_passes():
                        ops.gaussian_blur(img, passes=3))
 
 
-def test_make_runner_refuses_several_devices():
+def test_make_runner_clamps_devices_to_the_attached_cards():
+    # No card here: devices=2 is clamped to 1, as the JAX runner clamps to
+    # len(jax.devices()).
+    img = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 256, (3, 20, 30), dtype=np.uint8))
+    assert torch.equal(ops.make_runner("edge", passes=2, devices=2)(img),
+                       ops.make_runner("edge", passes=2, devices=1)(img))
+
+
+def test_make_runner_refuses_several_devices(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         ops.make_runner("edge", devices=2)
+    assert ops.make_runner("edge", devices=1) is not None
 
 
 # -- CLI ----------------------------------------------------------------
@@ -94,7 +105,51 @@ def test_cli_missing_input_returns_1(tmp_path, capsys):
     assert "error loading" in capsys.readouterr().err
 
 
-def test_cli_raises_on_several_devices(png, tmp_path):
+def _malformed_png(tmp_path, how: str):
+    """An 8x9 RGB PNG from ``imgio.save_png``, broken as ``how`` says:
+    "idat" zeroes the 4 bytes after the IDAT tag, "cut<k>" keeps the
+    first k bytes."""
+    p = tmp_path / f"{how}.png"
+    imgio.save_png(p, np.random.default_rng(8).integers(
+        0, 256, (8, 9, 3), dtype=np.uint8))
+    raw = bytearray(p.read_bytes())
+    if how == "idat":
+        at = raw.index(b"IDAT") + 4
+        raw[at:at + 4] = bytes(4)
+    else:
+        raw = raw[:int(how[3:])]
+    p.write_bytes(bytes(raw))
+    return p
+
+
+@pytest.mark.parametrize("how", ["idat", "cut10", "cut20", "cut35", "cut40"])
+def test_cli_malformed_png_returns_1_like_jax(tmp_path, capsys, how):
+    bad = _malformed_png(tmp_path, how)
+    with pytest.raises(ValueError, match=re.escape(str(bad))):
+        imgio.load(bad)
+    assert cli.main([str(bad), str(tmp_path / "o.png")], device="cpu") == 1
+    ours = capsys.readouterr().err
+    assert jax_cli.main([str(bad), str(tmp_path / "t.png")]) == 1
+    theirs = capsys.readouterr().err
+    assert ours.startswith("error loading image:"), ours
+    assert theirs.startswith("error loading image:"), theirs
+    assert not (tmp_path / "o.png").exists()
+
+
+def test_cli_several_devices_on_one_runs_like_jax(png, tmp_path, capsys):
+    src, _ = png
+    ours, theirs = tmp_path / "ours.png", tmp_path / "theirs.png"
+    assert cli.main([str(src), str(ours), "--kernel", "edge", "--devices",
+                     "2"], device="cpu") == 0
+    assert REPORT.match(capsys.readouterr().out.strip())
+    assert jax_cli.main([str(src), str(theirs), "--kernel", "edge",
+                         "--devices", "2"]) == 0
+    np.testing.assert_array_equal(imgio.load(ours), imgio.load(theirs))
+
+
+def test_cli_raises_on_several_devices(png, tmp_path, monkeypatch):
+    # With two cards attached the clamp leaves 2, which is not ported.
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     src, _ = png
     with pytest.raises(NotImplementedError):
         cli.main([str(src), str(tmp_path / "o.png"), "--devices", "2"],

@@ -73,6 +73,37 @@ def test_full_solve_matches_jax_kernel():
                                    atol=1e-5, err_msg=name)
 
 
+def test_full_solve_with_nan_edge_term_matches_jax_kernel():
+    """NaNs in g at two scenarios: every candidate's cost is NaN there and
+    counts as +inf, so the nominal stays and no NaN reaches the outputs,
+    as in the JAX kernel; every other value agrees as in the case above.
+    (At B=256: below 128 scenarios the JAX kernel in interpret mode turns
+    the whole batch to NaN, which the port does not copy.)"""
+    H, m, B, S, M, ul = 6, 2, 256, 1, 2, 1.0
+    p0, us0, g, tg, izd = _kernel_inputs(H, m, B, seed=13)
+    g[1, 3, 7] = np.nan
+    g[:, :, 140] = np.nan
+    jz = jnp.zeros_like(jnp.asarray(us0))
+    ps0 = sp.forward_sweep(
+        jnp.asarray(p0), jnp.zeros((H + 1, 2 * m, B)), jnp.asarray(us0),
+        jnp.zeros((H, 6, 2 * m, B)), jnp.zeros((H, 6, B)),
+        jnp.clip(jnp.asarray(us0), -ul, ul), jz, jnp.zeros((H + 1, 2 * m, B)),
+        jnp.asarray(tg), jnp.asarray(izd), m=m, pack=False, **KW)[0][:, 0]
+    ref = sp.full_solve(jnp.asarray(p0), ps0, jnp.asarray(us0),
+                        jnp.asarray(g), jnp.asarray(tg), jnp.asarray(izd),
+                        m=m, sweeps=S, admm_iters=M, u_limit=ul, pack=False,
+                        **KW)
+    t = torch.from_numpy
+    got = sweep.full_solve(t(p0), t(np.array(ps0)), t(us0), t(g), t(tg),
+                           t(izd), m=m, sweeps=S, admm_iters=M, u_limit=ul,
+                           **KW)
+    for name, a, b in zip(("ps", "z", "us"), got, ref):
+        np.testing.assert_array_equal(np.isnan(a.numpy()),
+                                      np.isnan(np.asarray(b)), err_msg=name)
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5,
+                                   atol=1e-5, err_msg=name)
+
+
 @pytest.mark.parametrize("relax", [1.0, 1.3])
 def test_full_solve_plain_is_the_port_chain(relax):
     """Bit for bit the chain the scan path runs: multi_sweep per ADMM
@@ -144,6 +175,54 @@ def test_solve_batch_full_path_matches_scan_path(monkeypatch, relax):
         np.testing.assert_allclose(getattr(out[True], name).numpy(),
                                    getattr(out[False], name).numpy(),
                                    rtol=1e-5, atol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("full", [False, True])
+def test_long_horizon_routes_around_the_group_sweep_kernels(monkeypatch,
+                                                            full):
+    """With a shared-memory limit patched into ``sweep.group_sweep_fits``
+    (horizons up to 3 fit), an H=4 solve admits neither multi_sweep nor
+    full_solve, as the JAX solver admits its one-launch kernels by their
+    VMEM estimates: it runs the per-sweep path instead of raising, and
+    gives the admitted path's Solution (1e-5)."""
+    rng = np.random.default_rng(15)
+    edge = torch.from_numpy(rng.uniform(0, 255, (32, 128)).astype(np.float32))
+    scen = convert.scenario(JaxScenario(**_scenarios(4, 2, 8, seed=19)))
+    cfg = convert.config(_jcfg(full))
+    admitted = VisualServoMPC(cfg, "cpu").solve_batch(edge, scen)
+    sw = solver._SweepLanes(None, (32, 128), cfg)
+    assert (sw.use_multi, sw.use_full) == (True, full)
+
+    monkeypatch.setattr(sweep, "group_sweep_fits",
+                        lambda kernel, m, H, device: H <= 3)
+    sw = solver._SweepLanes(None, (32, 128), cfg)
+    assert (sw.use_multi, sw.use_full) == (False, False)
+    calls = {"unified": 0}
+    orig = sweep.unified_sweep
+
+    def counted(*a, **k):
+        calls["unified"] += 1
+        return orig(*a, **k)
+
+    def refused(*a, **k):
+        raise AssertionError("a group-sweep kernel was called")
+
+    monkeypatch.setattr(sweep, "unified_sweep", counted)
+    monkeypatch.setattr(sweep, "multi_sweep", refused)
+    monkeypatch.setattr(sweep, "full_solve", refused)
+    routed = VisualServoMPC(cfg, "cpu").solve_batch(edge, scen)
+    assert calls["unified"] == cfg.admm_iters * cfg.ilqr_iters
+    for name in ("us", "ps", "cost", "primal_residual"):
+        np.testing.assert_allclose(getattr(routed, name).numpy(),
+                                   getattr(admitted, name).numpy(),
+                                   rtol=1e-5, atol=1e-5, err_msg=name)
+
+
+def test_group_sweep_kernels_fit_every_horizon_off_the_card():
+    """Off the card the plain versions have no shared-memory limit."""
+    cpu = torch.device("cpu")
+    for kernel in ("multi_sweep", "full_solve"):
+        assert sweep.group_sweep_fits(kernel, 8, 4000, cpu)
 
 
 def test_solve_batch_full_path_matches_jax():

@@ -131,6 +131,31 @@ def test_multi_sweep_matches_jax_kernel(sweeps):
     np.testing.assert_array_equal(got[0][0].numpy(), arrs[0])   # row 0 = p0
 
 
+def test_multi_sweep_with_nan_edge_term_matches_jax_kernel():
+    """NaNs in g at three scenarios (one entry, the terminal row, all of
+    it): every candidate's cost is NaN there, counts as +inf, and the
+    nominal stays, as in the JAX kernel; the other scenarios are as
+    without NaNs."""
+    m, H, B = 4, 5, 128
+    arrs = list(_inputs(m, H, B, seed=31))
+    g = arrs[5]
+    g[2, 1, 5] = np.nan
+    g[H, 0, 77] = np.nan
+    g[:, :, 100] = np.nan
+    got = sweep.multi_sweep(*map(torch.from_numpy, arrs), m=m, sweeps=2,
+                            **KW)
+    ref = jax_sp.multi_sweep(*map(jnp.asarray, arrs), m=m, sweeps=2, **KW)
+    for a, b in zip(got, ref):
+        np.testing.assert_array_equal(np.isnan(a.numpy()),
+                                      np.isnan(np.asarray(b)))
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=RTOL,
+                                   atol=ATOL)
+    for b in (5, 77, 100):
+        np.testing.assert_array_equal(got[0][1:, :, b].numpy(),
+                                      arrs[1][1:, :, b])
+        np.testing.assert_array_equal(got[1][..., b].numpy(), arrs[2][..., b])
+
+
 def test_select_winner_ignores_nan_losers():
     J = torch.tensor([[1.0, 5.0], [float("nan"), 2.0], [0.5, 2.0],
                       [float("inf"), 3.0]])
@@ -253,11 +278,17 @@ def test_sweep_wrappers_check_inputs():
                       sweep.forward_sweep.launches)   # CPU: no launches
 
 
-def test_sweep_kernels_rebuild_when_the_shared_header_changes(tmp_path,
-                                                              monkeypatch):
-    """csrc/multi_sweep.cu and csrc/sweep.cu include sweep_steps.cuh:
-    editing it changes both libraries' names (so neither reuses a stale
-    build) and no other kernel's."""
+@pytest.mark.parametrize("header, users", [
+    ("sweep_common.cuh", ("multi_sweep", "full_solve", "sweep")),
+    ("sweep_group.cuh", ("multi_sweep", "full_solve")),
+    ("sweep_steps.cuh", ("sweep",)),
+])
+def test_sweep_kernels_rebuild_when_the_shared_header_changes(
+        tmp_path, monkeypatch, header, users):
+    """csrc/sweep.cu includes sweep_steps.cuh, multi_sweep.cu and
+    full_solve.cu include sweep_group.cuh, and all three sweep_common.cuh:
+    editing a header changes the names of exactly the libraries that
+    include it (so none reuses a stale build)."""
     import shutil
 
     from openmp_parallel_computing_tpu_torch import _build
@@ -265,13 +296,12 @@ def test_sweep_kernels_rebuild_when_the_shared_header_changes(tmp_path,
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", csrc)
-    names = ("multi_sweep", "sweep", "sampler")
+    names = ("multi_sweep", "full_solve", "sweep", "sampler")
     before = {n: _build._target(n)[0].name for n in names}
-    header = csrc / "sweep_steps.cuh"
-    assert header in _build._sources("sweep")
-    assert header in _build._sources("multi_sweep")
-    header.write_text(header.read_text() + "\n// edited\n")
+    path = csrc / header
+    for n in names:
+        assert (path in _build._sources(n)) == (n in users), n
+    path.write_text(path.read_text() + "\n// edited\n")
     after = {n: _build._target(n)[0].name for n in names}
-    assert after["multi_sweep"] != before["multi_sweep"]
-    assert after["sweep"] != before["sweep"]
-    assert after["sampler"] == before["sampler"]
+    for n in names:
+        assert (after[n] != before[n]) == (n in users), n

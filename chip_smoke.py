@@ -10,8 +10,9 @@ Any failure raises and the script exits non-zero.
 2. Build: compiles every kernel of ``openmp_parallel_computing_tpu_torch/
    csrc/`` with nvcc for sm_90a, one process per source, and prints the
    seconds it took and each kernel's ptxas register/spill report; fails
-   if ptxas reports spill stores for an instance of the group-sweep
-   kernels (multi_sweep, full_solve).
+   if ptxas reports spill stores for an instance (m = 2, 4, 8) of the
+   group-sweep kernels (multi_sweep, full_solve, and the unified and
+   backward kernels of csrc/sweep.cu).
 3. Kernel vs plain: each kernel against its plain PyTorch version on the
    same inputs at the shapes the main path gives it, with both times and
    the least time the card could take (``bound``). The perception kernel
@@ -27,18 +28,24 @@ Any failure raises and the script exits non-zero.
    sampler bit-exact in both modes on
    that rollout's points and on off-frame, on-border and integer
    coordinates (1080p, and a 64x128 map with a one-row level); the
-   unified, backward and forward sweeps within MULTI_SWEEP_TOL at
-   (m, H, B) = (8, 20, 4096), (4, 8, 256), (2, 5, 100), and backward +
-   forward against unified. The image kernels (grayscale, sobel, edge,
-   conv3x3) bit-exact with their plain versions on the ring, the
-   half-mega and 6MP photos, odd and 1-3-row frames, at passes 1 and 3,
-   both borders and every conv mode of the CPU tests, with kernel and
-   plain times per pass at 1080p and 6MP. The one-launch solve kernel
-   within MULTI_SWEEP_TOL at m=8, H=20, B=4096 with 5 ADMM iterations of
-   1 sweep (the main path's relax 1.3), at smaller and ragged shapes and
-   on the NaN batch, and against the chain of multi_sweep launches and
-   eager updates (bit equality reported); the batched Riccati kernel within RICCATI_TOL on the fused
-   path's own expansions at B=4096 (stride-0 cost Hessians) and on random
+   unified sweep (in both forms: the gains in shared memory, as admitted
+   at H, and in global memory) and the backward sweep within
+   MULTI_SWEEP_TOL at MULTI_SHAPES and on the NaN batch, the two forms
+   bit-equal, also at LONG_H_FITS; at TOO_LONG_H (where the wrapper takes
+   the global form) the backward within MULTI_SWEEP_TOL and the unified
+   sweep within the larger of that and its plain version's own card-vs-CPU
+   difference; the forward sweep at SWEEP_SHAPES, and backward + forward
+   against unified; rows 11-12 timed at B=4096 and 256. The image kernels
+   (grayscale, sobel, edge, conv3x3) bit-exact with their plain versions
+   on the ring, the half-mega and 6MP photos, odd and 1-3-row frames, at
+   passes 1 and 3, both borders and every conv mode of the CPU tests, with
+   kernel and plain times per pass at 1080p and 6MP. The one-launch solve
+   kernel within MULTI_SWEEP_TOL at m=8, H=20, B=4096 with 5 ADMM
+   iterations of 1 sweep (the main path's relax 1.3), at smaller and
+   ragged shapes and on the NaN batch, and against the chain of
+   multi_sweep launches and eager updates (bit equality reported); the
+   batched Riccati kernel within RICCATI_TOL on the fused path's own
+   expansions at B=4096 (stride-0 cost Hessians) and on random
    inputs at n = 4, 8, 16; both timed by CUDA events and the profiler.
 4. The main MPC path: ``VisualServoMPC.receding_horizon_frames`` at H=20,
    m=8, edge_refresh="solve" on the 8-frame 1080p ring at B=4096 and
@@ -145,10 +152,14 @@ MULTI_SHAPES = SWEEP_SHAPES + ((M, H, 999), (M, H, 1), (4, 8, 254))
 # LONG_BATCH scenarios; and a batch with NaNs in g at three scenarios
 # (nan_sweep_inputs).
 TOO_LONG_H, LONG_BATCH = 400, 64
+LONG_H_FITS = 200                # the longest checked that fits at m=8
 NAN_BATCH, NAN_SCENARIOS = 256, (5, 77, 200)
 # The group-sweep kernels must not spill: ptxas reports 0 bytes of spill
-# stores for each of their instances.
-NO_SPILL = ("multi_sweep", "full_solve")
+# stores for each of their instances (m = 2, 4, 8), by library and kernel.
+# csrc/sweep.cu's forward kernel (one thread a scenario) is not held to it.
+NO_SPILL = {"multi_sweep": ("multi_sweep_kernel",),
+            "full_solve": ("full_solve_kernel",),
+            "sweep": ("unified_sweep_kernel", "backward_sweep_kernel")}
 MPC_ROWS = {   # kernel -> (source, TPU kernel it replaces)
     "sampler": ("csrc/sampler.cu", "models/mpc/sampler_pallas.py:57"),
     "unified_sweep": ("csrc/sweep.cu", "models/mpc/sweep_pallas.py:460"),
@@ -359,12 +370,30 @@ def phase_build() -> dict:
                 log(f"[build] {name}: instance m={inst.group(1)}")
             elif "registers" in line or "spill" in line or "error" in line:
                 log(f"[build] {name}: {line.strip()}")
-    for name in NO_SPILL:
-        stores = re.findall(r"(\d+) bytes spill stores", reports[name])
-        if len(stores) < 3 or any(int(n) for n in stores):
-            raise AssertionError(f"{name}: ptxas spill stores {stores} for "
-                                 f"its m = 2, 4, 8 instances, want none")
+    for name, kernels in NO_SPILL.items():
+        stores = spill_stores(reports[name])
+        for kernel in kernels:
+            found = {e: n for e, n in stores.items() if kernel in e}
+            ms = {int(re.search(r"ILi(\d+)E", e).group(1)) for e in found}
+            if ms != {2, 4, 8} or any(found.values()):
+                raise AssertionError(
+                    f"{name}: ptxas spill stores of {kernel} {found}, want "
+                    f"0 bytes for each of its m = 2, 4, 8 instances")
     return reports
+
+
+def spill_stores(report: str) -> dict:
+    """Bytes of spill stores by entry function (mangled name) in a ptxas
+    -v report."""
+    out, entry = {}, None
+    for line in report.splitlines():
+        found = re.search(r"Compiling entry function '(.*?)'", line)
+        if found:
+            entry = found.group(1)
+        found = re.search(r"(\d+) bytes spill stores", line)
+        if found and entry is not None:
+            out[entry] = out.get(entry, 0) + int(found.group(1))
+    return out
 
 
 def phase_kernels(frames) -> dict:
@@ -461,14 +490,20 @@ def check_horizon_too_large(frame, kw) -> None:
         cfg = MPCConfig(horizon=h, num_features=M, edge_refresh="solve",
                         full_solve=True, admm_iters_extra=0)
         sw = _SweepLanes(pyramid, frame.shape[1:], cfg)
-        need = {k: _build.function(k, f"{k}_smem_bytes",
+        need = {k: _build.function(lib, f"{k}_smem_bytes",
                                    [ctypes.c_int] * 2)(M, h)
-                for k in NO_SPILL}
+                for k, lib in (("multi_sweep", "multi_sweep"),
+                               ("full_solve", "full_solve"),
+                               ("unified_sweep", "sweep"))}
+        fits = {k: sweep.group_sweep_fits(k, M, h, frame.device)
+                for k in need}
         log(f"[kernel] H={h}: shared memory a block {need} B, the card's "
             f"opt-in limit "
             f"{torch.cuda.get_device_properties(0).shared_memory_per_block_optin}"
-            f" B; use_multi {sw.use_multi}, use_full {sw.use_full}")
-        if (sw.use_multi, sw.use_full) != ((h == H),) * 2:
+            f" B; use_multi {sw.use_multi}, use_full {sw.use_full}; the "
+            f"gains in shared memory admitted {fits}")
+        if ((sw.use_multi, sw.use_full) != ((h == H),) * 2
+                or set(fits.values()) != {h == H}):
             raise AssertionError(f"group-sweep admission wrong at H={h}")
     before = (sweep.multi_sweep.launches, sweep.full_solve.launches,
               sweep.unified_sweep.launches)
@@ -503,6 +538,22 @@ def check_horizon_too_large(frame, kw) -> None:
             raise AssertionError(f"{name} at H={h} launched")
         if z(4).add_(1.0).sum().item() != 4.0:
             raise AssertionError(f"the CUDA call after {name} failed")
+
+
+def global_gains(fn):
+    """``fn`` with the unified sweep's gains in global memory: while it
+    runs, the wrapper's admission of the shared-memory form
+    (``sweep.group_sweep_fits``) refuses."""
+    from openmp_parallel_computing_tpu_torch.models.mpc import sweep
+
+    def run(*args, **kw):
+        fits = sweep.group_sweep_fits
+        sweep.group_sweep_fits = lambda *a: False
+        try:
+            return fn(*args, **kw)
+        finally:
+            sweep.group_sweep_fits = fits
+    return run
 
 
 def nan_sweep_inputs(frame):
@@ -681,23 +732,29 @@ def phase_mpc_kernels(frames) -> dict:
 
     # -- kernels 10-12: the per-sweep kernels ------------------------------
     worst = dict.fromkeys(MPC_ROWS, 0.0)
-    for m, h, b in SWEEP_SHAPES:
+    cand = ("ps_c", "us_c", "J")
+    unified = {"": sweep.unified_sweep,
+               " global": global_gains(sweep.unified_sweep)}
+    for m, h, b in MULTI_SHAPES:
         args, kw = sweep_inputs(frame, m, h, b)
         kw.pop("sweeps")
         p0, ps, us, z, y_, g_l, tgt, izd = args
         rest = (z, y_, g_l, tgt, izd)
         tag = f"m={m} H={h} B={b}"
-        cand = ("ps_c", "us_c", "J")
-        err = check_close(f"unified_sweep {tag}", cand,
-                          sweep.unified_sweep(*args, **kw),
-                          sweep.unified_sweep_plain(*args, **kw),
-                          MULTI_SWEEP_TOL)
-        worst["unified_sweep"] = max(worst["unified_sweep"], err)
+        plain = sweep.unified_sweep_plain(*args, **kw)
+        outs = [call(*args, **kw) for call in unified.values()]
+        for form, out in zip(unified, outs):
+            err = check_close(f"unified_sweep{form} {tag}", cand, out, plain,
+                              MULTI_SWEEP_TOL)
+            worst["unified_sweep"] = max(worst["unified_sweep"], err)
+        check_same_forms(tag, *outs)
         gains = sweep.backward_sweep(ps, us, *rest, **kw)
         plain_gains = sweep.backward_sweep_plain(ps, us, *rest, **kw)
         err = check_close(f"backward_sweep {tag}", ("K", "k"), gains,
                           plain_gains, MULTI_SWEEP_TOL)
         worst["backward_sweep"] = max(worst["backward_sweep"], err)
+        if (m, h, b) not in SWEEP_SHAPES:
+            continue
         err = check_close(
             f"forward_sweep {tag}", cand,
             sweep.forward_sweep(p0, ps, us, *plain_gains, *rest, **kw),
@@ -707,6 +764,19 @@ def phase_mpc_kernels(frames) -> dict:
         check_close(f"backward+forward vs unified {tag}", cand,
                     sweep.forward_sweep(p0, ps, us, *gains, *rest, **kw),
                     sweep.unified_sweep(*args, **kw), MULTI_SWEEP_TOL)
+    args, kw = nan_sweep_inputs(frame)
+    kw.pop("sweeps")
+    ps, us, rest = args[1], args[2], args[3:]
+    plain = sweep.unified_sweep_plain(*args, **kw)
+    for form, call in unified.items():
+        check_nan_batch(f"unified_sweep{form}", cand, call(*args, **kw),
+                        plain, MULTI_SWEEP_TOL)
+    check_nan_batch("backward_sweep", ("K", "k"),
+                    sweep.backward_sweep(ps, us, *rest, **kw),
+                    sweep.backward_sweep_plain(ps, us, *rest, **kw),
+                    MULTI_SWEEP_TOL)
+    check_long_horizon(frame, cand)
+
     args, kw = sweep_inputs(frame, M, H, 4096)
     kw.pop("sweeps")
     p0, ps, us, z, y_, g_l, tgt, izd = args
@@ -731,12 +801,74 @@ def phase_mpc_kernels(frames) -> dict:
     for name, (kern, plain, bnd) in timed.items():
         ms = cuda_time_ms(kern, 20)
         plain_ms = cuda_time_ms(plain, 3)
-        log(f"[kernel] {name} m={M} H={H} B=4096: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
-            f"({bnd['bound_by']})")
+        dev = device_us(kern, f"{name}_kernel", 5)
+        log(f"[kernel] {name} m={M} H={H} B=4096: kernel {ms:.4f} ms (device "
+            f"{dev} us), plain {plain_ms:.4f} ms, bound "
+            f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
         rows[name] = kernel_row(name, *MPC_ROWS[name], worst[name], ms,
-                                plain_ms, bnd)
+                                plain_ms, bnd, device_us=dev)
+    # Rows 11-12 at B=256 too (bench/sweep_kernels.py times both forms).
+    args, kw = sweep_inputs(frame, M, H, 256)
+    kw.pop("sweeps")
+    for name, run in (
+            ("unified_sweep", lambda: sweep.unified_sweep(*args, **kw)),
+            ("backward_sweep", lambda: sweep.backward_sweep(*args[1:], **kw))):
+        ms = cuda_time_ms(run, 20)
+        dev = device_us(run, f"{name}_kernel", 5)
+        log(f"[kernel] {name} m={M} H={H} B=256: kernel {ms:.4f} ms (device "
+            f"{dev} us)")
+        rows[name].update(ms_b256=ms, device_us_b256=dev)
     return rows
+
+
+def check_same_forms(tag: str, smem, glob) -> None:
+    """The unified sweep's two forms run the same arithmetic: the gains in
+    shared or in global memory give the same bits."""
+    import torch
+
+    if not all(torch.equal(a, b) for a, b in zip(smem, glob)):
+        raise AssertionError(f"unified_sweep {tag}: the forms with the gains "
+                             f"in shared and in global memory differ")
+    log(f"[kernel] unified_sweep {tag}: both forms bit-equal")
+
+
+def check_long_horizon(frame, cand) -> None:
+    """The per-sweep kernels at LONG_H_FITS, where the unified sweep's
+    gains still fit shared memory (its two forms bit-equal), and at
+    TOO_LONG_H, where the wrapper keeps them in global memory, on
+    LONG_BATCH scenarios. The backward is held to MULTI_SWEEP_TOL at both.
+    Along 400 steps the float32 rounding of any order of operations grows
+    past MULTI_SWEEP_TOL in the forward (the plain version on the card and
+    on the CPU differ by more than the kernel and the plain version on the
+    card), so there the unified sweep is held to the larger of
+    MULTI_SWEEP_TOL and that card-vs-CPU difference of the plain version,
+    output by output."""
+    from openmp_parallel_computing_tpu_torch.models.mpc import sweep
+
+    for h in (LONG_H_FITS, TOO_LONG_H):
+        args, kw = sweep_inputs(frame, M, h, LONG_BATCH)
+        kw.pop("sweeps")
+        tag = f"m={M} H={h} B={LONG_BATCH}"
+        fits = sweep.group_sweep_fits("unified_sweep", M, h, frame.device)
+        if fits != (h == LONG_H_FITS):
+            raise AssertionError(f"unified_sweep's shared-memory form "
+                                 f"admitted {fits} at H={h}")
+        check_close(f"backward_sweep {tag}", ("K", "k"),
+                    sweep.backward_sweep(*args[1:], **kw),
+                    sweep.backward_sweep_plain(*args[1:], **kw),
+                    MULTI_SWEEP_TOL)
+        got = sweep.unified_sweep(*args, **kw)
+        if fits:
+            check_same_forms(tag, got,
+                             global_gains(sweep.unified_sweep)(*args, **kw))
+            continue
+        plain = sweep.unified_sweep_plain(*args, **kw)
+        cpu = sweep.unified_sweep_plain(*[a.cpu() for a in args], **kw)
+        for name, g_, p_, c_ in zip(cand, got, plain, cpu):
+            spread = (p_.cpu() - c_).abs().max().item()
+            check_close(f"unified_sweep {tag} (the plain version on the card "
+                        f"vs the CPU: max abs diff {spread:.3e})", (name,),
+                        (g_,), (p_,), max(MULTI_SWEEP_TOL, spread))
 
 
 def device_us(fn, key: str, iters: int, per_call: bool = False):

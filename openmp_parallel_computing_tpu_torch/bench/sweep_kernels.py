@@ -1,23 +1,27 @@
-"""The group-sweep kernels' times at the main path's shapes, on the card.
+"""The sweep kernels' times at the main path's shapes, on the card.
 
     python openmp_parallel_computing_tpu_torch/bench/sweep_kernels.py [--root DIR]
 
-Times ``sweep.multi_sweep`` (m=8, H=20, one sweep, B=4096 and B=256) and
-``sweep.full_solve`` (m=8, H=20, B=4096, 5 ADMM iterations x 1 sweep,
-relax 1.3) on inputs as the solver forms them, by CUDA events over ITERS
-launches after a warm-up and by torch.profiler device time, and prints one
-JSON line with the package it timed and the card's name and power limit.
-The input builders and timing helpers are ``chip_smoke.py``'s, taken from
-this checkout. ``--root DIR`` imports the package from the checkout at DIR
-instead (for example a ``git archive`` of another commit unpacked under
-``build/``): it is how two versions of the kernels are timed in turns on
-one card, since their wrappers keep one signature. Without a card it
-raises.
+Times, at m=8, H=20, B=4096 and B=256, on inputs as the solver forms them:
+``sweep.multi_sweep`` (one sweep); the per-sweep kernels
+``sweep.unified_sweep`` (in the form its wrapper admits, and with the
+gains in global memory: ``*_global``), ``sweep.backward_sweep`` and
+``sweep.forward_sweep`` (on the backward's gains); and ``sweep.full_solve``
+at B=4096 (5 ADMM iterations x 1 sweep, relax 1.3). Each by CUDA events
+over ITERS launches after a warm-up and by torch.profiler device time;
+one JSON line with the package it timed and the card's name and power
+limit. The input builders and timing helpers are ``chip_smoke.py``'s,
+taken from this checkout. ``--root DIR`` imports the package from the
+checkout at DIR instead (for example a ``git archive`` of another commit
+unpacked under ``build/``): it is how two versions of the kernels are
+timed in turns on one card, since their wrappers keep one signature.
+Without a card it raises.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import subprocess
 import sys
@@ -30,28 +34,51 @@ BATCHES = (4096, 256)
 FULL = dict(sweeps=1, admm_iters=5, relax=1.3)
 
 
-def measure(smoke) -> dict:
-    """The times of both kernels at the main path's shapes, with the
-    helpers of the ``chip_smoke`` module ``smoke``."""
-    from openmp_parallel_computing_tpu_torch import data
+def cases(smoke, frame, m: int = M, h: int = H,
+          batches=BATCHES) -> dict:
+    """``{key: (call, profiler kernel name part, CUDA-event iterations)}``
+    of every timed kernel at (m, h) and each batch (full_solve at the
+    first), on ``frame``'s device, with the helpers of the ``chip_smoke``
+    module ``smoke``. The per-sweep kernels' profiler key,
+    ``sweep_kernel``, names them in this package and in earlier ones."""
     from openmp_parallel_computing_tpu_torch.models.mpc import sweep
 
-    frame = data.load_frame_planar("cuda")
     out = {}
-    for b in BATCHES:
-        args, kw = smoke.sweep_inputs(frame, M, H, b)
-        run = lambda: sweep.multi_sweep(*args, **kw)  # noqa: E731
-        out[f"multi_sweep_b{b}"] = dict(
-            ms=smoke.cuda_time_ms(run, ITERS),
-            device_us=smoke.device_us(run, "multi_sweep", 5))
-    fargs, kw = smoke.full_solve_inputs(frame, M, H, BATCHES[0],
+    for b in batches:
+        args, kw = smoke.sweep_inputs(frame, m, h, b)
+        out[f"multi_sweep_b{b}"] = (
+            functools.partial(sweep.multi_sweep, *args, **kw), "multi_sweep",
+            ITERS)
+        kw.pop("sweeps")
+        p0, ps, us, *rest = args
+        gains = sweep.backward_sweep(ps, us, *rest, **kw)
+        unified = functools.partial(sweep.unified_sweep, *args, **kw)
+        calls = {
+            "unified_sweep": unified,
+            "unified_sweep_global": smoke.global_gains(unified),
+            "backward_sweep": functools.partial(sweep.backward_sweep, ps, us,
+                                                *rest, **kw),
+            "forward_sweep": functools.partial(sweep.forward_sweep, p0, ps,
+                                               us, *gains, *rest, **kw)}
+        for name, call in calls.items():
+            out[f"{name}_b{b}"] = (call, "sweep_kernel", ITERS)
+    fargs, kw = smoke.full_solve_inputs(frame, m, h, batches[0],
                                         FULL["sweeps"], FULL["admm_iters"],
                                         FULL["relax"])
-    run = lambda: sweep.full_solve(*fargs, **kw)  # noqa: E731
-    out[f"full_solve_b{BATCHES[0]}"] = dict(
-        ms=smoke.cuda_time_ms(run, ITERS // 2),
-        device_us=smoke.device_us(run, "full_solve_kernel", 5))
+    out[f"full_solve_b{batches[0]}"] = (
+        functools.partial(sweep.full_solve, *fargs, **kw), "full_solve_kernel",
+        ITERS // 2)
     return out
+
+
+def measure(smoke) -> dict:
+    """The times of every case at the main path's shapes."""
+    from openmp_parallel_computing_tpu_torch import data
+
+    frame = data.load_frame_planar("cuda")
+    return {key: dict(ms=smoke.cuda_time_ms(call, iters),
+                      device_us=smoke.device_us(call, kernel, 5))
+            for key, (call, kernel, iters) in cases(smoke, frame).items()}
 
 
 def main(argv=None) -> int:

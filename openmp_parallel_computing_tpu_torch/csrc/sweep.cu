@@ -1,7 +1,7 @@
-// One iLQR sweep, one thread per scenario: the per-sweep path of the sweep
-// backend (edge_refresh="ilqr", where the edge term is linearized again
-// before every sweep, so the sweeps of an ADMM iteration cannot share one
-// launch as in csrc/multi_sweep.cu).
+// One iLQR sweep: the per-sweep path of the sweep backend
+// (edge_refresh="ilqr", where the edge term is linearized again before
+// every sweep, so the sweeps of an ADMM iteration cannot share one launch
+// as in csrc/multi_sweep.cu), and the zero-gain rollout.
 //
 // Replaces three TPU kernels of
 // openmp_parallel_computing_tpu/models/mpc/sweep_pallas.py:
@@ -13,28 +13,41 @@
 //   forward_sweep_launch  <- `_forward_sweep_kernel` (via `forward_sweep`):
 //       the forward alone, the gains as inputs (with zero gains it is the
 //       nominal rollout of the controls, candidate 0).
-// The steps are those of csrc/sweep_steps.cuh, shared with multi_sweep.cu.
 // The forward writes every candidate's states ps_c (H+1, A, n, B), row 0 =
 // p0 for every candidate, its controls us_c (H, A, c, B) and its cost
-// J (A, B) with the terminal terms; the first-wins pick stays outside, as
-// in the JAX solver.
+// J (A, B) with the terminal terms, non-finite costs as they come; the
+// first-wins pick stays outside, as in the JAX solver.
 //
-// Where the gains live: the TPU kernel keeps them in VMEM scratch, which
-// bounded the batch tile it admitted; here the wrapper allocates them in
-// global memory (H, c, n, B), so nothing on the card bounds the unified
-// kernel's admission and the solver takes it for every configuration. The
-// split pair stays a path of the solver.
+// The unified and backward kernels run the thread-group body of
+// csrc/sweep_group.cuh, the recursion multi_sweep.cu and full_solve.cu run:
+// a group of n = 2m threads a scenario, one-warp blocks (two scenarios at
+// m = 8), every operand in registers or a few hundred bytes of shared
+// scratch, no spills. The backward writes the gains straight to its (H, c,
+// n, B) and (H, c, B) outputs; lane k stores column k of K. The unified
+// kernel keeps them in the scenario's shared memory where a block's
+// `unified_sweep_smem_bytes(m, H)` fits the card (the wrapper decides, by
+// `sweep.group_sweep_fits`), and otherwise in global scratch the wrapper
+// allocates (any horizon: H = 400 at m = 8 needs 335,232 B a block in
+// shared memory, above the H100's opt-in 232,448 B). Its forward reads them
+// back after the backward's last __syncwarp, which orders the group's
+// global stores before its loads. With the gains in global memory a
+// scenario's shared memory is ~1.2 KB, so registers, not shared memory,
+// set how many groups an SM holds.
 //
-// What bounds it on Hopper, at B = 4096, H = 20, m = 8: the work is
+// What bounds them on Hopper, at B = 4096, H = 20, m = 8: the work is
 // ~1 GFLOP of FP32 for the unified sweep (~15 us at 67 TFLOP/s); its inputs
-// and outputs are ~2,900 floats a scenario (~47 MB, ~14 us at 3.35 TB/s),
-// and ~4,100 more with the gains written and read back. As in multi_sweep,
-// one thread carries a scenario's 16 x 16 Vxx and the step's 6 x 16
-// products, beyond its 255 registers, so they live in local memory and the
-// kernel is latency-bound per thread, far from either bound. Splitting a
-// scenario over several threads is later work. nvcc contracts a*b+c into
-// FMA, so the kernel is held to its plain version within a tolerance.
+// and outputs are ~2,900 floats a scenario (~47 MB, ~14 us at 3.35 TB/s).
+// The recursion is serial along the horizon, so a scenario's sweep is a
+// chain of dependent steps (shuffles, shared-memory broadcasts, the 6 x 6
+// Cholesky): latency, as in multi_sweep.cu. The sums of Quu, Qu,
+// K (p - p_nom) and the costs are taken in a butterfly order, and nvcc
+// contracts a*b+c into FMA, so the kernels are held to their plain versions
+// within a tolerance.
+//
+// The forward kernel still runs one thread a scenario on
+// csrc/sweep_steps.cuh (the steps of `_forward_step`), in blocks of 32.
 
+#include "sweep_group.cuh"
 #include "sweep_steps.cuh"
 
 namespace {
@@ -45,29 +58,103 @@ using sweep::kThreads;
 using sweep::lane;
 using sweep::load_row;
 using sweep::store_row;
+using sweep_group::Arrays;
+using sweep_group::Geom;
+using sweep_group::GlobalGains;
+using sweep_group::Layout;
+using sweep_group::Place;
+
+// The group sweep's arrays: the nominal (ps, us) is only read.
+Arrays group_arrays(const void* p0, const void* ps, const void* us,
+                    const void* z, const void* y, const void* g,
+                    const void* target, const void* inv_depth, int H, int B,
+                    sweep::Weights W) {
+  return Arrays{(const float*)p0, (const float*)g, (const float*)target,
+                (const float*)inv_depth, (const float*)z, (const float*)y,
+                (float*)ps, (float*)us, H, (size_t)B, W};
+}
+
+// The unified sweep: the backward into the gains, in the scenario's shared
+// memory (kSmem) or in the global scratch K (H, c, n, B), k (H, c, B); then
+// every candidate's forward with its outputs written.
+template <int M, bool kSmem>
+__global__ void __launch_bounds__(32)
+unified_sweep_kernel(Arrays X, float* K, float* k) {
+  extern __shared__ float4 smem4[];
+  const Layout Lo = sweep_group::layout(M, kSmem ? X.H : 0, false);
+  const Place me = sweep_group::place<M>(reinterpret_cast<float*>(smem4),
+                                         Lo, (int)X.B);
+  const GlobalGains<M> Kg{K + me.b, k + me.b, X.B, me.live};
+  const GlobalGains<M>* gains = kSmem ? nullptr : &Kg;
+  sweep_group::backward<M>(X, me, Lo, gains);
+  sweep_group::forward<M>(X, me, Lo, sweep::alpha_of(me.g / Geom<M>::L),
+                          false, false, gains);
+}
+
+template <int M>
+__global__ void __launch_bounds__(32)
+backward_sweep_kernel(Arrays X, float* K, float* k) {
+  extern __shared__ float4 smem4[];
+  const Layout Lo = sweep_group::layout(M, 0, false);
+  const Place me = sweep_group::place<M>(reinterpret_cast<float*>(smem4),
+                                         Lo, (int)X.B);
+  const GlobalGains<M> Kg{K + me.b, k + me.b, X.B, me.live};
+  sweep_group::backward<M>(X, me, Lo, &Kg);
+}
+
+// One-warp blocks of Geom<M>::S scenarios with `smem_h` steps of gains in
+// shared memory (0: the step's scratch alone).
+template <int M, class Kernel>
+int launch_group(Kernel kernel, int smem_h, const Arrays& X, float* K,
+                 float* k, cudaStream_t stream) {
+  const Layout Lo = sweep_group::layout(M, smem_h, false);
+  const size_t bytes = sizeof(float) * Geom<M>::S * Lo.stride;
+  int err = sweep_group::allow_smem(kernel, bytes);
+  if (err) return err;
+  const dim3 grid((unsigned)((X.B + Geom<M>::S - 1) / Geom<M>::S));
+  kernel<<<grid, 32, bytes, stream>>>(X, K, k);
+  return (int)cudaGetLastError();
+}
+
+template <int M>
+int launch_unified(const Arrays& X, float* K, float* k, cudaStream_t s) {
+  if (K == nullptr)
+    return launch_group<M>(unified_sweep_kernel<M, true>, X.H, X, K, k, s);
+  return launch_group<M>(unified_sweep_kernel<M, false>, 0, X, K, k, s);
+}
+
+template <int M>
+int launch_backward(const Arrays& X, float* K, float* k, cudaStream_t s) {
+  return launch_group<M>(backward_sweep_kernel<M>, 0, X, K, k, s);
+}
+
+// -- the forward alone: one thread a scenario (csrc/sweep_steps.cuh) -------
 
 struct Params {
   int H, B;
   sweep::Weights W;
 };
 
-struct In {  // inputs; K and k only for the forward-only entry
+struct In {
   const float *p0, *ps, *us, *z, *y, *g, *target, *izd, *K, *k;
 };
 
-struct Out {  // outputs; K and k are the backward's (scratch of unified)
-  float *ps_c, *us_c, *J, *K, *k;
+struct Out {
+  float *ps_c, *us_c, *J;
 };
 
-// The candidate forward of one sweep against the gains K, k.
 template <int M>
-__device__ __forceinline__ void forward_pass(const In& in, const float* Kg,
-                                             const float* kg, const Out& out,
-                                             const float* tgt, const float* iz,
-                                             const sweep::Weights& W, int H,
-                                             size_t B, int b) {
+__global__ void __launch_bounds__(kThreads)
+forward_sweep_kernel(In in, Out out, Params P) {
   constexpr int N = 2 * M;
-  float p0[N], pa[A][N], J[A];
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= P.B) return;
+  const size_t B = (size_t)P.B;
+  const int H = P.H;
+  const sweep::Weights& W = P.W;
+  float tgt[N], iz[M], p0[N], pa[A][N], J[A];
+  load_row<N>(in.target, 0, B, b, tgt);
+  load_row<M>(in.izd, 0, B, b, iz);
   load_row<N>(in.p0, 0, B, b, p0);
 #pragma unroll
   for (int a = 0; a < A; ++a) {
@@ -83,8 +170,8 @@ __device__ __forceinline__ void forward_pass(const In& in, const float* Kg,
     load_row<C>(in.us, tau, B, b, un);
     load_row<C>(in.z, tau, B, b, zt);
     load_row<C>(in.y, tau, B, b, yt);
-    load_row<C>(kg, tau, B, b, kt);
-    const float* Kt = Kg + lane(tau * C, 0, N, B, b);
+    load_row<C>(in.k, tau, B, b, kt);
+    const float* Kt = in.K + lane(tau * C, 0, N, B, b);
 #pragma unroll
     for (int a = 0; a < A; ++a) {
       float ua[C], nxt[N];
@@ -106,58 +193,42 @@ __device__ __forceinline__ void forward_pass(const In& in, const float* Kg,
         sweep::add_terminal<M>(J[a], pa[a], pterm, gterm, tgt, W);
 }
 
-// kBackward, kForward: which halves of the sweep this launch runs.
-template <int M, bool kBackward, bool kForward>
-__global__ void __launch_bounds__(kThreads)
-sweep_kernel(In in, Out out, Params P) {
-  constexpr int N = 2 * M;
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= P.B) return;
-  const size_t B = (size_t)P.B;
-  float tgt[N], iz[M];
-  load_row<N>(in.target, 0, B, b, tgt);
-  load_row<M>(in.izd, 0, B, b, iz);
-  if (kBackward)
-    sweep::backward_pass<M>(in.ps, in.us, in.z, in.y, in.g, tgt, iz, P.W,
-                            P.H, B, b, out.K, out.k);
-  if (kForward)
-    forward_pass<M>(in, kBackward ? out.K : in.K, kBackward ? out.k : in.k,
-                    out, tgt, iz, P.W, P.H, B, b);
-}
-
-template <bool kBackward, bool kForward>
-int launch(int m, const In& in, const Out& out, const Params& P, void* stream) {
-  if (P.H < 1 || P.B < 1) return (int)cudaErrorInvalidValue;
-  const dim3 grid((P.B + kThreads - 1) / kThreads);
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (m) {
-    case 2: sweep_kernel<2, kBackward, kForward><<<grid, kThreads, 0, s>>>(in, out, P); break;
-    case 4: sweep_kernel<4, kBackward, kForward><<<grid, kThreads, 0, s>>>(in, out, P); break;
-    case 8: sweep_kernel<8, kBackward, kForward><<<grid, kThreads, 0, s>>>(in, out, P); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // Arrays (float32, scenario last): p0, target (n, B); inv_depth (m, B);
 // ps, g (H+1, n, B); us, z, y, k (H, c, B); K (H, c, n, B); ps_c
 // (H+1, A, n, B); us_c (H, A, c, B); J (A, B).
 
+// Dynamic shared memory of one block of the unified kernel with its gains
+// in shared memory (bytes), for the wrapper's choice of form
+// (sweep.group_sweep_fits).
+extern "C" int unified_sweep_smem_bytes(int m, int H) {
+  return (int)(sizeof(float) * (32 / (2 * m)) *
+               sweep_group::layout(m, H, false).stride);
+}
+
+// K_scratch and k_scratch null: the gains in shared memory; else in them.
 extern "C" int unified_sweep_launch(
     int m, const void* p0, const void* ps, const void* us, const void* z,
     const void* y, const void* g, const void* target, const void* inv_depth,
     void* ps_c, void* us_c, void* J, void* K_scratch, void* k_scratch, int H,
     int B, float q, float r, float rho, float qe, float dt, float reg,
     void* stream) {
-  const In in{(const float*)p0, (const float*)ps, (const float*)us,
-              (const float*)z, (const float*)y, (const float*)g,
-              (const float*)target, (const float*)inv_depth, nullptr, nullptr};
-  const Out out{(float*)ps_c, (float*)us_c, (float*)J, (float*)K_scratch,
-                (float*)k_scratch};
-  return launch<true, true>(m, in, out, Params{H, B, {q, r, rho, qe, dt, reg}},
-                            stream);
+  if (H < 1 || B < 1 || (K_scratch == nullptr) != (k_scratch == nullptr))
+    return (int)cudaErrorInvalidValue;
+  Arrays X = group_arrays(p0, ps, us, z, y, g, target, inv_depth, H, B,
+                          {q, r, rho, qe, dt, reg});
+  X.ps_c = (float*)ps_c;
+  X.us_c = (float*)us_c;
+  X.J = (float*)J;
+  float *K = (float*)K_scratch, *k = (float*)k_scratch;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (m) {
+    case 2: return launch_unified<2>(X, K, k, s);
+    case 4: return launch_unified<4>(X, K, k, s);
+    case 8: return launch_unified<8>(X, K, k, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" int backward_sweep_launch(
@@ -165,12 +236,16 @@ extern "C" int backward_sweep_launch(
     const void* g, const void* target, const void* inv_depth, void* K,
     void* k, int H, int B, float q, float r, float rho, float qe, float dt,
     float reg, void* stream) {
-  const In in{nullptr, (const float*)ps, (const float*)us, (const float*)z,
-              (const float*)y, (const float*)g, (const float*)target,
-              (const float*)inv_depth, nullptr, nullptr};
-  const Out out{nullptr, nullptr, nullptr, (float*)K, (float*)k};
-  return launch<true, false>(m, in, out,
-                             Params{H, B, {q, r, rho, qe, dt, reg}}, stream);
+  if (H < 1 || B < 1) return (int)cudaErrorInvalidValue;
+  const Arrays X = group_arrays(nullptr, ps, us, z, y, g, target, inv_depth,
+                                H, B, {q, r, rho, qe, dt, reg});
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (m) {
+    case 2: return launch_backward<2>(X, (float*)K, (float*)k, s);
+    case 4: return launch_backward<4>(X, (float*)K, (float*)k, s);
+    case 8: return launch_backward<8>(X, (float*)K, (float*)k, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" int forward_sweep_launch(
@@ -179,11 +254,23 @@ extern "C" int forward_sweep_launch(
     const void* target, const void* inv_depth, void* ps_c, void* us_c,
     void* J, int H, int B, float q, float r, float rho, float qe, float dt,
     void* stream) {
+  if (H < 1 || B < 1) return (int)cudaErrorInvalidValue;
   const In in{(const float*)p0, (const float*)ps, (const float*)us,
               (const float*)z, (const float*)y, (const float*)g,
               (const float*)target, (const float*)inv_depth, (const float*)K,
               (const float*)k};
-  const Out out{(float*)ps_c, (float*)us_c, (float*)J, nullptr, nullptr};
-  return launch<false, true>(m, in, out,
-                             Params{H, B, {q, r, rho, qe, dt, 0.0f}}, stream);
+  const Out out{(float*)ps_c, (float*)us_c, (float*)J};
+  const Params P{H, B, {q, r, rho, qe, dt, 0.0f}};
+  const dim3 grid((P.B + kThreads - 1) / kThreads);
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (m) {
+    case 2: forward_sweep_kernel<2><<<grid, kThreads, 0, s>>>(in, out, P);
+            break;
+    case 4: forward_sweep_kernel<4><<<grid, kThreads, 0, s>>>(in, out, P);
+            break;
+    case 8: forward_sweep_kernel<8><<<grid, kThreads, 0, s>>>(in, out, P);
+            break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }

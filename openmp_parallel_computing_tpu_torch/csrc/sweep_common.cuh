@@ -1,9 +1,10 @@
 // What both designs of the iLQR sweep share: the control and candidate
 // counts, the cost weights, the line-search step sizes and the clipped Euler
 // step of the IBVS dynamics. csrc/sweep_steps.cuh (one thread per scenario,
-// csrc/sweep.cu) and csrc/sweep_group.cuh (a thread group per scenario,
-// csrc/multi_sweep.cu and csrc/full_solve.cu) include it, so the dynamics
-// have one source.
+// the forward kernel of csrc/sweep.cu) and csrc/sweep_group.cuh (a thread
+// group per scenario: csrc/multi_sweep.cu, csrc/full_solve.cu and the
+// unified and backward kernels of csrc/sweep.cu) include it, so the
+// dynamics have one source.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -23,6 +24,12 @@ __device__ __forceinline__ float alpha_of(int a) {
   return a == 0 ? 0.0f : a == 1 ? 1.0f : a == 2 ? 0.5f : 0.25f;
 }
 
+// clamp(v, -4, 4) keeping a NaN, as torch.clamp and jnp.clip do (fmaxf
+// would turn it into the bound).
+__device__ __forceinline__ float clip_state(float v) {
+  return v < -4.0f ? -4.0f : (v > 4.0f ? 4.0f : v);
+}
+
 // One feature (x, y) of the clipped Euler step p' = clip(p + dt L(p) u, +-4)
 // with inverse depth iz.
 __device__ __forceinline__ void dyn_feature(float x, float y, const float* u,
@@ -34,8 +41,8 @@ __device__ __forceinline__ void dyn_feature(float x, float y, const float* u,
                      (1.0f + x * x) * wy + y * wz;
   const float ydot = -vy * iz + y * vz * iz + (1.0f + y * y) * wx -
                      x * y * wy - x * wz;
-  nx = fminf(fmaxf(x + dt * xdot, -4.0f), 4.0f);
-  ny = fminf(fmaxf(y + dt * ydot, -4.0f), 4.0f);
+  nx = clip_state(x + dt * xdot);
+  ny = clip_state(y + dt * ydot);
 }
 
 // The whole split-layout step: p (n = 2M) -> out.

@@ -1,8 +1,9 @@
-// The iLQR sweep on a thread group per scenario, for csrc/multi_sweep.cu and
-// csrc/full_solve.cu: one source of the recursion for both, as
-// `_backward_step`, `_forward_cand_step`, `_terminal_cost_accum` and
-// `_select_winner` of openmp_parallel_computing_tpu/models/mpc/sweep_pallas.py
-// are for the TPU kernels.
+// The iLQR sweep on a thread group per scenario, for csrc/multi_sweep.cu,
+// csrc/full_solve.cu and the unified and backward kernels of csrc/sweep.cu:
+// one source of the recursion for all four, as `_backward_step`,
+// `_forward_cand_step`, `_terminal_cost_accum` and `_select_winner` of
+// openmp_parallel_computing_tpu/models/mpc/sweep_pallas.py are for the TPU
+// kernels.
 //
 // A scenario with m features (state n = 2m, split order [x_0..x_{m-1},
 // y_0..y_{m-1}]) gets a group of G = n threads inside one warp (16 at m = 8,
@@ -18,16 +19,21 @@
 // gets the same bits). The 6 x 6 Cholesky runs on every lane alike; lane k
 // solves right-hand column k of Qux, and every lane the column Qu. fu, the
 // diagonal blocks of fx and Qux pass through a few hundred bytes of shared
-// scratch; the gains of the whole horizon stay in shared memory.
+// scratch. The gains of the whole horizon stay in the scenario's shared
+// memory, or, given a GlobalGains, go to the (H, c, n, B) and (H, c, B)
+// arrays of global memory; the recursion is the same code for both.
 //
 // Forward (line search), the group splits into A = 4 runs of L = m / 2
 // lanes, one run a candidate alpha = (0, 1, 0.5, 0.25); lane l of a run owns
 // features l and l + L (four state entries). K (p - p_nom) and the costs are
-// sums over the run. The candidates are not stored: after the first-wins
-// select (a non-finite cost counts as +inf; a choice, never a one-hot
-// product) the group runs the winner's forward again, the same arithmetic
-// in the same order, so it reproduces the winner's bits and writes them over
-// the nominal. alpha = 0 winning keeps the nominal as it is.
+// sums over the run. In a sweep with a select the candidates are not
+// stored: after the first-wins select (a non-finite cost counts as +inf; a
+// choice, never a one-hot product) the group runs the winner's forward
+// again (the replay), the same arithmetic in the same order, so it
+// reproduces the winner's bits and writes them over the nominal (alpha = 0
+// winning keeps the nominal as it is). Given arrays for them (Arrays.ps_c),
+// the forward instead writes every candidate's trajectory, controls and raw
+// cost, and leaves the pick to the caller.
 //
 // Layout of the global arrays: the scenario index b is the fastest axis;
 // element [t][i] of a (T, R, B) array is at (t R + i) B + b (`at`).
@@ -54,8 +60,9 @@ struct Geom {
 
 // Float offsets into one scenario's shared memory: the gains K (H, c, n) and
 // k (H, 8), the step's scratch fu (n, 8), Qux (n, 8) and the fx blocks
-// (m, 4: A, Bc, C, D), and y (H, c) when the dual lives there. The stride is
-// G more than a multiple of 32 floats, so the groups of a warp fall on
+// (m, 4: A, Bc, C, D), and y (H, c) when the dual lives there. H = 0 gives
+// the step's scratch alone, for gains in global memory. The stride is G
+// more than a multiple of 32 floats, so the groups of a warp fall on
 // different banks.
 struct Layout {
   int K, kf, fu, qux, coef, y, stride;
@@ -112,7 +119,8 @@ __device__ __forceinline__ void load6(const float* src, float* v) {
   v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w; v[4] = b.x; v[5] = b.y;
 }
 
-// The arrays of one launch; the nominal (ps, us) is updated in place.
+// The arrays of one launch; the nominal (ps, us) is updated in place by the
+// replay, and only read otherwise.
 struct Arrays {
   const float* p0;    // (n, B)
   const float* g;     // (H+1, n, B) edge linearization
@@ -125,6 +133,10 @@ struct Arrays {
   int H;
   size_t B;
   Weights W;
+  // The candidates' outputs, or null: the forward writes none.
+  float* ps_c = nullptr;   // (H+1, A, n, B)
+  float* us_c = nullptr;   // (H, A, c, B)
+  float* J = nullptr;      // (A, B)
 };
 
 // One thread's place: its lane in the group, its scenario (clamped into
@@ -136,6 +148,38 @@ struct Place {
   int b;
   bool live;
   float* sm;
+};
+
+// The gains K (H, c, n) and k (H, c) of a scenario in the (H, c, n, B) and
+// (H, c, B) arrays of global memory, from the scenario's column on. The
+// backward stores a step's gains through `put` (thread i gives column i of
+// K, lane c mod n gives k[c]: a group of n = 4 lanes at m = 2 has fewer
+// lanes than k; a group past the end of the batch stores nothing); the
+// forward reads them through `K_at` and `k_row`.
+template <int M>
+struct GlobalGains {
+  static constexpr int N = 2 * M;
+  float* K;           // &K[0][0][0][b]
+  float* k;           // &k[0][0][b]
+  size_t B;
+  bool live;
+
+  __device__ __forceinline__ void put(int t, int i, const float* Kc,
+                                      const float* kff) const {
+    if (!live) return;
+#pragma unroll
+    for (int c = 0; c < C; ++c) K[((size_t)(t * C + c) * N + i) * B] = Kc[c];
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      if (c % N == i) k[(size_t)(t * C + c) * B] = kff[c];
+  }
+  __device__ __forceinline__ float K_at(int t, int c, int i) const {
+    return K[((size_t)(t * C + c) * N + i) * B];
+  }
+  __device__ __forceinline__ void k_row(int t, float* v) const {
+#pragma unroll
+    for (int c = 0; c < C; ++c) v[c] = k[(size_t)(t * C + c) * B];
+  }
 };
 
 __device__ __forceinline__ float y_at(const Arrays& X, const Place& me,
@@ -166,11 +210,13 @@ __device__ __forceinline__ void chol_solve(const float (&L)[C][C],
 }
 
 // The Riccati backward over tau = H-1 .. 0 about the nominal, with the ADMM
-// pair (z, y) and g fixed: gains K, k into shared memory. Vxx is not
-// symmetrized. Thread k owns column k; j = k mod m is its feature.
+// pair (z, y) and g fixed: gains K, k into shared memory, or into `Kg`
+// where it is given. Vxx is not symmetrized. Thread k owns column k;
+// j = k mod m is its feature.
 template <int M>
 __device__ __forceinline__ void backward(const Arrays& X, const Place& me,
-                                         const Layout& Lo) {
+                                         const Layout& Lo,
+                                         const GlobalGains<M>* Kg = nullptr) {
   constexpr int N = 2 * M;
   const int k = me.g, j = k & (M - 1), b = me.b, H = X.H;
   const bool top = k < M;
@@ -283,9 +329,12 @@ __device__ __forceinline__ void backward(const Arrays& X, const Place& me,
     for (int c = 0; c < C; ++c) {
       kff[c] = -kff[c];
       Kc[c] = -Kc[c];
-      Ks[(tau * C + c) * N + k] = Kc[c];
+      if (!Kg) Ks[(tau * C + c) * N + k] = Kc[c];
     }
-    if (k == 0) store6(kfs + tau * 8, kff);
+    if (Kg)
+      Kg->put(tau, k, Kc, kff);
+    else if (k == 0)
+      store6(kfs + tau * 8, kff);
 
     // Vx' = Qx + Qux^T k.
     {
@@ -360,13 +409,20 @@ __device__ __forceinline__ Row<M> load_row(const Arrays& X, const Place& me,
 // alpha k + K (p - p_nom), the stage costs (tracking, effort, ADMM
 // augmentation, linearized edge term), the clipped Euler step; then the
 // terminal tracking and edge terms. Returns the candidate's cost, alike on
-// the run's lanes. With `replay` every step ends at a __syncwarp, after
-// which run 0 of a live group with `write` puts the trajectory over the
-// nominal (each step has read its nominal rows before any lane writes).
+// the run's lanes. The gains are read from shared memory, or from `Kg`
+// where it is given.
+// - With `replay` every step ends at a __syncwarp, after which run 0 of a
+//   live group with `write` puts the trajectory over the nominal (each step
+//   has read its nominal rows before any lane writes).
+// - With X.ps_c set, lane l of run a writes its four state entries of
+//   candidate a into X.ps_c (row 0 = p0) and its controls c = l mod L into
+//   X.us_c, and the run's lane 0 the cost into X.J[a], non-finite or not; a
+//   group past the end of the batch writes nothing.
 template <int M>
 __device__ __forceinline__ float forward(const Arrays& X, const Place& me,
                                          const Layout& Lo, float alpha,
-                                         bool replay, bool write) {
+                                         bool replay, bool write,
+                                         const GlobalGains<M>* Kg = nullptr) {
   constexpr int N = 2 * M, L = Geom<M>::L;
   const int l = me.g % L, b = me.b, H = X.H;
   const size_t B = X.B;
@@ -374,12 +430,15 @@ __device__ __forceinline__ float forward(const Arrays& X, const Place& me,
   const int idx[4] = {l, l + L, M + l, M + l + L};
   const float* Ks = me.sm + Lo.K;
   const float* kfs = me.sm + Lo.kf;
+  const int a = me.g / L;                       // this run's candidate
+  const bool cands = X.ps_c != nullptr && me.live;
   write = write && me.live && me.g < L;
   float pa[4], tg[4];
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
     pa[q] = X.p0[at(0, idx[q], N, B, b)];
     tg[q] = X.tgt[at(0, idx[q], N, B, b)];
+    if (cands) X.ps_c[at(0, a * N + idx[q], A * N, B, b)] = pa[q];
   }
   const float iz0 = X.iz[at(0, l, M, B, b)];
   const float iz1 = X.iz[at(0, l + L, M, B, b)];
@@ -390,13 +449,17 @@ __device__ __forceinline__ float forward(const Arrays& X, const Place& me,
     float dp[4], kt[C], ua[C];
 #pragma unroll
     for (int q = 0; q < 4; ++q) dp[q] = pa[q] - cur.pn[q];
-    load6(kfs + t * 8, kt);
+    if (Kg)
+      Kg->k_row(t, kt);
+    else
+      load6(kfs + t * 8, kt);
 #pragma unroll
     for (int c = 0; c < C; ++c) {
       const float* Kc = Ks + (t * C + c) * N;
-      float s = Kc[idx[0]] * dp[0];
+      const auto K_at = [&](int i) { return Kg ? Kg->K_at(t, c, i) : Kc[i]; };
+      float s = K_at(idx[0]) * dp[0];
 #pragma unroll
-      for (int q = 1; q < 4; ++q) s += Kc[idx[q]] * dp[q];
+      for (int q = 1; q < 4; ++q) s += K_at(idx[q]) * dp[q];
       ua[c] = (cur.un[c] + alpha * kt[c]) + run_sum<L>(s);
     }
     float tr = 0.0f, ed = 0.0f, ef = 0.0f, ad = 0.0f;
@@ -426,6 +489,14 @@ __device__ __forceinline__ float forward(const Arrays& X, const Place& me,
           if (c % L == l) X.us[at(t, c, C, B, b)] = ua[c];
       }
     }
+    if (cands) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        X.ps_c[at(t + 1, a * N + idx[q], A * N, B, b)] = pa[q];
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+        if (c % L == l) X.us_c[at(t, a * C + c, A * C, B, b)] = ua[c];
+    }
     cur = nxt;
   }
   // cur is row H: the terminal nominal and edge linearization.
@@ -437,13 +508,15 @@ __device__ __forceinline__ float forward(const Arrays& X, const Place& me,
     ed += cur.gt[q] * (pa[q] - cur.pn[q]);
   }
   jx = jx + (W.q * tr + W.qe * ed);
-  return ju + run_sum<L>(jx);
+  const float cost = ju + run_sum<L>(jx);
+  if (cands && l == 0) X.J[at(0, a, A, B, b)] = cost;
+  return cost;
 }
 
 // One iLQR sweep with a winner select about the nominal (X.ps, X.us): the
-// backward into the gains, the A candidates' forward, a first-wins argmin
-// with a non-finite cost counted as +inf, the winner's replay over the
-// nominal; row 0 of ps is set to p0.
+// backward into the gains in shared memory, the A candidates' forward, a
+// first-wins argmin with a non-finite cost counted as +inf, the winner's
+// replay over the nominal; row 0 of ps is set to p0.
 template <int M>
 __device__ __forceinline__ void ilqr_sweep(const Arrays& X, const Place& me,
                                            const Layout& Lo) {

@@ -161,10 +161,11 @@ class _SweepLanes:
     kernels by their VMEM estimates); else the per-sweep iteration runs.
     ``use_unified``: a
     per-sweep iteration runs the unified kernel, else the split backward +
-    forward pair. The unified kernel keeps its gains in global scratch, so
-    nothing on the card bounds its admission and it is taken for every
-    configuration; setting the attribute to False (on an instance, or on
-    the class for the solves of a loop) selects the split pair.
+    forward pair. The unified kernel runs at every horizon: its wrapper
+    keeps the gains in shared memory where they fit the card and in global
+    scratch where they do not, so it is taken for every configuration;
+    setting the attribute to False (on an instance, or on the class for
+    the solves of a loop) selects the split pair.
     ``use_full``: the whole ADMM loop in one full_solve launch
     (``full_solve=True`` with ``edge_refresh="solve"``), admitted the same
     way; else the loop of ADMM iterations runs."""

@@ -12,13 +12,16 @@ m x m blocks and applying it is a few elementwise multiply-adds.
 Line search: candidates alpha = (0, 1, 0.5, 0.25). alpha=0 reproduces the
 nominal, so "did anything improve" is the argmin over the candidates.
 
-Each wrapper launches its kernel on CUDA tensors (``csrc/multi_sweep.cu``
-and ``csrc/full_solve.cu``, a thread group a scenario on
-``csrc/sweep_group.cuh``, with the gains in shared memory and no global
-scratch; or an entry point of ``csrc/sweep.cu``, a thread a scenario on
-``csrc/sweep_steps.cuh``) and runs its ``*_plain`` version, built from the
-helpers below, on CPU tensors. Each counts its launches in
-``<wrapper>.launches``.
+Each wrapper launches its kernel on CUDA tensors and runs its ``*_plain``
+version, built from the helpers below, on CPU tensors; each counts its
+launches in ``<wrapper>.launches``. ``csrc/multi_sweep.cu``,
+``csrc/full_solve.cu`` and the unified and backward entry points of
+``csrc/sweep.cu`` run a thread group a scenario on ``csrc/sweep_group.cuh``:
+multi_sweep and full_solve with the gains in shared memory and no global
+scratch, the backward with the gains written to its outputs, the unified
+sweep in shared memory where ``group_sweep_fits`` admits it and in global
+scratch otherwise. The forward entry point of ``csrc/sweep.cu`` runs a
+thread a scenario on ``csrc/sweep_steps.cuh``.
 """
 
 from __future__ import annotations
@@ -336,19 +339,23 @@ def _lanes_shapes(m: int, H: int, B: int, **arrays) -> dict:
 
 
 _PTR, _INT, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# The CUDA library of each kernel whose gains may live in shared memory,
+# where it is not csrc/<kernel>.cu.
+_SMEM_LIBRARY = {"unified_sweep": "sweep"}
 
 
 @functools.lru_cache(maxsize=None)
 def group_sweep_fits(kernel: str, m: int, H: int,
                      device: torch.device) -> bool:
-    """Whether one block of ``csrc/<kernel>.cu`` (``"multi_sweep"`` or
-    ``"full_solve"``, which keep the gains of the whole horizon in shared
-    memory) fits the card of ``device`` at horizon H. True off the card:
-    the plain versions have no such limit."""
+    """Whether one block of ``kernel`` (``"multi_sweep"``, ``"full_solve"``
+    or ``"unified_sweep"``) with the gains of the whole horizon in shared
+    memory fits the card of ``device`` at horizon H, by the library's
+    ``<kernel>_smem_bytes(m, H)``. True off the card: the plain versions
+    have no such limit."""
     if device.type != "cuda":
         return True
-    need = _build.function(kernel, f"{kernel}_smem_bytes",
-                           [_INT, _INT])(m, H)
+    need = _build.function(_SMEM_LIBRARY.get(kernel, kernel),
+                           f"{kernel}_smem_bytes", [_INT, _INT])(m, H)
     props = torch.cuda.get_device_properties(device)
     return need <= props.shared_memory_per_block_optin
 
@@ -446,7 +453,8 @@ def unified_sweep(p0, ps, us, z, y, g, target, inv_depth, *, m: int,
     Returns ps_c (H+1, A, n, B) with row 0 = p0, us_c (H, A, c, B) and
     J (A, B), as ``forward_sweep``. CPU tensors run the plain version;
     CUDA tensors launch ``unified_sweep_launch`` of ``csrc/sweep.cu``,
-    with the gains in global scratch."""
+    with the gains in shared memory where ``group_sweep_fits`` admits it
+    at H, else in global scratch allocated here (any horizon)."""
     n, c = 2 * m, CONTROL_DIM
     H, B = us.shape[0], us.shape[-1]
     kw = dict(m=m, q=q, r=r, rho=rho, qe=qe, dt=dt, reg=reg)
@@ -456,13 +464,18 @@ def unified_sweep(p0, ps, us, z, y, g, target, inv_depth, *, m: int,
         return unified_sweep_plain(p0, ps, us, z, y, g, target, inv_depth,
                                    **kw)
     out = _candidates_out(H, n, B, p0.device)
-    K = torch.empty((H, c, n, B), dtype=torch.float32, device=p0.device)
-    k = torch.empty((H, c, B), dtype=torch.float32, device=p0.device)
+    scratch = [None, None]                 # the gains in shared memory
+    if not group_sweep_fits("unified_sweep", m, H, p0.device):
+        scratch = [torch.empty((H, c, n, B), dtype=torch.float32,
+                               device=p0.device),
+                   torch.empty((H, c, B), dtype=torch.float32,
+                               device=p0.device)]
     fn = _build.function("sweep", "unified_sweep_launch",
                          [_INT] + [_PTR] * 13 + [_INT] * 2 + [_F32] * 6
                          + [_PTR])
     ptrs = [t.data_ptr() for t in (p0, ps, us, z, y, g, target, inv_depth,
-                                   *out, K, k)]
+                                   *out)]
+    ptrs += [None if t is None else t.data_ptr() for t in scratch]
     _build.launch(fn, "unified_sweep", p0, m, *ptrs, H, B, q, r, rho, qe, dt,
                   reg)
     unified_sweep.launches += 1
@@ -477,7 +490,8 @@ def backward_sweep(ps, us, z, y, g, target, inv_depth, *, m: int, q: float,
                    reg: float = REG):
     """The Riccati backward of one sweep alone: returns the gains
     K (H, c, n, B), k (H, c, B). CPU tensors run the plain version; CUDA
-    tensors launch ``backward_sweep_launch`` of ``csrc/sweep.cu``."""
+    tensors launch ``backward_sweep_launch`` of ``csrc/sweep.cu``, which
+    writes the gains straight to these outputs (any horizon)."""
     n, c = 2 * m, CONTROL_DIM
     H, B = us.shape[0], us.shape[-1]
     if not _on_card("backward_sweep", m, _lanes_shapes(

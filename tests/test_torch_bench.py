@@ -122,15 +122,20 @@ def test_non_finite_controls_fail_the_bench():
         _chain.check_finite(torch.tensor([[0.0, float("nan")]]))
 
 
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
 def test_chip_smoke_sweep_inputs_drive_the_sweeps(frame):
     """chip_smoke's sweep inputs, which bench/sweep_kernels.py times (the
     solver's own rollout and edge gradient), have the kernels' shapes and
     solve on the CPU: multi_sweep keeps row 0 = p0, full_solve's z stays
     in the box."""
-    spec = importlib.util.spec_from_file_location("chip_smoke",
-                                                  ROOT / "chip_smoke.py")
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
+    smoke = _chip_smoke()
     m, h, b = 2, 4, 3
     args, kw = smoke.sweep_inputs(frame, m, h, b)
     shapes = [(2 * m, b), (h + 1, 2 * m, b), (h, 6, b), (h, 6, b),
@@ -145,6 +150,33 @@ def test_chip_smoke_sweep_inputs_drive_the_sweeps(frame):
     assert fkw["admm_iters"] == 2 and fkw["relax"] == 1.3
     ps, z, us = sweep.full_solve(*fargs, **fkw)
     assert z.abs().max() <= fkw["u_limit"] and torch.equal(ps[0], fargs[0])
+
+
+def test_sweep_kernels_bench_cases_run_on_the_cpu(frame):
+    """bench/sweep_kernels.py's cases at a small size: every sweep kernel
+    (multi_sweep, the unified sweep in its admitted form and with the gains
+    in global memory, backward, forward) at each batch, full_solve at the
+    first; each call runs (the plain versions on the CPU, where both
+    unified forms give the same bits), and forcing the global form leaves
+    the admission as it was."""
+    smoke = _chip_smoke()
+    admit = sweep.group_sweep_fits
+    got = sweep_kernels.cases(smoke, frame, m=2, h=3, batches=(5, 3))
+    names = ("multi_sweep", "unified_sweep", "unified_sweep_global",
+             "backward_sweep", "forward_sweep")
+    assert set(got) == ({f"{n}_b{b}" for n in names for b in (5, 3)}
+                        | {"full_solve_b5"})
+    outs = {}
+    for key, (call, kernel, iters) in got.items():
+        outs[key] = call()
+        assert all(torch.isfinite(t).all() for t in outs[key]), key
+        assert kernel.replace("_kernel", "") in key or kernel == "sweep_kernel"
+        assert iters > 0
+    assert sweep.group_sweep_fits is admit
+    for b in (5, 3):
+        assert all(torch.equal(a, c) for a, c in zip(
+            outs[f"unified_sweep_b{b}"], outs[f"unified_sweep_global_b{b}"]))
+        assert outs[f"unified_sweep_b{b}"][0].shape == (4, 4, 4, b)
 
 
 def test_sweep_kernels_bench_needs_a_card():

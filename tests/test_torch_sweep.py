@@ -93,6 +93,26 @@ def test_dyn_step_and_fu_match_jax():
            jax_sp._build_fu(jnp.asarray(ps[1]), jnp.asarray(izd), KW["dt"], 4))
 
 
+def test_dyn_step_keeps_nan_and_clips_inf_as_jax():
+    """The clipped Euler step keeps a NaN state and clips an infinite one
+    to the bound, as ``jnp.clip`` in the JAX kernels does (the CUDA sweep
+    kernels' ``clip_state`` follows it: ``fmaxf`` would turn a NaN into
+    -4)."""
+    p0, ps, us, *_, izd = _inputs(2, 2, 6, seed=8)
+    p = ps[1].copy()
+    p[0, 1], p[2, 3], p[1, 4] = np.nan, np.inf, -np.inf
+    u = us[1].copy()
+    u[0, 5] = np.nan
+    got = sweep._dyn_step(torch.from_numpy(p), torch.from_numpy(u),
+                          torch.from_numpy(izd), KW["dt"], 2).numpy()
+    ref = np.asarray(jax_sp._dyn_step(jnp.asarray(p), jnp.asarray(u),
+                                      jnp.asarray(izd), KW["dt"], 2))
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(ref))
+    assert np.isnan(got[0, 1]) and np.isnan(got[:2, 5]).all()   # x rows
+    np.testing.assert_allclose(got, ref, rtol=RTOL, atol=ATOL)
+    assert np.nanmax(np.abs(got)) <= dynamics.STATE_LIMIT
+
+
 def test_dynamics_match_jax_and_the_split_step():
     """Interleaved ``dynamics.step``/``rollout`` against JAX, and against
     the kernels' split-layout ``_dyn_step`` (the same model)."""
@@ -239,6 +259,30 @@ def test_split_sweep_equals_unified():
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("kernel", ["unified_sweep", "backward_sweep"])
+def test_sweep_with_nan_edge_term_matches_jax_kernel(kernel):
+    """A NaN in one scenario's g at B=256: the outputs hold NaNs where the
+    JAX kernel's do, all in that scenario (k, and every candidate's states,
+    controls and cost; K does not depend on g), and match JAX elsewhere.
+    (At B=64 the JAX kernels in interpret mode turn the whole batch to NaN:
+    ROADMAP, quirks.)"""
+    nan_b = 40
+    p0, ps, us, z, y, g, target, izd = _inputs(4, 6, 256, seed=35)
+    g[2, 3, nan_b] = np.nan
+    args = (p0, ps, us, z, y, g, target, izd)
+    if kernel == "backward_sweep":
+        args = args[1:]
+    got = getattr(sweep, kernel)(*map(torch.from_numpy, args), **SWEEP_KW)
+    ref = getattr(jax_sp, kernel)(*map(jnp.asarray, args), **SWEEP_KW)
+    atols = (ATOL, ATOL, J_ATOL)           # (ps_c, us_c, J) or (K, k)
+    for a, b, atol in zip(got, ref, atols):
+        a, b = a.numpy(), np.asarray(b)
+        np.testing.assert_array_equal(np.isnan(a), np.isnan(b))
+        assert not np.isnan(np.delete(a, nan_b, axis=-1)).any()
+        np.testing.assert_allclose(a, b, rtol=RTOL, atol=atol)
+    assert np.isnan(got[-1][..., nan_b].numpy()).any()   # J, or k
+
+
 def test_zero_gain_forward_sweep_is_the_rollout():
     """Candidate 0 of a zero-gain forward sweep is the ``_dyn_step``
     rollout of the controls (the nominal-rollout form above
@@ -280,15 +324,15 @@ def test_sweep_wrappers_check_inputs():
 
 @pytest.mark.parametrize("header, users", [
     ("sweep_common.cuh", ("multi_sweep", "full_solve", "sweep")),
-    ("sweep_group.cuh", ("multi_sweep", "full_solve")),
+    ("sweep_group.cuh", ("multi_sweep", "full_solve", "sweep")),
     ("sweep_steps.cuh", ("sweep",)),
 ])
 def test_sweep_kernels_rebuild_when_the_shared_header_changes(
         tmp_path, monkeypatch, header, users):
-    """csrc/sweep.cu includes sweep_steps.cuh, multi_sweep.cu and
-    full_solve.cu include sweep_group.cuh, and all three sweep_common.cuh:
-    editing a header changes the names of exactly the libraries that
-    include it (so none reuses a stale build)."""
+    """multi_sweep.cu, full_solve.cu and sweep.cu include sweep_group.cuh,
+    sweep.cu also sweep_steps.cuh (its forward kernel), and all three
+    sweep_common.cuh: editing a header changes the names of exactly the
+    libraries that include it (so none reuses a stale build)."""
     import shutil
 
     from openmp_parallel_computing_tpu_torch import _build

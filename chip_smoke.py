@@ -11,8 +11,9 @@ Any failure raises and the script exits non-zero.
    csrc/`` with nvcc for sm_90a, one process per source, and prints the
    seconds it took and each kernel's ptxas register/spill report; fails
    if ptxas reports spill stores for an instance (m = 2, 4, 8) of the
-   group-sweep kernels (multi_sweep, full_solve, and the unified and
-   backward kernels of csrc/sweep.cu).
+   group-sweep kernels (multi_sweep, full_solve, and the unified, backward
+   and forward kernels of csrc/sweep.cu) or (n = 4, 8, 16) of the batched
+   Riccati kernel.
 3. Kernel vs plain: each kernel against its plain PyTorch version on the
    same inputs at the shapes the main path gives it, with both times and
    the least time the card could take (``bound``). The perception kernel
@@ -34,8 +35,9 @@ Any failure raises and the script exits non-zero.
    bit-equal, also at LONG_H_FITS; at TOO_LONG_H (where the wrapper takes
    the global form) the backward within MULTI_SWEEP_TOL and the unified
    sweep within the larger of that and its plain version's own card-vs-CPU
-   difference; the forward sweep at SWEEP_SHAPES, and backward + forward
-   against unified; rows 11-12 timed at B=4096 and 256. The image kernels
+   difference; the forward sweep within MULTI_SWEEP_TOL at MULTI_SHAPES
+   and on the NaN batch, and backward + forward against unified; rows
+   10-12 timed at B=4096 and 256. The image kernels
    (grayscale, sobel, edge, conv3x3) bit-exact with their plain versions
    on the ring, the half-mega and 6MP photos, odd and 1-3-row frames, at
    passes 1 and 3, both borders and every conv mode of the CPU tests, with
@@ -45,8 +47,13 @@ Any failure raises and the script exits non-zero.
    ragged shapes and on the NaN batch, and against the chain of
    multi_sweep launches and eager updates (bit equality reported); the
    batched Riccati kernel within RICCATI_TOL on the fused path's own
-   expansions at B=4096 (stride-0 cost Hessians) and on random
-   inputs at n = 4, 8, 16; both timed by CUDA events and the profiler.
+   expansions at B=4096 and B=256 (stride-0 cost Hessians), on random
+   inputs at RICCATI_SHAPES (n = 4, 8, 16; B = 1 and batches whose last
+   one-warp block holds groups past the end), with fx and fu rows that are
+   not contiguous, on the fused path's steps repeated to RICCATI_LONG_H,
+   and on a batch with NaNs in lx and fx (NaNs where the plain version
+   has them); both timed by CUDA
+   events and the profiler, the Riccati kernel at B=4096 and B=256.
 4. The main MPC path: ``VisualServoMPC.receding_horizon_frames`` at H=20,
    m=8, edge_refresh="solve" on the 8-frame 1080p ring at B=4096 and
    B=256 (solves/s), launch counts of every MPC kernel checked against
@@ -102,6 +109,7 @@ limit, a JSON object describing each kernel, and
 
 from __future__ import annotations
 
+import functools
 import json
 import re
 import subprocess
@@ -154,12 +162,16 @@ MULTI_SHAPES = SWEEP_SHAPES + ((M, H, 999), (M, H, 1), (4, 8, 254))
 TOO_LONG_H, LONG_BATCH = 400, 64
 LONG_H_FITS = 200                # the longest checked that fits at m=8
 NAN_BATCH, NAN_SCENARIOS = 256, (5, 77, 200)
-# The group-sweep kernels must not spill: ptxas reports 0 bytes of spill
-# stores for each of their instances (m = 2, 4, 8), by library and kernel.
-# csrc/sweep.cu's forward kernel (one thread a scenario) is not held to it.
-NO_SPILL = {"multi_sweep": ("multi_sweep_kernel",),
-            "full_solve": ("full_solve_kernel",),
-            "sweep": ("unified_sweep_kernel", "backward_sweep_kernel")}
+# The group kernels must not spill: ptxas reports 0 bytes of spill stores
+# for each of their instances (m = 2, 4, 8 for the sweeps; n = 4, 8, 16 for
+# the Riccati backward), by library and kernel.
+SWEEP_MS, RICCATI_NS = {2, 4, 8}, {4, 8, 16}
+NO_SPILL = {"multi_sweep": {"multi_sweep_kernel": SWEEP_MS},
+            "full_solve": {"full_solve_kernel": SWEEP_MS},
+            "sweep": {"unified_sweep_kernel": SWEEP_MS,
+                      "backward_sweep_kernel": SWEEP_MS,
+                      "forward_sweep_kernel": SWEEP_MS},
+            "riccati": {"riccati_kernel": RICCATI_NS}}
 MPC_ROWS = {   # kernel -> (source, TPU kernel it replaces)
     "sampler": ("csrc/sampler.cu", "models/mpc/sampler_pallas.py:57"),
     "unified_sweep": ("csrc/sweep.cu", "models/mpc/sweep_pallas.py:460"),
@@ -185,7 +197,16 @@ FULL_BATCHES = ((4096, 10), (256, 20))
 # The Riccati kernel vs its plain version: both float32, FMA contraction
 # and the sum order of nvcc differ in the last bits along the horizon.
 RICCATI_TOL = 1e-4               # rtol = atol
-RICCATI_SHAPES = ((5, 6, 8, 6), (5, 4, 16, 6), (37, 5, 4, 6))  # (B,H,n,c)
+# (B, H, n, c) of the random checks. A block is one warp of 32 / n
+# scenarios, so each B but 1 leaves groups past the end of its last block.
+# The random dynamics (I + 0.2 N(0, 1), as the JAX package's kernel test
+# makes them) grow Vxx step over step, and past ~10 steps any two orders
+# of float32 operations part by more than RICCATI_TOL; the fused path's own
+# linearizations (I + dt J) stay well conditioned over RICCATI_LONG_H.
+RICCATI_SHAPES = ((5, 6, 8, 6), (5, 4, 16, 6), (37, 5, 4, 6), (1, 6, 16, 6),
+                  (3, 6, 16, 6))
+RICCATI_LONG_H, RICCATI_LONG_B = 200, 64
+RICCATI_NAN_BATCH = 64
 FUSED_BATCHES = ((4096, 3), (256, 3))      # (scenarios, timed steps)
 # One profiled step: reading the profile of a fused step (~46k aten ops)
 # takes seconds.
@@ -308,7 +329,8 @@ def bound(n_bytes: float, ops: float = 0.0) -> dict:
 
 def sweep_ops(m: int, h: int, b: int, backward=True, forward=True) -> float:
     """FP32 operations of one iLQR sweep's halves (a multiply-add counts
-    two), counted from the loops of csrc/sweep_steps.cuh. A Riccati step
+    two), counted from the recursion as the plain versions in
+    models/mpc/sweep.py write it. A Riccati step
     is dominated by fu^T Vxx, the fx sandwich and Qux^T K ((4c + 7) n^2),
     Quu and the Cholesky solves (2c^2 (2n + 1)); a forward step, per
     candidate, by K (p - p_nom) (2cn) and the dynamics."""
@@ -365,20 +387,21 @@ def phase_build() -> dict:
     log(f"[build] {sorted(reports)} built in {time.perf_counter() - t0:.1f} s")
     for name, text in reports.items():
         for line in text.splitlines():
-            inst = re.search(r"Compiling entry function '.*?ILi(\d+)E", line)
+            inst = re.search(r"Compiling entry function "
+                             r"'.*?([a-z_]+_kernel)ILi(\d+)E", line)
             if inst:
-                log(f"[build] {name}: instance m={inst.group(1)}")
+                log(f"[build] {name}: {inst.group(1)}<{inst.group(2)}>")
             elif "registers" in line or "spill" in line or "error" in line:
                 log(f"[build] {name}: {line.strip()}")
     for name, kernels in NO_SPILL.items():
         stores = spill_stores(reports[name])
-        for kernel in kernels:
+        for kernel, sizes in kernels.items():
             found = {e: n for e, n in stores.items() if kernel in e}
-            ms = {int(re.search(r"ILi(\d+)E", e).group(1)) for e in found}
-            if ms != {2, 4, 8} or any(found.values()):
+            got = {int(re.search(r"ILi(\d+)E", e).group(1)) for e in found}
+            if got != sizes or any(found.values()):
                 raise AssertionError(
                     f"{name}: ptxas spill stores of {kernel} {found}, want "
-                    f"0 bytes for each of its m = 2, 4, 8 instances")
+                    f"0 bytes for each of its {sorted(sizes)} instances")
     return reports
 
 
@@ -753,8 +776,6 @@ def phase_mpc_kernels(frames) -> dict:
         err = check_close(f"backward_sweep {tag}", ("K", "k"), gains,
                           plain_gains, MULTI_SWEEP_TOL)
         worst["backward_sweep"] = max(worst["backward_sweep"], err)
-        if (m, h, b) not in SWEEP_SHAPES:
-            continue
         err = check_close(
             f"forward_sweep {tag}", cand,
             sweep.forward_sweep(p0, ps, us, *plain_gains, *rest, **kw),
@@ -771,10 +792,15 @@ def phase_mpc_kernels(frames) -> dict:
     for form, call in unified.items():
         check_nan_batch(f"unified_sweep{form}", cand, call(*args, **kw),
                         plain, MULTI_SWEEP_TOL)
+    plain_gains = sweep.backward_sweep_plain(ps, us, *rest, **kw)
     check_nan_batch("backward_sweep", ("K", "k"),
-                    sweep.backward_sweep(ps, us, *rest, **kw),
-                    sweep.backward_sweep_plain(ps, us, *rest, **kw),
+                    sweep.backward_sweep(ps, us, *rest, **kw), plain_gains,
                     MULTI_SWEEP_TOL)
+    check_nan_batch(
+        "forward_sweep", cand,
+        sweep.forward_sweep(args[0], ps, us, *plain_gains, *rest, **kw),
+        sweep.forward_sweep_plain(args[0], ps, us, *plain_gains, *rest, **kw),
+        MULTI_SWEEP_TOL)
     check_long_horizon(frame, cand)
 
     args, kw = sweep_inputs(frame, M, H, 4096)
@@ -807,12 +833,16 @@ def phase_mpc_kernels(frames) -> dict:
             f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
         rows[name] = kernel_row(name, *MPC_ROWS[name], worst[name], ms,
                                 plain_ms, bnd, device_us=dev)
-    # Rows 11-12 at B=256 too (bench/sweep_kernels.py times both forms).
+    # Rows 10-12 at B=256 too (bench/sweep_kernels.py times both forms of
+    # the unified sweep).
     args, kw = sweep_inputs(frame, M, H, 256)
     kw.pop("sweeps")
+    gains = sweep.backward_sweep(*args[1:], **kw)
     for name, run in (
             ("unified_sweep", lambda: sweep.unified_sweep(*args, **kw)),
-            ("backward_sweep", lambda: sweep.backward_sweep(*args[1:], **kw))):
+            ("backward_sweep", lambda: sweep.backward_sweep(*args[1:], **kw)),
+            ("forward_sweep", lambda: sweep.forward_sweep(
+                *args[:3], *gains, *args[3:], **kw))):
         ms = cuda_time_ms(run, 20)
         dev = device_us(run, f"{name}_kernel", 5)
         log(f"[kernel] {name} m={M} H={H} B=256: kernel {ms:.4f} ms (device "
@@ -933,19 +963,20 @@ def full_solve_inputs(frame, m, h, b, sweeps, iters, relax):
     return (p0, ps, us, g, tgt, izd), kw
 
 
-def fused_riccati_inputs(frame, batch: int):
+def fused_riccati_inputs(frame, batch: int, m: int = M, h: int = H):
     """The inputs backward_batched receives on the fused path: one
-    control_step at ``batch`` scenarios with the wrapper watched; the last
-    sweep's (nonzero controls, stride-0 cost Hessians)."""
+    control_step at ``batch`` scenarios, m features, horizon h, on
+    ``frame``'s device, with the wrapper watched; the last sweep's (nonzero
+    controls, stride-0 cost Hessians)."""
     import torch
 
     from openmp_parallel_computing_tpu_torch.models.mpc import (
         VisualServoMPC, riccati_lanes)
     from openmp_parallel_computing_tpu_torch.utils.config import MPCConfig
 
-    cfg = MPCConfig(horizon=H, num_features=M, backend="fused",
+    cfg = MPCConfig(horizon=h, num_features=m, backend="fused",
                     edge_refresh="solve")
-    mpc = VisualServoMPC(cfg, "cuda")
+    mpc = VisualServoMPC(cfg, frame.device)
     scen = mpc.random_scenarios(batch, torch.Generator().manual_seed(11))
     seen = []
     orig = riccati_lanes.backward_batched
@@ -961,6 +992,25 @@ def fused_riccati_inputs(frame, batch: int):
     finally:
         riccati_lanes.backward_batched = orig
     return seen[-1]
+
+
+def zero_gain_rollout(frame, m: int, h: int, b: int):
+    """The zero-gain forward sweep as ``_SweepLanes.rollout_nominal`` calls
+    it above ROLLOUT_SCAN_MAX_BP (zero nominal, gains and edge gradient), on
+    ``sweep_inputs``'s scenarios: a callable returning its outputs."""
+    import functools
+
+    import torch
+
+    from openmp_parallel_computing_tpu_torch.models.mpc import sweep
+
+    args, kw = sweep_inputs(frame, m, h, b)
+    kw.pop("sweeps")
+    p0, ps, us, z, y, g, tgt, izd = args
+    K0 = torch.zeros((h, us.shape[1], 2 * m, b), device=frame.device)
+    return functools.partial(sweep.forward_sweep, p0, torch.zeros_like(ps),
+                             us, K0, torch.zeros_like(us), z, y,
+                             torch.zeros_like(g), tgt, izd, **kw)
 
 
 def random_riccati(rng, b: int, h: int, n: int, c: int):
@@ -1035,22 +1085,46 @@ def phase_solve_kernels(frames) -> dict:
     rng = np.random.default_rng(19)
     cases = {f"random B={b} H={h} n={n}": random_riccati(rng, b, h, n, c)
              for b, h, n, c in RICCATI_SHAPES}
-    main = fused_riccati_inputs(frame, 4096)
-    main_tag = f"fused path B=4096 H={H} n={2 * M}"
-    cases[main_tag] = main
+    fx, fu, *rest = cases["random B=5 H=4 n=16"]
+    cases["random B=5 H=4 n=16, strided fx and fu rows"] = (
+        fx.transpose(2, 3).contiguous().transpose(2, 3),
+        torch.stack([fu, fu], dim=-1).flatten(-2)[..., ::2], *rest)
+    fused = {b: fused_riccati_inputs(frame, b) for b, _ in FUSED_BATCHES}
+    for b, args in fused.items():
+        cases[f"fused path B={b} H={H} n={2 * M}"] = args
+    cases[f"fused path's steps repeated to H={RICCATI_LONG_H}, "
+          f"B={RICCATI_LONG_B}"] = long_riccati_inputs(
+              fused[256], RICCATI_LONG_B, RICCATI_LONG_H)
+    err, plain_ms = 0.0, None
     for tag, args in cases.items():
         got = riccati_lanes.backward_batched(*args)
-        plain, plain_ms = timed_call(
+        plain, ms = timed_call(
             lambda: riccati_lanes.backward_batched_plain(*args))
-        err = check_close(f"riccati_backward {tag}", ("K", "k"),
-                          [a.movedim(0, -1) for a in got],
-                          [a.movedim(0, -1) for a in plain], RICCATI_TOL)
+        err = max(err, check_close(f"riccati_backward {tag}", ("K", "k"),
+                                   [a.movedim(0, -1) for a in got],
+                                   [a.movedim(0, -1) for a in plain],
+                                   RICCATI_TOL))
+        if args is fused[4096]:
+            out, plain_ms = got, ms
+    args = nan_riccati_inputs(rng)
+    check_nan_batch("riccati_backward", ("K", "k"),
+                    [a.movedim(0, -1) for a in
+                     riccati_lanes.backward_batched(*args)],
+                    [a.movedim(0, -1) for a in
+                     riccati_lanes.backward_batched_plain(*args)],
+                    RICCATI_TOL)
+    main = fused[4096]
+    main_tag = f"fused path B=4096 H={H} n={2 * M}"
     log(f"[kernel] riccati_backward strides on the fused path: "
         f"{[tuple(a.stride()) for a in main]}")
-    out = got                       # the last case is the fused path's
-    ms = cuda_time_ms(lambda: riccati_lanes.backward_batched(*main), 20)
-    dev = device_us(lambda: riccati_lanes.backward_batched(*main),
-                    "riccati_kernel", 10)
+    times = {}
+    for b, args in fused.items():
+        call = functools.partial(riccati_lanes.backward_batched, *args)
+        times[b] = (cuda_time_ms(call, 20),
+                    device_us(call, "riccati_kernel", 10))
+        log(f"[kernel] riccati_backward fused path B={b}: kernel "
+            f"{times[b][0]:.4f} ms (device {times[b][1]} us)")
+    ms, dev = times[4096]
     bnd = bound(nbytes(*main, *out), riccati_ops(4096, H, 2 * M, 6))
     log(f"[kernel] riccati_backward {main_tag}: kernel {ms:.4f} ms (device "
         f"{dev} us), plain {plain_ms:.4f} ms (one call), bound "
@@ -1058,8 +1132,37 @@ def phase_solve_kernels(frames) -> dict:
         f"bytes, the stride-0 cost Hessians counted once)")
     rows["riccati_backward"] = kernel_row(
         "riccati_backward", *SOLVE_ROWS["riccati_backward"], err, ms,
-        plain_ms, bnd, device_us=dev)
+        plain_ms, bnd, device_us=dev, ms_b256=times[256][0],
+        device_us_b256=times[256][1])
     return rows
+
+
+def long_riccati_inputs(args, b: int, h: int):
+    """backward_batched inputs of the first ``b`` scenarios of ``args``
+    with their steps repeated to horizon ``h`` (the stride-0 cost Hessians
+    kept stride 0)."""
+    *steps, vx, vxx = args
+    out = []
+    for a in steps:
+        a = a[:b]
+        if a.stride(1) == 0:
+            out.append(a[:, :1].expand(b, h, *a.shape[2:]))
+        else:
+            reps = (1, -(-h // a.shape[1])) + (1,) * (a.dim() - 2)
+            out.append(a.repeat(*reps)[:, :h].contiguous())
+    return (*out, vx[:b], vxx[:b])
+
+
+def nan_riccati_inputs(rng):
+    """random_riccati inputs at RICCATI_NAN_BATCH scenarios, n = 16, with a
+    NaN in lx of scenario NAN_SCENARIOS[0] at step 2 (through Vx, k of
+    that scenario turns NaN from step 1 down, K stays finite) and in fx of
+    [1] at step 4 (a column of its K at step 4, then all of K and k)."""
+    b, h, n, c = RICCATI_NAN_BATCH, 6, 16, 6
+    fx, fu, lx, *rest = random_riccati(rng, b, h, n, c)
+    lx[NAN_SCENARIOS[0], 2, 5] = float("nan")
+    fx[NAN_SCENARIOS[1] % b, 4, 1, 2] = float("nan")
+    return (fx, fu, lx, *rest)
 
 
 class GateLog:

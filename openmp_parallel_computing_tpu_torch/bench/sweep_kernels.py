@@ -6,9 +6,12 @@ Times, at m=8, H=20, B=4096 and B=256, on inputs as the solver forms them:
 ``sweep.multi_sweep`` (one sweep); the per-sweep kernels
 ``sweep.unified_sweep`` (in the form its wrapper admits, and with the
 gains in global memory: ``*_global``), ``sweep.backward_sweep`` and
-``sweep.forward_sweep`` (on the backward's gains); and ``sweep.full_solve``
-at B=4096 (5 ADMM iterations x 1 sweep, relax 1.3). Each by CUDA events
-over ITERS launches after a warm-up and by torch.profiler device time;
+``sweep.forward_sweep`` (on the backward's gains); the batched Riccati
+backward ``riccati_lanes.backward_batched`` on the fused backend's own
+inputs (n = 2m); ``sweep.full_solve`` at B=4096 (5 ADMM iterations x 1
+sweep, relax 1.3); and the zero-gain ``sweep.forward_sweep`` at B=16384,
+the nominal rollout's kernel form (``forward_sweep_zero_*``). Each by CUDA
+events over ITERS launches after a warm-up and by torch.profiler device time;
 one JSON line with the package it timed and the card's name and power
 limit. The input builders and timing helpers are ``chip_smoke.py``'s,
 taken from this checkout. ``--root DIR`` imports the package from the
@@ -31,17 +34,21 @@ ROOT = Path(__file__).resolve().parents[2]
 ITERS = 20
 M, H = 8, 20
 BATCHES = (4096, 256)
+ZERO_BATCH = 16384
 FULL = dict(sweeps=1, admm_iters=5, relax=1.3)
 
 
-def cases(smoke, frame, m: int = M, h: int = H,
-          batches=BATCHES) -> dict:
+def cases(smoke, frame, m: int = M, h: int = H, batches=BATCHES,
+          zero_batch: int = ZERO_BATCH) -> dict:
     """``{key: (call, profiler kernel name part, CUDA-event iterations)}``
     of every timed kernel at (m, h) and each batch (full_solve at the
-    first), on ``frame``'s device, with the helpers of the ``chip_smoke``
-    module ``smoke``. The per-sweep kernels' profiler key,
-    ``sweep_kernel``, names them in this package and in earlier ones."""
-    from openmp_parallel_computing_tpu_torch.models.mpc import sweep
+    first, the zero-gain forward at ``zero_batch``), on ``frame``'s
+    device, with the helpers of the ``chip_smoke`` module ``smoke``. The
+    per-sweep kernels' profiler key, ``sweep_kernel``, and the Riccati
+    kernel's, ``riccati_kernel``, name them in this package and in earlier
+    ones."""
+    from openmp_parallel_computing_tpu_torch.models.mpc import (
+        riccati_lanes, sweep)
 
     out = {}
     for b in batches:
@@ -62,12 +69,19 @@ def cases(smoke, frame, m: int = M, h: int = H,
                                                us, *gains, *rest, **kw)}
         for name, call in calls.items():
             out[f"{name}_b{b}"] = (call, "sweep_kernel", ITERS)
+        out[f"riccati_backward_b{b}"] = (
+            functools.partial(riccati_lanes.backward_batched,
+                              *smoke.fused_riccati_inputs(frame, b, m, h)),
+            "riccati_kernel", ITERS)
     fargs, kw = smoke.full_solve_inputs(frame, m, h, batches[0],
                                         FULL["sweeps"], FULL["admm_iters"],
                                         FULL["relax"])
     out[f"full_solve_b{batches[0]}"] = (
         functools.partial(sweep.full_solve, *fargs, **kw), "full_solve_kernel",
         ITERS // 2)
+    out[f"forward_sweep_zero_b{zero_batch}"] = (
+        smoke.zero_gain_rollout(frame, m, h, zero_batch), "sweep_kernel",
+        ITERS)
     return out
 
 

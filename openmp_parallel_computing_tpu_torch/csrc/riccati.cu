@@ -1,209 +1,361 @@
-// Batched Riccati backward sweep, one group of n x n threads per scenario.
+// Batched Riccati backward sweep, a group of n lanes per scenario.
 //
 // Replaces the TPU kernel `_backward_kernel` of
 // openmp_parallel_computing_tpu/models/mpc/riccati_pallas.py (called through
 // `backward_batched`, the "fused" solver backend's backward). Per scenario,
 // from the terminal (Vx, Vxx) = (vx, vxx), over t = H-1 .. 0:
 //   Qx  = lx + fx^T Vx            Qu  = lu + fu^T Vx
-//   Qxx = lxx + fx^T (Vxx fx)     Quu = luu + fu^T (Vxx fu) + reg I
+//   Qxx = lxx + fx^T (Vxx fx)     Quu = luu + fu^T Vxx fu + reg I
 //   Qux = lux + fu^T (Vxx fx)
 //   [k | K] = -Quu^{-1} [Qu | Qux]  (one column Cholesky of the 6 x 6 Quu,
 //                                    triangular solves multiplying by 1/d)
 //   Vx  = Qx + Qux^T k            Vxx = Qxx + Qux^T K   (no symmetrization)
-// Every sum runs in the plain version's order (riccati_lanes.py).
 //
 // Inputs arrive batch-first, as the JAX package's: fx (B,H,n,n), fu
 // (B,H,n,c), lx (B,H,n), lu (B,H,c), lxx (B,H,n,n), luu (B,H,c,c), lux
 // (B,H,c,n), vx (B,n), vxx (B,n,n), each with its own element strides along
 // (b, t, i, j), 0 allowed: the solver passes the constant cost Hessians as
 // broadcasts (stride 0), and they are read without being copied. Outputs K
-// (B,H,c,n) and k (B,H,c) are contiguous. Any B.
+// (B,H,c,n) and k (B,H,c) are contiguous. n = 4, 8 or 16; any B >= 1 and
+// H >= 0.
 //
-// Design. A (b, t) block of a batch-first array is a few hundred contiguous
-// floats, so one thread per scenario would read addresses ~80 KB apart and
-// carry Vxx and its products past its registers (as multi_sweep.cu spills).
-// Here the n x n threads of one scenario each own one element (i, j) of the
-// n x n products, reading a row of each (b, t) block coalesced, and keep
-// Vxx, fx, fu and the Q blocks in shared memory (~5 KB at n = 16). The
-// n + 1 right-hand columns of the solve go to n + 1 threads, each
-// factorizing the 6 x 6 Quu in its registers (~70 operations, cheaper than a
-// barrier). A block of 256 threads holds 256 / n^2 scenarios. Four barriers
-// a step. What bounds it: the H steps of one scenario are sequential, each a
-// chain of dependent shared-memory sums, so the kernel is latency-bound; the
-// bytes (fx, fu read once; ~288 MB at B = 4096, H = 20, n = 16) set a bound
-// of ~0.09 ms.
+// What bounds it. At B = 4096, H = 20, n = 16 the work is 2.4 GFLOP of FP32
+// (~0.036 ms at 67 TFLOP/s) and the bytes ~156 MB (~0.047 ms at 3.35 TB/s),
+// but the H steps of a scenario are a serial chain: two 16-deep sums, the
+// Cholesky's 6 reciprocal square roots and its dependent updates, two
+// 6-deep triangular solves. So the kernel is bound by latency and by how
+// many scenarios an SM keeps in flight, and every barrier or shared-memory
+// load on the chain counts.
+//
+// Design. A scenario gets a group of n lanes, a block is one warp (two
+// scenarios at n = 16, four at 8, eight at 4), and the group synchronises
+// with __syncwarp only: no block barrier, so all the scenarios of an SM are
+// in flight at once. Lane k owns column k of every n x n product and keeps
+// Vxx[:, k] in registers. Each step it publishes Vxx[:, k], fx[:, k], fu's
+// row k and Vx[k] to a few KB of shared memory; then, three __syncwarp a
+// step,
+//   T[:, k] = Vxx fx[:, k]          columns of Vxx as float4s,
+//   W[k, :] = Vxx[k, :] fu          row k of Vxx across the columns,
+//   Quu = luu + fu^T W + reg I      21 entries spread over the lanes,
+//   Qux[:, k] = lux + fu^T T[:, k]  and Qu = lu + fu^T Vx, one loop,
+//   Qxx[:, k] = lxx + fx^T T[:, k]  columns of fx as float4s, the n sums
+//                                   advancing together,
+// so one shared load feeds four multiply-adds in the n x n products, and no
+// product is computed twice (against ~970 warp-wide loads a scenario-step
+// when a thread owned one element). Operands come back from shared memory
+// rather than staying in the registers that published them: a value held
+// across the step's long sums costs the scheduler more than the load. The
+// 6 x 6 Cholesky (sweep_common.cuh, shared with the sweep kernels, here with
+// rsqrtf for 1 / d) runs alike on every lane, and lane k solves both
+// right-hand sides: column k of K and the feed-forward k. The next step's
+// fx[:, k], fu row, lx, lu and lux[:, k] are loaded into registers while
+// this step computes, so no load from device memory starts a step. Every sum
+// runs in the plain version's order (riccati_lanes.py); nvcc contracts
+// a*b+c into FMA and rsqrtf is within 2 ulp, so the kernel is held to the
+// plain version within a tolerance. No tensor cores: TF32 keeps ~3 digits,
+// short of the 1e-4 the kernel is held to, and the FP32 work is not what
+// bounds it.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include <climits>
+#include <cstdlib>
+
+#include "sweep_common.cuh"
 
 namespace {
 
-constexpr int C = 6;             // control dimension
-constexpr int kThreads = 256;
+using sweep::C;
 
 enum { FX, FU, LX, LU, LXX, LUU, LUX, VX, VXX, kInputs };
 
 struct Args {
   const float* in[kInputs];
-  long long st[kInputs][4];      // element strides along (b, t, i, j)
+  long long sb[kInputs];         // element stride along b
+  int st[kInputs][3];            // element strides along (t, i, j)
   float* K;
   float* k;
   int B, H;
   float reg;
 };
 
-__device__ __forceinline__ float at(const Args& a, int w, long long b,
-                                    long long t, long long i, long long j) {
-  const long long* s = a.st[w];
-  return a.in[w][b * s[0] + t * s[1] + i * s[2] + j * s[3]];
+// Element (t, i, j) of input w for scenario b. Within a scenario the
+// offsets fit 32 bits (the launcher checks), which keeps the address
+// arithmetic of the unrolled loops out of 64-bit registers.
+__device__ __forceinline__ float at(const Args& a, int w, long long b, int t,
+                                    int i, int j) {
+  const int* s = a.st[w];
+  return a.in[w][b * a.sb[w] + (t * s[0] + i * s[1] + j * s[2])];
 }
 
+// A block is one warp of 32 / n scenarios. One scenario's shared memory, in
+// floats: the columns of Vxx, fx and T = Vxx fx (a column every P floats:
+// P = n + 4 puts the eight lanes of a float4 store phase on different
+// banks); the rows of fu and of W = Vxx fu and the columns of Qux, 8
+// floats each, controls 0-2 at 0-2 and 3-5 at 4-6 (two float4s, a half of
+// the controls each); Quu's lower triangle; Vx.
 template <int N>
-struct Shared {
-  float Vxx[N * N], fx[N * N], Vxx_fx[N * N];
-  float fu[N * C], Vxx_fu[N * C], Qux[C * N], K[C * N];
-  float Quu[C * C], Vx[N], Qu[C], kff[C];
+struct Geom {
+  static constexpr int S = 32 / N;            // scenarios a block
+  static constexpr int P = N + 4;
+  static constexpr int V = 0;
+  static constexpr int FXC = N * P;
+  static constexpr int T = 2 * N * P;
+  static constexpr int FU = 3 * N * P;
+  static constexpr int W = FU + 8 * N;
+  static constexpr int QUX = W + 8 * N;
+  static constexpr int QUU = QUX + 8 * N;     // 21 used of 24
+  static constexpr int VX = QUU + 24;
+  static constexpr int STRIDE = VX + N;       // a multiple of 4
+  static_assert(N == 4 || N == 8 || N == 16, "n must be 4, 8 or 16");
+};
+
+// Control c's place in an 8-float row: 0-2, then 4-6.
+__device__ __forceinline__ int slot(int c) { return c + (c >= 3); }
+
+// R consecutive floats of shared memory (R a multiple of 4), 16 bytes at a
+// time.
+template <int R>
+__device__ __forceinline__ void load_rows(const float* p, float* v) {
+#pragma unroll
+  for (int q = 0; q < R; q += 4) {
+    const float4 x = *reinterpret_cast<const float4*>(p + q);
+    v[q] = x.x; v[q + 1] = x.y; v[q + 2] = x.z; v[q + 3] = x.w;
+  }
+}
+
+template <int R>
+__device__ __forceinline__ void store_rows(float* p, const float* v) {
+#pragma unroll
+  for (int q = 0; q < R; q += 4)
+    *reinterpret_cast<float4*>(p + q) =
+        make_float4(v[q], v[q + 1], v[q + 2], v[q + 3]);
+}
+
+// What lane k reads of one step from device memory ahead of the step:
+// fx[:, k]; for each half hh of the work, three of fu's row k (controls
+// 3 hh .. 3 hh + 2) and the addend of that half's right-hand side
+// (lux[:, k] for Qux[:, k], lu for Qu); lx[k].
+template <int N>
+struct StepIn {
+  float fx[N], fu[2][3], add[2][C], lx;
 };
 
 template <int N>
-__global__ void __launch_bounds__(kThreads) riccati_kernel(Args a) {
-  constexpr int T = N * N;                 // threads per scenario
-  constexpr int S = kThreads / T;          // scenarios per block
-  __shared__ Shared<N> shared[S];
-  Shared<N>& sh = shared[threadIdx.x / T];
-  const int e = threadIdx.x % T;
-  const int i = e / N, j = e % N;          // the (i, j) this thread owns
-  const int b_raw = blockIdx.x * S + threadIdx.x / T;
+__device__ __forceinline__ StepIn<N> load_step(const Args& a, long long b,
+                                               int t, int k) {
+  StepIn<N> s;
+#pragma unroll
+  for (int i = 0; i < N; ++i) s.fx[i] = at(a, FX, b, t, i, k);
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) s.fu[hh][i] = at(a, FU, b, t, k, 3 * hh + i);
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      s.add[hh][c] = hh == 0 ? at(a, LUX, b, t, c, k) : at(a, LU, b, t, c, 0);
+  }
+  s.lx = at(a, LX, b, t, k, 0);
+  return s;
+}
+
+template <int N>
+__global__ void __launch_bounds__(32) riccati_kernel(Args a) {
+  using G = Geom<N>;
+  constexpr int P = G::P;
+  __shared__ __align__(16) float smem[G::S * G::STRIDE];
+  const int k = threadIdx.x % N;               // the column this lane owns
+  const int b_raw = blockIdx.x * G::S + threadIdx.x / N;
   const bool live = b_raw < a.B;
-  const long long b = live ? b_raw : a.B - 1;   // spare groups reread the last
+  const long long b = live ? b_raw : a.B - 1;  // a group past the end
+                                               // reruns the last, writes none
+  float* sm = smem + (threadIdx.x / N) * G::STRIDE;
+  float* Vs = sm + G::V;
+  float* fxs = sm + G::FXC;
+  float* Ts = sm + G::T;
+  float* fus = sm + G::FU;
+  float* ws = sm + G::W;
+  float* quxs = sm + G::QUX;
+  float* quus = sm + G::QUU;
+  float* vxs = sm + G::VX;
 
-  sh.Vxx[e] = at(a, VXX, b, 0, i, j);
-  if (e < N) sh.Vx[e] = at(a, VX, b, 0, e, 0);
-  __syncthreads();
+  float V[N];                                  // Vxx[:, k]
+#pragma unroll
+  for (int i = 0; i < N; ++i) V[i] = at(a, VXX, b, 0, i, k);
+  float Vx = at(a, VX, b, 0, k, 0);            // Vx[k]
 
+  StepIn<N> cur = load_step<N>(a, b, a.H - 1, k);
   for (int t = a.H - 1; t >= 0; --t) {
-    // ---- load this step's dynamics ---------------------------------------
-    sh.fx[e] = at(a, FX, b, t, i, j);
-    for (int x = e; x < N * C; x += T) sh.fu[x] = at(a, FU, b, t, x / C, x % C);
-    __syncthreads();
-    // ---- Vxx fx, Vxx fu, Qx, Qu ------------------------------------------
-    {
-      float s = sh.Vxx[i * N] * sh.fx[j];
+    const StepIn<N> nxt = load_step<N>(a, b, t > 0 ? t - 1 : 0, k);
+    // Publish Vxx[:, k], fx[:, k], fu's row k and Vx[k]. Every reader of
+    // these in the last step passed its second __syncwarp.
+    store_rows<N>(Vs + k * P, V);
+    store_rows<N>(fxs + k * P, cur.fx);
 #pragma unroll
-      for (int k = 1; k < N; ++k) s += sh.Vxx[i * N + k] * sh.fx[k * N + j];
-      sh.Vxx_fx[e] = s;
-    }
-    for (int x = e; x < N * C; x += T) {
-      const int r = x / C, c = x % C;
-      float s = sh.Vxx[r * N] * sh.fu[c];
+    for (int hh = 0; hh < 2; ++hh)
+      *reinterpret_cast<float4*>(fus + k * 8 + 4 * hh) =
+          make_float4(cur.fu[hh][0], cur.fu[hh][1], cur.fu[hh][2], 0.0f);
+    vxs[k] = Vx;
+    __syncwarp();
+
+    // Qx[k] = lx[k] + fx[:, k] . Vx; W[k, :] = Vxx[k, :] fu (row k of Vxx
+    // across its columns); T[:, k] = Vxx fx[:, k]. The operands come back
+    // from shared memory, not from the registers that published them: a
+    // value held across the step's long sums costs the scheduler more.
+    float sx = 0.0f, w[2][3], T[N];
 #pragma unroll
-      for (int k = 1; k < N; ++k) s += sh.Vxx[r * N + k] * sh.fu[k * C + c];
-      sh.Vxx_fu[x] = s;
-    }
-    float qx = 0.0f;
-    if (e < N) {
-      float s = sh.fx[e] * sh.Vx[0];
+    for (int j4 = 0; j4 < N; j4 += 4) {
+      const float4 f4 = *reinterpret_cast<const float4*>(fxs + k * P + j4);
+      const float4 v4 = *reinterpret_cast<const float4*>(vxs + j4);
+      const float fj4[4] = {f4.x, f4.y, f4.z, f4.w};
+      const float vj4[4] = {v4.x, v4.y, v4.z, v4.w};
 #pragma unroll
-      for (int k = 1; k < N; ++k) s += sh.fx[k * N + e] * sh.Vx[k];
-      qx = at(a, LX, b, t, e, 0) + s;
-    }
-    if (e < C) {
-      float s = sh.fu[e] * sh.Vx[0];
+      for (int jj = 0; jj < 4; ++jj) {
+        const int j = j4 + jj;
+        const float fj = fj4[jj], vkj = Vs[j * P + k];
+        float vr[N];
+        load_rows<N>(Vs + j * P, vr);
+        sx = j == 0 ? fj * vj4[jj] : sx + fj * vj4[jj];
 #pragma unroll
-      for (int k = 1; k < N; ++k) s += sh.fu[k * C + e] * sh.Vx[k];
-      sh.Qu[e] = at(a, LU, b, t, e, 0) + s;
-    }
-    __syncthreads();
-    // ---- Qxx (kept by its thread), Quu + reg I, Qux ----------------------
-    float qxx;
-    {
-      float s = sh.fx[i] * sh.Vxx_fx[j];
-#pragma unroll
-      for (int k = 1; k < N; ++k) s += sh.fx[k * N + i] * sh.Vxx_fx[k * N + j];
-      qxx = at(a, LXX, b, t, i, j) + s;
-    }
-    for (int x = e; x < C * C; x += T) {
-      const int c = x / C, d = x % C;
-      float s = sh.fu[c] * sh.Vxx_fu[d];
-#pragma unroll
-      for (int k = 1; k < N; ++k) s += sh.fu[k * C + c] * sh.Vxx_fu[k * C + d];
-      sh.Quu[x] = (at(a, LUU, b, t, c, d) + s) + (c == d ? a.reg : 0.0f);
-    }
-    for (int x = e; x < C * N; x += T) {
-      const int c = x / N, col = x % N;
-      float s = sh.fu[c] * sh.Vxx_fx[col];
-#pragma unroll
-      for (int k = 1; k < N; ++k)
-        s += sh.fu[k * C + c] * sh.Vxx_fx[k * N + col];
-      sh.Qux[x] = at(a, LUX, b, t, c, col) + s;
-    }
-    __syncthreads();
-    // ---- [k | K] = -Quu^{-1} [Qu | Qux], one column a thread -------------
-    if (e <= N) {
-      // Column Cholesky: L[q][r] (r >= q) holds column q, 1/d_q cached.
-      float L[C][C], inv_d[C];
-#pragma unroll
-      for (int q = 0; q < C; ++q) {
-#pragma unroll
-        for (int r = q; r < C; ++r) {
-          float s = sh.Quu[r * C + q];
-#pragma unroll
-          for (int p = 0; p < q; ++p) s -= L[p][r] * L[p][q];
-          L[q][r] = s;
+        for (int hh = 0; hh < 2; ++hh) {
+          const float4 u =
+              *reinterpret_cast<const float4*>(fus + j * 8 + 4 * hh);
+          w[hh][0] = j == 0 ? vkj * u.x : w[hh][0] + vkj * u.x;
+          w[hh][1] = j == 0 ? vkj * u.y : w[hh][1] + vkj * u.y;
+          w[hh][2] = j == 0 ? vkj * u.z : w[hh][2] + vkj * u.z;
         }
-        const float rr = 1.0f / sqrtf(L[q][q]);
 #pragma unroll
-        for (int r = q; r < C; ++r) L[q][r] *= rr;
-        inv_d[q] = rr;
+        for (int i = 0; i < N; ++i)
+          T[i] = j == 0 ? vr[i] * fj : T[i] + vr[i] * fj;
       }
-      float Y[C], X[C];
+    }
+    const float Qx = cur.lx + sx;
 #pragma unroll
-      for (int r = 0; r < C; ++r) {
-        float s = e == 0 ? sh.Qu[r] : sh.Qux[r * N + e - 1];
+    for (int hh = 0; hh < 2; ++hh)
+      *reinterpret_cast<float4*>(ws + k * 8 + 4 * hh) =
+          make_float4(w[hh][0], w[hh][1], w[hh][2], 0.0f);
+    store_rows<N>(Ts + k * P, T);
+    __syncwarp();
+
+    // Quu = luu + fu^T W + reg I: entry e = k, k + n, ... of the lower
+    // triangle (row-major) to a lane.
 #pragma unroll
-        for (int p = 0; p < r; ++p) s -= L[p][r] * Y[p];
-        Y[r] = s * inv_d[r];
+    for (int e0 = 0; e0 < 21; e0 += N) {
+      const int e = e0 + k < 21 ? e0 + k : 20;   // a spare lane redoes 20
+      const int c = (e >= 1) + (e >= 3) + (e >= 6) + (e >= 10) + (e >= 15);
+      const int d = e - c * (c + 1) / 2;
+      const int sc = slot(c), sd = slot(d);
+      float q = fus[sc] * ws[sd];
+#pragma unroll
+      for (int j = 1; j < N; ++j) q += fus[j * 8 + sc] * ws[j * 8 + sd];
+      q = (at(a, LUU, b, t, c, d) + q) + (c == d ? a.reg : 0.0f);
+      if (e0 + k < 21) quus[e] = q;
+    }
+    // The two right-hand sides: rhs[0] = Qux[:, k] = lux[:, k] +
+    // fu^T T[:, k], rhs[1] = Qu = lu + fu^T Vx.
+    float rhs[2][C];
+#pragma unroll
+    for (int j4 = 0; j4 < N; j4 += 4) {
+      float vj4[2][4];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const float* vec = hh == 0 ? Ts + k * P : vxs;
+        const float4 v4 = *reinterpret_cast<const float4*>(vec + j4);
+        vj4[hh][0] = v4.x; vj4[hh][1] = v4.y;
+        vj4[hh][2] = v4.z; vj4[hh][3] = v4.w;
       }
 #pragma unroll
-      for (int r = C - 1; r >= 0; --r) {
-        float s = Y[r];
+      for (int jj = 0; jj < 4; ++jj) {
+        const int j = j4 + jj;
+        const float4 u0 = *reinterpret_cast<const float4*>(fus + j * 8);
+        const float4 u1 = *reinterpret_cast<const float4*>(fus + j * 8 + 4);
+        const float f[C] = {u0.x, u0.y, u0.z, u1.x, u1.y, u1.z};
 #pragma unroll
-        for (int p = r + 1; p < C; ++p) s -= L[r][p] * X[p];
-        X[r] = s * inv_d[r];
+        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+          for (int c = 0; c < C; ++c)
+            rhs[hh][c] = j == 0 ? f[c] * vj4[hh][jj]
+                                : rhs[hh][c] + f[c] * vj4[hh][jj];
       }
-      const size_t row = ((size_t)b * a.H + t) * C;
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int c = 0; c < C; ++c) rhs[hh][c] = cur.add[hh][c] + rhs[hh][c];
+    // Qxx[:, k] = lxx[:, k] + fx^T T[:, k], fx's columns and T four rows at
+    // a time, so that the n sums advance together.
+    float Qxx[N];
+#pragma unroll
+    for (int j4 = 0; j4 < N; j4 += 4) {
+      const float4 t4 = *reinterpret_cast<const float4*>(Ts + k * P + j4);
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        const float4 f4 = *reinterpret_cast<const float4*>(fxs + i * P + j4);
+        float q = j4 == 0 ? f4.x * t4.x : Qxx[i] + f4.x * t4.x;
+        q += f4.y * t4.y;
+        q += f4.z * t4.z;
+        Qxx[i] = q + f4.w * t4.w;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < N; ++i) Qxx[i] = at(a, LXX, b, t, i, k) + Qxx[i];
+    *reinterpret_cast<float4*>(quxs + k * 8) =
+        make_float4(rhs[0][0], rhs[0][1], rhs[0][2], 0.0f);
+    *reinterpret_cast<float4*>(quxs + k * 8 + 4) =
+        make_float4(rhs[0][3], rhs[0][4], rhs[0][5], 0.0f);
+    __syncwarp();
+
+    // [k | K[:, k]] = -Quu^-1 [Qu | Qux[:, k]], the factor alike on every
+    // lane.
+    float q24[24], Quu[C][C];
+    load_rows<24>(quus, q24);
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+#pragma unroll
+      for (int d = 0; d <= c; ++d) Quu[c][d] = q24[c * (c + 1) / 2 + d];
+    float Lc[C][C], inv_d[C], X[2][C], Kc[C], kff[C];
+    sweep::chol_factor<true>(Quu, Lc, inv_d);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      sweep::chol_solve(Lc, inv_d, rhs[hh], X[hh]);
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      Kc[c] = -X[0][c];
+      kff[c] = -X[1][c];
+    }
+    const size_t row = ((size_t)b * a.H + t) * C;
+    if (live) {
 #pragma unroll
       for (int c = 0; c < C; ++c) {
-        if (e == 0) {
-          sh.kff[c] = -X[c];
-          if (live) a.k[row + c] = -X[c];
-        } else {
-          sh.K[c * N + e - 1] = -X[c];
-          if (live) a.K[(row + c) * N + e - 1] = -X[c];
-        }
+        a.K[(row + c) * N + k] = Kc[c];
+        if (c % N == k) a.k[row + c] = kff[c];
       }
     }
-    __syncthreads();
-    // ---- value update ------------------------------------------------------
-    if (e < N) {
-      float s = sh.Qux[e] * sh.kff[0];
-#pragma unroll
-      for (int c = 1; c < C; ++c) s += sh.Qux[c * N + e] * sh.kff[c];
-      sh.Vx[e] = qx + s;
-    }
+
+    // Vx[k] = Qx[k] + Qux[:, k] . k; Vxx[:, k] = Qxx[:, k] + Qux^T K[:, k].
     {
-      float s = sh.Qux[i] * sh.K[j];
+      float s = rhs[0][0] * kff[0];
 #pragma unroll
-      for (int c = 1; c < C; ++c) s += sh.Qux[c * N + i] * sh.K[c * N + j];
-      sh.Vxx[e] = qxx + s;
+      for (int c = 1; c < C; ++c) s += rhs[0][c] * kff[c];
+      Vx = Qx + s;
     }
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const float4 q0 = *reinterpret_cast<const float4*>(quxs + i * 8);
+      const float4 q1 = *reinterpret_cast<const float4*>(quxs + i * 8 + 4);
+      const float q[C] = {q0.x, q0.y, q0.z, q1.x, q1.y, q1.z};
+      float s = q[0] * Kc[0];
+#pragma unroll
+      for (int c = 1; c < C; ++c) s += q[c] * Kc[c];
+      V[i] = Qxx[i] + s;
+    }
+    cur = nxt;
   }
 }
 
 template <int N>
 int launch(const Args& a, cudaStream_t stream) {
-  constexpr int S = kThreads / (N * N);
-  riccati_kernel<N><<<(a.B + S - 1) / S, kThreads, 0, stream>>>(a);
+  constexpr int S = Geom<N>::S;
+  if (a.H == 0) return 0;                       // no step, no output
+  riccati_kernel<N><<<(a.B + S - 1) / S, 32, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -220,7 +372,13 @@ extern "C" int riccati_backward_launch(
   const long long* st = (const long long*)strides;
   for (int w = 0; w < kInputs; ++w) {
     a.in[w] = (const float*)in[w];
-    for (int d = 0; d < 4; ++d) a.st[w][d] = st[4 * w + d];
+    a.sb[w] = st[4 * w];
+    long long reach = 0;                        // the largest offset in b
+    for (int d = 1; d < 4; ++d) {
+      a.st[w][d - 1] = (int)st[4 * w + d];
+      reach += (d == 1 ? H : n) * llabs(st[4 * w + d]);
+    }
+    if (reach > INT_MAX) return (int)cudaErrorInvalidValue;
   }
   a.K = (float*)K;
   a.k = (float*)k;

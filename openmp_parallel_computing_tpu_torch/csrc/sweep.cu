@@ -18,13 +18,13 @@
 // J (A, B) with the terminal terms, non-finite costs as they come; the
 // first-wins pick stays outside, as in the JAX solver.
 //
-// The unified and backward kernels run the thread-group body of
-// csrc/sweep_group.cuh, the recursion multi_sweep.cu and full_solve.cu run:
-// a group of n = 2m threads a scenario, one-warp blocks (two scenarios at
-// m = 8), every operand in registers or a few hundred bytes of shared
-// scratch, no spills. The backward writes the gains straight to its (H, c,
-// n, B) and (H, c, B) outputs; lane k stores column k of K. The unified
-// kernel keeps them in the scenario's shared memory where a block's
+// All three run the thread-group body of csrc/sweep_group.cuh, the
+// recursion multi_sweep.cu and full_solve.cu run: a group of n = 2m threads
+// a scenario, one-warp blocks (two scenarios at m = 8), every operand in
+// registers or a few hundred bytes of shared scratch, no spills. The
+// backward writes the gains straight to its (H, c, n, B) and (H, c, B)
+// outputs; lane k stores column k of K. The unified kernel keeps them in
+// the scenario's shared memory where a block's
 // `unified_sweep_smem_bytes(m, H)` fits the card (the wrapper decides, by
 // `sweep.group_sweep_fits`), and otherwise in global scratch the wrapper
 // allocates (any horizon: H = 400 at m = 8 needs 335,232 B a block in
@@ -32,7 +32,11 @@
 // back after the backward's last __syncwarp, which orders the group's
 // global stores before its loads. With the gains in global memory a
 // scenario's shared memory is ~1.2 KB, so registers, not shared memory,
-// set how many groups an SM holds.
+// set how many groups an SM holds. The forward kernel is the unified
+// kernel's forward on read-only gains (GlobalGains<M, const float>): the
+// group splits into the four candidates' runs of m / 2 lanes, each run
+// writing its candidate's trajectory, controls and cost; it needs no
+// shared memory.
 //
 // What bounds them on Hopper, at B = 4096, H = 20, m = 8: the work is
 // ~1 GFLOP of FP32 for the unified sweep (~15 us at 67 TFLOP/s); its inputs
@@ -43,21 +47,11 @@
 // K (p - p_nom) and the costs are taken in a butterfly order, and nvcc
 // contracts a*b+c into FMA, so the kernels are held to their plain versions
 // within a tolerance.
-//
-// The forward kernel still runs one thread a scenario on
-// csrc/sweep_steps.cuh (the steps of `_forward_step`), in blocks of 32.
 
 #include "sweep_group.cuh"
-#include "sweep_steps.cuh"
 
 namespace {
 
-using sweep::A;
-using sweep::C;
-using sweep::kThreads;
-using sweep::lane;
-using sweep::load_row;
-using sweep::store_row;
 using sweep_group::Arrays;
 using sweep_group::Geom;
 using sweep_group::GlobalGains;
@@ -128,69 +122,26 @@ int launch_backward(const Arrays& X, float* K, float* k, cudaStream_t s) {
   return launch_group<M>(backward_sweep_kernel<M>, 0, X, K, k, s);
 }
 
-// -- the forward alone: one thread a scenario (csrc/sweep_steps.cuh) -------
-
-struct Params {
-  int H, B;
-  sweep::Weights W;
-};
-
-struct In {
-  const float *p0, *ps, *us, *z, *y, *g, *target, *izd, *K, *k;
-};
-
-struct Out {
-  float *ps_c, *us_c, *J;
-};
+// The forward alone, on the gains (H, c, n, B) and (H, c, B) the caller
+// gives; every candidate's outputs written.
+template <int M>
+__global__ void __launch_bounds__(32)
+forward_sweep_kernel(Arrays X, const float* K, const float* k) {
+  extern __shared__ float4 smem4[];            // none: the gains are global
+  const Layout Lo = sweep_group::layout(M, 0, false);
+  const Place me = sweep_group::place<M>(reinterpret_cast<float*>(smem4),
+                                         Lo, (int)X.B);
+  const GlobalGains<M, const float> Kg{K + me.b, k + me.b, X.B, me.live};
+  sweep_group::forward<M>(X, me, Lo, sweep::alpha_of(me.g / Geom<M>::L),
+                          false, false, &Kg);
+}
 
 template <int M>
-__global__ void __launch_bounds__(kThreads)
-forward_sweep_kernel(In in, Out out, Params P) {
-  constexpr int N = 2 * M;
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= P.B) return;
-  const size_t B = (size_t)P.B;
-  const int H = P.H;
-  const sweep::Weights& W = P.W;
-  float tgt[N], iz[M], p0[N], pa[A][N], J[A];
-  load_row<N>(in.target, 0, B, b, tgt);
-  load_row<M>(in.izd, 0, B, b, iz);
-  load_row<N>(in.p0, 0, B, b, p0);
-#pragma unroll
-  for (int a = 0; a < A; ++a) {
-    J[a] = 0.0f;
-#pragma unroll
-    for (int i = 0; i < N; ++i) pa[a][i] = p0[i];
-    store_row<N>(out.ps_c, a, B, b, p0);             // row 0, candidate a
-  }
-  for (int tau = 0; tau < H; ++tau) {
-    float pn[N], un[C], zt[C], yt[C], gt[N], kt[C];
-    load_row<N>(in.ps, tau, B, b, pn);
-    load_row<N>(in.g, tau, B, b, gt);
-    load_row<C>(in.us, tau, B, b, un);
-    load_row<C>(in.z, tau, B, b, zt);
-    load_row<C>(in.y, tau, B, b, yt);
-    load_row<C>(in.k, tau, B, b, kt);
-    const float* Kt = in.K + lane(tau * C, 0, N, B, b);
-#pragma unroll
-    for (int a = 0; a < A; ++a) {
-      float ua[C], nxt[N];
-      J[a] = J[a] + sweep::cand_step<M>(sweep::alpha_of(a), pa[a], pn, un,
-                                        kt, Kt, B, zt, yt, gt, tgt, iz, W,
-                                        ua, nxt);
-#pragma unroll
-      for (int i = 0; i < N; ++i) pa[a][i] = nxt[i];
-      store_row<C>(out.us_c, tau * A + a, B, b, ua);
-      store_row<N>(out.ps_c, (tau + 1) * A + a, B, b, nxt);
-    }
-  }
-  float pterm[N], gterm[N];
-  load_row<N>(in.ps, H, B, b, pterm);
-  load_row<N>(in.g, H, B, b, gterm);
-#pragma unroll
-  for (int a = 0; a < A; ++a)
-    out.J[lane(0, a, A, B, b)] =
-        sweep::add_terminal<M>(J[a], pa[a], pterm, gterm, tgt, W);
+int launch_forward(const Arrays& X, const float* K, const float* k,
+                   cudaStream_t stream) {
+  const dim3 grid((unsigned)((X.B + Geom<M>::S - 1) / Geom<M>::S));
+  forward_sweep_kernel<M><<<grid, 32, 0, stream>>>(X, K, k);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -255,22 +206,17 @@ extern "C" int forward_sweep_launch(
     void* J, int H, int B, float q, float r, float rho, float qe, float dt,
     void* stream) {
   if (H < 1 || B < 1) return (int)cudaErrorInvalidValue;
-  const In in{(const float*)p0, (const float*)ps, (const float*)us,
-              (const float*)z, (const float*)y, (const float*)g,
-              (const float*)target, (const float*)inv_depth, (const float*)K,
-              (const float*)k};
-  const Out out{(float*)ps_c, (float*)us_c, (float*)J};
-  const Params P{H, B, {q, r, rho, qe, dt, 0.0f}};
-  const dim3 grid((P.B + kThreads - 1) / kThreads);
+  Arrays X = group_arrays(p0, ps, us, z, y, g, target, inv_depth, H, B,
+                          {q, r, rho, qe, dt, 0.0f});
+  X.ps_c = (float*)ps_c;
+  X.us_c = (float*)us_c;
+  X.J = (float*)J;
+  const float *Kf = (const float*)K, *kf = (const float*)k;
   cudaStream_t s = (cudaStream_t)stream;
   switch (m) {
-    case 2: forward_sweep_kernel<2><<<grid, kThreads, 0, s>>>(in, out, P);
-            break;
-    case 4: forward_sweep_kernel<4><<<grid, kThreads, 0, s>>>(in, out, P);
-            break;
-    case 8: forward_sweep_kernel<8><<<grid, kThreads, 0, s>>>(in, out, P);
-            break;
+    case 2: return launch_forward<2>(X, Kf, kf, s);
+    case 4: return launch_forward<4>(X, Kf, kf, s);
+    case 8: return launch_forward<8>(X, Kf, kf, s);
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }

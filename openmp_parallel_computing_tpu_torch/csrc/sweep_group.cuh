@@ -1,9 +1,9 @@
 // The iLQR sweep on a thread group per scenario, for csrc/multi_sweep.cu,
-// csrc/full_solve.cu and the unified and backward kernels of csrc/sweep.cu:
-// one source of the recursion for all four, as `_backward_step`,
-// `_forward_cand_step`, `_terminal_cost_accum` and `_select_winner` of
-// openmp_parallel_computing_tpu/models/mpc/sweep_pallas.py are for the TPU
-// kernels.
+// csrc/full_solve.cu and the unified, backward and forward kernels of
+// csrc/sweep.cu: one source of the recursion for all five, as
+// `_backward_step`, `_forward_cand_step`, `_terminal_cost_accum` and
+// `_select_winner` of openmp_parallel_computing_tpu/models/mpc/
+// sweep_pallas.py are for the TPU kernels.
 //
 // A scenario with m features (state n = 2m, split order [x_0..x_{m-1},
 // y_0..y_{m-1}]) gets a group of G = n threads inside one warp (16 at m = 8,
@@ -155,12 +155,14 @@ struct Place {
 // backward stores a step's gains through `put` (thread i gives column i of
 // K, lane c mod n gives k[c]: a group of n = 4 lanes at m = 2 has fewer
 // lanes than k; a group past the end of the batch stores nothing); the
-// forward reads them through `K_at` and `k_row`.
-template <int M>
+// forward reads them through `K_at` and `k_row`. With T = const float the
+// gains are read-only (the forward kernel's inputs): `put` is never
+// instantiated for them.
+template <int M, typename T = float>
 struct GlobalGains {
   static constexpr int N = 2 * M;
-  float* K;           // &K[0][0][0][b]
-  float* k;           // &k[0][0][b]
+  T* K;               // &K[0][0][0][b]
+  T* k;               // &k[0][0][b]
   size_t B;
   bool live;
 
@@ -185,28 +187,6 @@ struct GlobalGains {
 __device__ __forceinline__ float y_at(const Arrays& X, const Place& me,
                                       const Layout& Lo, int t, int c) {
   return X.y ? X.y[at(t, c, C, X.B, me.b)] : me.sm[Lo.y + t * C + c];
-}
-
-// x = L^-1 applied twice: the solve of Quu x = rhs with the column Cholesky
-// factor (L[j][i], i >= j, and 1 / d_j), forward then back substitution.
-__device__ __forceinline__ void chol_solve(const float (&L)[C][C],
-                                           const float (&inv_d)[C],
-                                           const float* rhs, float* X) {
-  float Y[C];
-#pragma unroll
-  for (int i = 0; i < C; ++i) {
-    float s = rhs[i];
-#pragma unroll
-    for (int pp = 0; pp < i; ++pp) s -= L[pp][i] * Y[pp];
-    Y[i] = s * inv_d[i];
-  }
-#pragma unroll
-  for (int i = C - 1; i >= 0; --i) {
-    float s = Y[i];
-#pragma unroll
-    for (int pp = i + 1; pp < C; ++pp) s -= L[i][pp] * X[pp];
-    X[i] = s * inv_d[i];
-  }
 }
 
 // The Riccati backward over tau = H-1 .. 0 about the nominal, with the ADMM
@@ -300,20 +280,7 @@ __device__ __forceinline__ void backward(const Arrays& X, const Place& me,
 
     // Column Cholesky of Quu, alike on every lane: L[i][j] = Lc[j][i].
     float Lc[C][C], inv_d[C];
-#pragma unroll
-    for (int jj = 0; jj < C; ++jj) {
-#pragma unroll
-      for (int i = jj; i < C; ++i) {
-        float s = Quu[i][jj];
-#pragma unroll
-        for (int p = 0; p < jj; ++p) s -= Lc[p][i] * Lc[p][jj];
-        Lc[jj][i] = s;
-      }
-      const float rr = 1.0f / sqrtf(Lc[jj][jj]);
-#pragma unroll
-      for (int i = jj; i < C; ++i) Lc[jj][i] *= rr;
-      inv_d[jj] = rr;
-    }
+    sweep::chol_factor(Quu, Lc, inv_d);
 
     // Qux[:, k] = U fx[:, k]; the gains k = -Quu^-1 Qu, K[:, k] =
     // -Quu^-1 Qux[:, k].
@@ -323,8 +290,8 @@ __device__ __forceinline__ void backward(const Arrays& X, const Place& me,
       const float up = __shfl_xor_sync(kWarp, U[c], M);
       Qux[c] = (top ? U[c] : up) * c1 + (top ? up : U[c]) * c2;
     }
-    chol_solve(Lc, inv_d, Qu, kff);
-    chol_solve(Lc, inv_d, Qux, Kc);
+    sweep::chol_solve(Lc, inv_d, Qu, kff);
+    sweep::chol_solve(Lc, inv_d, Qux, Kc);
 #pragma unroll
     for (int c = 0; c < C; ++c) {
       kff[c] = -kff[c];
@@ -410,7 +377,7 @@ __device__ __forceinline__ Row<M> load_row(const Arrays& X, const Place& me,
 // augmentation, linearized edge term), the clipped Euler step; then the
 // terminal tracking and edge terms. Returns the candidate's cost, alike on
 // the run's lanes. The gains are read from shared memory, or from `Kg`
-// where it is given.
+// (a GlobalGains, writable or read-only) where it is given.
 // - With `replay` every step ends at a __syncwarp, after which run 0 of a
 //   live group with `write` puts the trajectory over the nominal (each step
 //   has read its nominal rows before any lane writes).
@@ -418,11 +385,11 @@ __device__ __forceinline__ Row<M> load_row(const Arrays& X, const Place& me,
 //   candidate a into X.ps_c (row 0 = p0) and its controls c = l mod L into
 //   X.us_c, and the run's lane 0 the cost into X.J[a], non-finite or not; a
 //   group past the end of the batch writes nothing.
-template <int M>
+template <int M, class Gains = GlobalGains<M>>
 __device__ __forceinline__ float forward(const Arrays& X, const Place& me,
                                          const Layout& Lo, float alpha,
                                          bool replay, bool write,
-                                         const GlobalGains<M>* Kg = nullptr) {
+                                         const Gains* Kg = nullptr) {
   constexpr int N = 2 * M, L = Geom<M>::L;
   const int l = me.g % L, b = me.b, H = X.H;
   const size_t B = X.B;

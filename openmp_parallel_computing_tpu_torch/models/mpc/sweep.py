@@ -15,13 +15,12 @@ nominal, so "did anything improve" is the argmin over the candidates.
 Each wrapper launches its kernel on CUDA tensors and runs its ``*_plain``
 version, built from the helpers below, on CPU tensors; each counts its
 launches in ``<wrapper>.launches``. ``csrc/multi_sweep.cu``,
-``csrc/full_solve.cu`` and the unified and backward entry points of
-``csrc/sweep.cu`` run a thread group a scenario on ``csrc/sweep_group.cuh``:
-multi_sweep and full_solve with the gains in shared memory and no global
-scratch, the backward with the gains written to its outputs, the unified
-sweep in shared memory where ``group_sweep_fits`` admits it and in global
-scratch otherwise. The forward entry point of ``csrc/sweep.cu`` runs a
-thread a scenario on ``csrc/sweep_steps.cuh``.
+``csrc/full_solve.cu`` and the three entry points of ``csrc/sweep.cu`` run
+a thread group a scenario on ``csrc/sweep_group.cuh``: multi_sweep and
+full_solve with the gains in shared memory and no global scratch, the
+backward with the gains written to its outputs, the unified sweep in
+shared memory where ``group_sweep_fits`` admits it and in global scratch
+otherwise, the forward reading the gains it is given from global memory.
 """
 
 from __future__ import annotations

@@ -155,17 +155,19 @@ def test_chip_smoke_sweep_inputs_drive_the_sweeps(frame):
 def test_sweep_kernels_bench_cases_run_on_the_cpu(frame):
     """bench/sweep_kernels.py's cases at a small size: every sweep kernel
     (multi_sweep, the unified sweep in its admitted form and with the gains
-    in global memory, backward, forward) at each batch, full_solve at the
-    first; each call runs (the plain versions on the CPU, where both
-    unified forms give the same bits), and forcing the global form leaves
-    the admission as it was."""
+    in global memory, backward, forward) and the batched Riccati backward
+    on the fused path's inputs at each batch, full_solve at the first, the
+    zero-gain forward at its own batch; each call runs (the plain versions
+    on the CPU, where both unified forms give the same bits), and forcing
+    the global form leaves the admission as it was."""
     smoke = _chip_smoke()
     admit = sweep.group_sweep_fits
-    got = sweep_kernels.cases(smoke, frame, m=2, h=3, batches=(5, 3))
+    got = sweep_kernels.cases(smoke, frame, m=2, h=3, batches=(5, 3),
+                              zero_batch=7)
     names = ("multi_sweep", "unified_sweep", "unified_sweep_global",
-             "backward_sweep", "forward_sweep")
+             "backward_sweep", "forward_sweep", "riccati_backward")
     assert set(got) == ({f"{n}_b{b}" for n in names for b in (5, 3)}
-                        | {"full_solve_b5"})
+                        | {"full_solve_b5", "forward_sweep_zero_b7"})
     outs = {}
     for key, (call, kernel, iters) in got.items():
         outs[key] = call()
@@ -177,6 +179,14 @@ def test_sweep_kernels_bench_cases_run_on_the_cpu(frame):
         assert all(torch.equal(a, c) for a, c in zip(
             outs[f"unified_sweep_b{b}"], outs[f"unified_sweep_global_b{b}"]))
         assert outs[f"unified_sweep_b{b}"][0].shape == (4, 4, 4, b)
+        K, k = outs[f"riccati_backward_b{b}"]
+        assert K.shape == (b, 3, 6, 4) and k.shape == (b, 3, 6)
+        assert got[f"riccati_backward_b{b}"][1] == "riccati_kernel"
+    ps_c, us_c, _ = outs["forward_sweep_zero_b7"]   # zero gains: every
+    assert ps_c.shape == (4, 4, 4, 7)                # candidate the rollout
+    for a in range(1, 4):
+        assert torch.equal(ps_c[:, a], ps_c[:, 0])
+        assert torch.equal(us_c[:, a], us_c[:, 0])
 
 
 def test_sweep_kernels_bench_needs_a_card():

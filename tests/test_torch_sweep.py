@@ -323,16 +323,15 @@ def test_sweep_wrappers_check_inputs():
 
 
 @pytest.mark.parametrize("header, users", [
-    ("sweep_common.cuh", ("multi_sweep", "full_solve", "sweep")),
+    ("sweep_common.cuh", ("multi_sweep", "full_solve", "sweep", "riccati")),
     ("sweep_group.cuh", ("multi_sweep", "full_solve", "sweep")),
-    ("sweep_steps.cuh", ("sweep",)),
 ])
 def test_sweep_kernels_rebuild_when_the_shared_header_changes(
         tmp_path, monkeypatch, header, users):
     """multi_sweep.cu, full_solve.cu and sweep.cu include sweep_group.cuh,
-    sweep.cu also sweep_steps.cuh (its forward kernel), and all three
-    sweep_common.cuh: editing a header changes the names of exactly the
-    libraries that include it (so none reuses a stale build)."""
+    and those three and riccati.cu sweep_common.cuh (the dynamics and the
+    6 x 6 Cholesky solve): editing a header changes the names of exactly
+    the libraries that include it (so none reuses a stale build)."""
     import shutil
 
     from openmp_parallel_computing_tpu_torch import _build
@@ -340,7 +339,7 @@ def test_sweep_kernels_rebuild_when_the_shared_header_changes(
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", csrc)
-    names = ("multi_sweep", "full_solve", "sweep", "sampler")
+    names = ("multi_sweep", "full_solve", "sweep", "riccati", "sampler")
     before = {n: _build._target(n)[0].name for n in names}
     path = csrc / header
     for n in names:

@@ -12,8 +12,10 @@ Any failure raises and the script exits non-zero.
    seconds it took and each kernel's ptxas register/spill report; fails
    if ptxas reports spill stores for an instance (m = 2, 4, 8) of the
    group-sweep kernels (multi_sweep, full_solve, and the unified, backward
-   and forward kernels of csrc/sweep.cu) or (n = 4, 8, 16) of the batched
-   Riccati kernel.
+   and forward kernels of csrc/sweep.cu), (n = 4, 8, 16) of the batched
+   Riccati kernel, or of the row-streaming stencils (conv3x3's twelve
+   type/mode instances and its blur instance; the edge pass for C = 3,
+   4).
 3. Kernel vs plain: each kernel against its plain PyTorch version on the
    same inputs at the shapes the main path gives it, with both times and
    the least time the card could take (``bound``). The perception kernel
@@ -40,8 +42,14 @@ Any failure raises and the script exits non-zero.
    10-12 timed at B=4096 and 256. The image kernels
    (grayscale, sobel, edge, conv3x3) bit-exact with their plain versions
    on the ring, the half-mega and 6MP photos, odd and 1-3-row frames, at
-   passes 1 and 3, both borders and every conv mode of the CPU tests, with
-   kernel and plain times per pass at 1080p and 6MP. The one-launch solve
+   passes 1 and 3, both borders and every conv mode of the CPU tests; the
+   row-streaming body's edges (EDGE_SHAPES: widths around a lane's run
+   and a warp's band, 1 and 2 rows, an RGBA frame of odd plane size, a
+   plane that starts off a 4-byte boundary) for conv3x3 and the
+   edge pass, int32 and float32 conv inputs with negative values, and the
+   integer division at the int32 extremes for every norm in DIV_NORMS;
+   with kernel and plain times per pass (CUDA events) and device us a
+   pass (profiler) at 1080p and 6MP. The one-launch solve
    kernel within MULTI_SWEEP_TOL at m=8, H=20, B=4096 with 5 ADMM
    iterations of 1 sweep (the main path's relax 1.3), at smaller and
    ragged shapes and on the NaN batch, and against the chain of
@@ -162,16 +170,21 @@ MULTI_SHAPES = SWEEP_SHAPES + ((M, H, 999), (M, H, 1), (4, 8, 254))
 TOO_LONG_H, LONG_BATCH = 400, 64
 LONG_H_FITS = 200                # the longest checked that fits at m=8
 NAN_BATCH, NAN_SCENARIOS = 256, (5, 77, 200)
-# The group kernels must not spill: ptxas reports 0 bytes of spill stores
-# for each of their instances (m = 2, 4, 8 for the sweeps; n = 4, 8, 16 for
-# the Riccati backward), by library and kernel.
+# The group kernels and the row-streaming stencils must not spill: ptxas
+# reports 0 bytes of spill stores for each of their instances, by library
+# and kernel: the integer template arguments of each (m = 2, 4, 8 for the
+# sweeps; n = 4, 8, 16 for the Riccati backward; C = 3, 4 for the edge
+# pass), or the number of instances (conv3x3: three input types x four
+# accumulator/output modes; the blur instance).
 SWEEP_MS, RICCATI_NS = {2, 4, 8}, {4, 8, 16}
 NO_SPILL = {"multi_sweep": {"multi_sweep_kernel": SWEEP_MS},
             "full_solve": {"full_solve_kernel": SWEEP_MS},
             "sweep": {"unified_sweep_kernel": SWEEP_MS,
                       "backward_sweep_kernel": SWEEP_MS,
                       "forward_sweep_kernel": SWEEP_MS},
-            "riccati": {"riccati_kernel": RICCATI_NS}}
+            "riccati": {"riccati_kernel": RICCATI_NS},
+            "conv3x3": {"conv3x3_kernel": 12, "blur_kernel": 1},
+            "stencil": {"edge_kernel": {3, 4}}}
 MPC_ROWS = {   # kernel -> (source, TPU kernel it replaces)
     "sampler": ("csrc/sampler.cu", "models/mpc/sampler_pallas.py:57"),
     "unified_sweep": ("csrc/sweep.cu", "models/mpc/sweep_pallas.py:460"),
@@ -232,6 +245,20 @@ CONV_MODES = {
     "asym_norm16": (ASYM, 16, True, False),
     "gblur_float_norm10": (GBLUR, 10, False, False),
 }
+# The row-streaming body's edges (csrc/stencil_rows.cuh): widths around a
+# lane's run of 4 values and a warp's band of 128 columns (and of 512, the
+# band of 16-byte u8 runs), planes of 1 and 2 rows, an RGBA frame whose
+# plane size is odd (so planes 1-3 start off any 4-byte boundary).
+EDGE_WIDTHS = (1, 3, 5, 15, 16, 17, 31, 127, 128, 129, 511, 512, 513, 1025)
+EDGE_SHAPES = (tuple((3, 5, w) for w in EDGE_WIDTHS)
+               + ((3, 1, 513), (4, 2, 16), (3, 2, 1), (4, 7, 33)))
+# Norms of the integer division check (identity taps, int32 input at the
+# int32 extremes, near 0 and random): every CONV_MODES norm among them.
+DIV_NORMS = range(1, 1001)
+# The profiler's kernel name for each image row's timed pass (the u8 blur
+# runs conv3x3's blur instance).
+IMAGE_KEYS = {"grayscale": "grayscale_kernel", "sobel": "sobel_kernel",
+              "edge": "edge_kernel", "conv3x3": "blur_kernel"}
 IMAGE_ROWS = {   # kernel -> (source, TPU kernel it replaces)
     "grayscale": ("csrc/grayscale.cu", "ops/grayscale.py:58"),
     "sobel": ("csrc/stencil.cu", "ops/sobel.py:86"),
@@ -387,22 +414,51 @@ def phase_build() -> dict:
     log(f"[build] {sorted(reports)} built in {time.perf_counter() - t0:.1f} s")
     for name, text in reports.items():
         for line in text.splitlines():
-            inst = re.search(r"Compiling entry function "
-                             r"'.*?([a-z_]+_kernel)ILi(\d+)E", line)
-            if inst:
-                log(f"[build] {name}: {inst.group(1)}<{inst.group(2)}>")
+            entry = re.search(r"Compiling entry function '(.*?)'", line)
+            if entry:
+                log(f"[build] {name}: {instance_name(entry.group(1))}")
             elif "registers" in line or "spill" in line or "error" in line:
                 log(f"[build] {name}: {line.strip()}")
     for name, kernels in NO_SPILL.items():
         stores = spill_stores(reports[name])
-        for kernel, sizes in kernels.items():
+        for kernel, want in kernels.items():
             found = {e: n for e, n in stores.items() if kernel in e}
-            got = {int(re.search(r"ILi(\d+)E", e).group(1)) for e in found}
-            if got != sizes or any(found.values()):
+            if isinstance(want, int):
+                ok = len(found) == want
+            else:
+                ok = {int(re.search(r"ILi(\d+)E", e).group(1))
+                      for e in found} == want
+            if not ok or any(found.values()):
                 raise AssertionError(
                     f"{name}: ptxas spill stores of {kernel} {found}, want "
-                    f"0 bytes for each of its {sorted(sizes)} instances")
+                    f"0 bytes for each of its instances ({want})")
     return reports
+
+
+_MANGLED_TYPES = {"h": "u8", "i": "i32", "f": "f32"}
+
+
+def instance_name(mangled: str) -> str:
+    """A kernel's name and template arguments from its mangled entry
+    name: ``multi_sweep_kernel<8>``, ``conv3x3_kernel<u8,i32,u8>``. The
+    name is the ``*_kernel`` identifier that its length prefix covers."""
+    end = mangled.find("_kernel")
+    if end < 0:
+        return mangled
+    end += len("_kernel")
+    for start in range(end - len("_kernel"), 0, -1):
+        n = str(end - start)
+        if mangled[max(start - len(n), 0):start] == n:
+            break
+    else:
+        return mangled
+    name = mangled[start:end]
+    args = re.match(r"I(.*?)E", mangled[end:])
+    if not args:
+        return name
+    ints = re.findall(r"Li(\d+)", args.group(1))
+    parts = ints or [_MANGLED_TYPES.get(c, c) for c in args.group(1)]
+    return f"{name}<{','.join(parts)}>"
 
 
 def spill_stores(report: str) -> dict:
@@ -1662,6 +1718,39 @@ def phase_image_kernels(frames, photos) -> dict:
                       passes=p)
             same("conv3x3", f"{dtype} integer={integer} passes={p}",
                  ops.conv3x3(img, **kw), conv3x3_plain(img, **kw))
+    # The row-streaming body's edges: every conv mode and both edge
+    # borders; a plane that starts off a 4-byte boundary (a view one plane
+    # into a frame whose plane size is odd); int32 and float32 conv inputs
+    # with negative values.
+    edge_inputs = {str(s): rand(s) for s in EDGE_SHAPES}
+    edge_inputs["(5, 9, 77)[1:]"] = rand((5, 9, 77))[1:]
+    for shape in ((3, 5, 129), (2, 3, 1), (3, 4, 130)):
+        signed = rand(shape, torch.int32) - 128
+        edge_inputs[f"{shape} int32"] = signed
+        edge_inputs[f"{shape} float32"] = signed.float() * 1.5 + 0.375
+    for what, img in edge_inputs.items():
+        for p in (1, 3):
+            if img.dtype == torch.uint8 and img.shape[0] in (3, 4):
+                for border in ("zero", "none"):
+                    same("edge", f"{what} passes={p} border={border}",
+                         ops.edge_pipeline(img, border, p),
+                         edge_pipeline_plain(img, border, p))
+            for mode, (taps, norm, integer, clamp) in CONV_MODES.items():
+                kw = dict(taps=taps, norm=norm, integer=integer,
+                          clamp_u8=clamp, passes=p)
+                same("conv3x3", f"{what} {mode} passes={p}",
+                     ops.conv3x3(img, **kw), conv3x3_plain(img, **kw))
+    # Truncating division by each norm (a magic multiply and shifts in the
+    # kernel) at the int32 extremes, near 0 and at random values.
+    near = [-2**31, -2**31 + 1, 2**31 - 1, 2**31 - 2] + list(range(-17, 18))
+    acc = torch.cat([torch.tensor(near, dtype=torch.int32),
+                     torch.randint(-2**31, 2**31 - 1, (256 - len(near),),
+                                   generator=gen, dtype=torch.int32)])
+    acc = acc.reshape(1, 16, 16).cuda()
+    ident = ((0, 0, 0), (0, 1, 0), (0, 0, 0))
+    for norm in DIV_NORMS:
+        same("conv3x3", f"int32 extremes / {norm}",
+             ops.conv3x3(acc, ident, norm), conv3x3_plain(acc, ident, norm))
     # The card's kernels against the plain versions on the CPU.
     f0, f0_cpu = frames[0], frames[0].cpu()
     same("grayscale", "ring[0] vs CPU", ops.grayscale(f0).cpu(),
@@ -1703,15 +1792,19 @@ def phase_image_kernels(frames, photos) -> dict:
         for name, (kern, plain) in timed.items():
             ms = cuda_time_ms(lambda: kern(img), 3) / n
             plain_ms = cuda_time_ms(lambda: plain(img), 1) / n
+            us = device_us(lambda: kern(img), IMAGE_KEYS[name], 1)
             # per pass: the planes read once and written once
             bnd = bound(2 * nbytes(img[0] if name == "sobel" else img))
             log(f"[kernel] {name} {label} {tuple(img.shape)}: kernel "
                 f"{ms:.4f} ms, plain {plain_ms:.4f} ms per pass "
-                f"({n} passes a call, CUDA events), bound "
-                f"{bnd['bound_ms']:.4f} ms")
+                f"({n} passes a call, CUDA events), device {us} us a pass "
+                f"(profiler), bound {bnd['bound_ms']:.4f} ms")
             if label == "1080p":
                 rows[name] = kernel_row(name, *IMAGE_ROWS[name], 0.0, ms,
-                                        plain_ms, bnd, library.get(name))
+                                        plain_ms, bnd, library.get(name),
+                                        device_us=us)
+            else:
+                rows[name][f"device_us_{label}"] = us
     log(f"[kernel] library: float32 conv2d 3x3 blur at 1080p "
         f"{library['conv3x3']:.4f} ms")
     return rows

@@ -95,8 +95,15 @@ def measure(smoke) -> dict:
             for key, (call, kernel, iters) in cases(smoke, frame).items()}
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+def ab_main(argv, description: str, what: str, measure_fn,
+            **fields) -> int:
+    """The command line of a kernel bench: ``--root DIR`` picks the
+    checkout whose package is timed (this one by default); the input
+    builders and timers are always this checkout's ``chip_smoke``.
+    ``measure_fn(smoke)`` gives the timed cases; prints one JSON line with
+    the package timed, the card's name and power limit, ``fields`` and
+    the cases. Raises without a card, naming ``what``."""
+    ap = argparse.ArgumentParser(description=description)
     ap.add_argument("--root", default=str(ROOT),
                     help="checkout whose package to time (default: this one)")
     args = ap.parse_args(argv)
@@ -109,14 +116,19 @@ def main(argv=None) -> int:
     import openmp_parallel_computing_tpu_torch as pkg
 
     if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: the sweep kernels run on a GPU")
+        raise RuntimeError(f"no CUDA device: {what} run on a GPU")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-    print(json.dumps({"package": pkg.__file__, "device": card,
-                      "m": M, "H": H, **measure(chip_smoke)}), flush=True)
+    print(json.dumps({"package": pkg.__file__, "device": card, **fields,
+                      **measure_fn(chip_smoke)}), flush=True)
     return 0
+
+
+def main(argv=None) -> int:
+    return ab_main(argv, __doc__.splitlines()[0], "the sweep kernels",
+                   measure, m=M, H=H)
 
 
 if __name__ == "__main__":

@@ -21,8 +21,9 @@ import pytest
 import torch
 
 from openmp_parallel_computing_tpu_torch import probe
+from openmp_parallel_computing_tpu_torch import ops
 from openmp_parallel_computing_tpu_torch.bench import (
-    _chain, headline, mpc_batch, sweep_kernels)
+    _chain, headline, image_kernels, mpc_batch, sweep_kernels)
 from openmp_parallel_computing_tpu_torch.models.mpc import VisualServoMPC, sweep
 from openmp_parallel_computing_tpu_torch.utils.config import MPCConfig
 
@@ -211,6 +212,72 @@ def test_sweep_kernels_root_imports_the_package_of_that_checkout(tmp_path):
     assert out.returncode != 0
     assert f"stub package at {stub / '__init__.py'}" in out.stdout
     assert "no CUDA device" in out.stderr
+
+
+def test_image_kernels_bench_cases_run_on_the_cpu():
+    """bench/image_kernels.py's cases at a small size: the blur, conv3x3
+    on run-time taps, the edge pass, grayscale, Sobel and a copy on each
+    frame, each call ``passes`` passes of its op (the plain versions on
+    the CPU), keyed by kernel and frame."""
+    from openmp_parallel_computing_tpu_torch.ops.conv import conv3x3_plain
+    from openmp_parallel_computing_tpu_torch.ops.grayscale import (
+        grayscale_plain)
+    from openmp_parallel_computing_tpu_torch.ops.pipeline import (
+        edge_pipeline_plain)
+    from openmp_parallel_computing_tpu_torch.ops.sobel import sobel_plain
+
+    rng = np.random.default_rng(9)
+    frames = {"a": torch.from_numpy(rng.integers(0, 256, (3, 9, 40),
+                                                 dtype=np.uint8)),
+              "b": torch.from_numpy(rng.integers(0, 256, (4, 5, 17),
+                                                 dtype=np.uint8))}
+    got = image_kernels.cases(_chip_smoke(), frames, passes=2)
+    names = ("blur", "conv3x3_sharpen", "edge", "grayscale", "sobel", "copy")
+    assert set(got) == {f"{n}_{label}" for n in names for label in frames}
+    for label, img in frames.items():
+        want = {
+            "blur": conv3x3_plain(img, clamp_u8=True, passes=2),
+            "conv3x3_sharpen": conv3x3_plain(img, image_kernels.SHARPEN, 3,
+                                             clamp_u8=True, passes=2),
+            "edge": edge_pipeline_plain(img, passes=2),
+            "grayscale": grayscale_plain(img, passes=2),
+        }
+        for name in names:
+            call, kernel, iters = got[f"{name}_{label}"]
+            out = call()
+            assert kernel == ("Memcpy" if name == "copy" else "_kernel")
+            assert iters > 0
+            if name in ("sobel", "copy"):
+                plain = sobel_plain(img[0]) if name == "sobel" else img
+                assert len(out) == 2
+                assert all(torch.equal(o, plain) for o in out)
+            else:
+                assert torch.equal(out, want[name]), (name, label)
+    assert ops.conv3x3.launches == 0 and ops.edge_pipeline.launches == 0
+
+
+def test_image_kernels_bench_needs_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is attached: the bench would run")
+    with pytest.raises(RuntimeError, match="no CUDA device: the image"):
+        image_kernels.main([])
+
+
+def test_image_kernels_root_imports_the_package_of_that_checkout(tmp_path):
+    """Run as a script, the image bench takes the A/B command line of
+    bench/sweep_kernels.py without importing this checkout's package: a
+    stub package at ``--root`` is the one imported."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is attached: the bench would run")
+    stub = tmp_path / "openmp_parallel_computing_tpu_torch"
+    stub.mkdir()
+    (stub / "__init__.py").write_text("print('stub package at', __file__)\n")
+    out = subprocess.run(
+        [sys.executable, image_kernels.__file__, "--root", str(tmp_path)],
+        cwd=tmp_path, capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert f"stub package at {stub / '__init__.py'}" in out.stdout
+    assert "no CUDA device: the image kernels" in out.stderr
 
 
 def test_probe_reports_no_card_without_raising():

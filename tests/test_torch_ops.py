@@ -227,9 +227,16 @@ def test_wrappers_reject_bad_input_and_count_no_cpu_launch():
     assert [w.launches for w in wrappers] == before
 
 
-def test_build_hash_covers_included_headers(tmp_path, monkeypatch):
+@pytest.mark.parametrize("header, rebuilt", [
+    ("stencil3x3.cuh", {"stencil", "grayscale"}),
+    ("stencil_rows.cuh", {"stencil", "conv3x3"}),
+])
+def test_build_hash_covers_included_headers(tmp_path, monkeypatch, header,
+                                            rebuilt):
     """Editing a shared csrc header changes the library name of every
-    kernel that includes it (and of no other), without running nvcc."""
+    kernel that includes it (and of no other), without running nvcc: the
+    halo-tile header rebuilds Sobel's and grayscale's sources, the
+    row-streaming body rebuilds the edge pass's and conv3x3's."""
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", csrc)
@@ -240,10 +247,9 @@ def test_build_hash_covers_included_headers(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "nvcc_path", no_nvcc)
     names = ("stencil", "conv3x3", "grayscale", "edge_pyramid")
     before = {n: _build._target(n)[0].name for n in names}
-    header = csrc / "stencil3x3.cuh"
-    assert header in _build._sources("stencil")
-    header.write_text(header.read_text() + "\n// edited\n")
+    path = csrc / header
+    for n in rebuilt:
+        assert path in _build._sources(n), n
+    path.write_text(path.read_text() + "\n// edited\n")
     after = {n: _build._target(n)[0].name for n in names}
-    for n in ("stencil", "conv3x3", "grayscale"):
-        assert after[n] != before[n], n
-    assert after["edge_pyramid"] == before["edge_pyramid"]
+    assert {n for n in names if after[n] != before[n]} == rebuilt

@@ -15,11 +15,17 @@ Any failure raises and the script exits non-zero.
    and forward kernels of csrc/sweep.cu), (n = 4, 8, 16) of the batched
    Riccati kernel, or of the row-streaming stencils (conv3x3's twelve
    type/mode instances and its blur instance; the edge pass for C = 3,
-   4).
+   4; the perception kernel for s = 1, 2, 4, 8, 16, 32, 64), or of the
+   gather sampler's four instances (two modes x one or two points a
+   thread).
 3. Kernel vs plain: each kernel against its plain PyTorch version on the
    same inputs at the shapes the main path gives it, with both times and
    the least time the card could take (``bound``). The perception kernel
-   bit-exact on the 1080p fixture and its ring of 8 shifted frames; the
+   bit-exact on the 1080p fixture and its ring of 8 shifted frames, and at
+   every pool scale it takes (PYRAMID_SCALES) on ODD_FRAMES, EDGE_SHAPES
+   (1 and 2 rows, widths around a lane's run, a 16-column block and a
+   128-column band, an RGBA frame of odd plane size), a plane that starts
+   off a 4-byte boundary and both photos, timed at 1080p and 6MP; the
    multi-sweep kernel within MULTI_SWEEP_TOL at MULTI_SHAPES (m=8, H=20,
    B=4096 on a real nominal rollout, smaller feature counts, ragged
    batches B=999, 1 and 254 whose last block holds groups past the end),
@@ -28,9 +34,12 @@ Any failure raises and the script exits non-zero.
    whose gains do not fit one block's shared memory (TOO_LONG_H) the
    solver takes the per-sweep path instead of it and the one-launch
    solve, and a direct launch fails without upsetting the next; the gather
-   sampler bit-exact in both modes on
-   that rollout's points and on off-frame, on-border and integer
-   coordinates (1080p, and a 64x128 map with a one-row level); the
+   sampler bit-exact in both modes on the rollout's points at
+   SAMPLER_BATCHES (split-state views; 999 is odd: one point a thread) and
+   on off-frame, on-border and integer coordinates (1080p, and a 64x128
+   map with a one-row level; B=256 and 37), with one, two and three
+   levels, and on the levels of a large map (BIG_LEVELS), timed at B=4096
+   and 256; the
    unified sweep (in both forms: the gains in shared memory, as admitted
    at H, and in global memory) and the backward sweep within
    MULTI_SWEEP_TOL at MULTI_SHAPES and on the NaN batch, the two forms
@@ -148,12 +157,18 @@ H, M = 20, 8
 BATCHES = ((4096, 20), (256, 40))  # (scenarios, timed steps)
 RING = 8
 ODD_FRAMES = ((3, 40, 72), (4, 33, 50), (3, 17, 130))
+# Every pool scale the perception kernel takes (s <= 64 dividing 128).
+PYRAMID_SCALES = (1, 2, 4, 8, 16, 32, 64)
 
 # The per-sweep path (phase 4b) and the measurements of phase 4c.
 ILQR_BATCHES = ((4096, 10), (256, 20))     # (scenarios, timed steps)
 SPLIT_BATCH, SPLIT_STEPS = 256, 4          # backward + forward pair
 BIG_BATCH, BIG_STEPS = 16384, 2            # zero-gain forward rollouts
 AB_BATCHES = ((4096, 10), (256, 20))       # sampler A/B, main path
+# The sampler's checks: rollout batches (999: one point a thread, B odd),
+# and the levels of a 4800 x 6400 map at s = 16 and 64 (480 KB and 30 KB).
+SAMPLER_BATCHES = (4096, 256, 999)
+BIG_LEVELS, BIG_MAP = ((300, 400), (75, 100)), (4800, 6400)
 ROLLOUT_BATCHES = (256, 4096, 16384)
 PROFILE_STEPS = 5
 # (m, H, B) of the sweep kernels' checks: the main path, and two smaller
@@ -174,8 +189,9 @@ NAN_BATCH, NAN_SCENARIOS = 256, (5, 77, 200)
 # reports 0 bytes of spill stores for each of their instances, by library
 # and kernel: the integer template arguments of each (m = 2, 4, 8 for the
 # sweeps; n = 4, 8, 16 for the Riccati backward; C = 3, 4 for the edge
-# pass), or the number of instances (conv3x3: three input types x four
-# accumulator/output modes; the blur instance).
+# pass; s for the perception kernel), or the number of instances (conv3x3:
+# three input types x four accumulator/output modes; the blur instance;
+# the sampler: two modes x one or two points a thread).
 SWEEP_MS, RICCATI_NS = {2, 4, 8}, {4, 8, 16}
 NO_SPILL = {"multi_sweep": {"multi_sweep_kernel": SWEEP_MS},
             "full_solve": {"full_solve_kernel": SWEEP_MS},
@@ -184,7 +200,9 @@ NO_SPILL = {"multi_sweep": {"multi_sweep_kernel": SWEEP_MS},
                       "forward_sweep_kernel": SWEEP_MS},
             "riccati": {"riccati_kernel": RICCATI_NS},
             "conv3x3": {"conv3x3_kernel": 12, "blur_kernel": 1},
-            "stencil": {"edge_kernel": {3, 4}}}
+            "stencil": {"edge_kernel": {3, 4}},
+            "edge_pyramid": {"edge_pyramid_kernel": {1, 2, 4, 8, 16, 32, 64}},
+            "sampler": {"sample_kernel": 4}}
 MPC_ROWS = {   # kernel -> (source, TPU kernel it replaces)
     "sampler": ("csrc/sampler.cu", "models/mpc/sampler_pallas.py:57"),
     "unified_sweep": ("csrc/sweep.cu", "models/mpc/sweep_pallas.py:460"),
@@ -440,8 +458,9 @@ _MANGLED_TYPES = {"h": "u8", "i": "i32", "f": "f32"}
 
 def instance_name(mangled: str) -> str:
     """A kernel's name and template arguments from its mangled entry
-    name: ``multi_sweep_kernel<8>``, ``conv3x3_kernel<u8,i32,u8>``. The
-    name is the ``*_kernel`` identifier that its length prefix covers."""
+    name: ``multi_sweep_kernel<8>``, ``conv3x3_kernel<u8,i32,u8>``,
+    ``sample_kernel<true,2>``. The name is the ``*_kernel`` identifier
+    that its length prefix covers."""
     end = mangled.find("_kernel")
     if end < 0:
         return mangled
@@ -453,11 +472,15 @@ def instance_name(mangled: str) -> str:
     else:
         return mangled
     name = mangled[start:end]
+    values = re.match(r"I((?:L[bi]\d+E)+)E", mangled[end:])
+    if values:
+        parts = [v if t == "i" else ("false", "true")[int(v)]
+                 for t, v in re.findall(r"L([bi])(\d+)E", values.group(1))]
+        return f"{name}<{','.join(parts)}>"
     args = re.match(r"I(.*?)E", mangled[end:])
     if not args:
         return name
-    ints = re.findall(r"Li(\d+)", args.group(1))
-    parts = ints or [_MANGLED_TYPES.get(c, c) for c in args.group(1)]
+    parts = [_MANGLED_TYPES.get(c, c) for c in args.group(1)]
     return f"{name}<{','.join(parts)}>"
 
 
@@ -475,7 +498,7 @@ def spill_stores(report: str) -> dict:
     return out
 
 
-def phase_kernels(frames) -> dict:
+def phase_kernels(frames, photos) -> dict:
     """Each kernel against its plain version; returns the kernel rows of
     the summary (launches filled in by the slice phase)."""
     import torch
@@ -496,21 +519,49 @@ def phase_kernels(frames) -> dict:
         if k == 0 and not torch.equal(got.cpu(), ref_cpu):
             raise AssertionError("edge_pyramid kernel != CPU plain on the "
                                  "1080p fixture")
+    # Every pool scale on frames that cut bands, blocks and runs unevenly
+    # (1 and 2 rows, widths around a run, a block and a band, RGBA of odd
+    # plane size, a plane off a 4-byte boundary) and on the photos; the
+    # small frames against the plain version on the CPU.
     gen = torch.Generator().manual_seed(3)
-    for shape in ODD_FRAMES:          # partial bands and tiles, RGBA
-        img = torch.randint(0, 256, shape, generator=gen, dtype=torch.uint8)
-        got = pipeline.edge_pyramid_base(img.cuda()).cpu()
-        if not torch.equal(got, pipeline.edge_pyramid_base_plain(img)):
-            raise AssertionError(f"edge_pyramid kernel != plain on {shape}")
-    ms = cuda_time_ms(lambda: pipeline.edge_pyramid_base(frames[0]), 200)
+
+    def rand(shape):
+        return torch.randint(0, 256, shape, generator=gen,
+                             dtype=torch.uint8).cuda()
+
+    inputs = {str(sh): rand(sh) for sh in ODD_FRAMES + EDGE_SHAPES}
+    inputs["(5, 9, 77)[1:]"] = rand((5, 9, 77))[1:]
+    inputs["ring[0]"] = frames[0]
+    inputs.update(photos)
+    n_cmp = 0
+    for what, img in inputs.items():
+        for s in PYRAMID_SCALES:
+            got = pipeline.edge_pyramid_base(img, s).cpu()
+            plain = pipeline.edge_pyramid_base_plain(
+                img.cpu() if img.numel() < 2 ** 16 else img, s).cpu()
+            if got.shape != plain.shape or not torch.equal(got, plain):
+                raise AssertionError(f"edge_pyramid kernel != plain on {what} "
+                                     f"at s={s}")
+            n_cmp += 1
+    times = {}
+    for label, img in (("1080p", frames[0]), ("6mp", photos["6mp"])):
+        run = lambda: pipeline.edge_pyramid_base(img)  # noqa: E731
+        times[label] = (cuda_time_ms(run, 200),
+                        device_us(run, "edge_pyramid_kernel", 20))
+    ms = times["1080p"][0]
     plain_ms = cuda_time_ms(
         lambda: pipeline.edge_pyramid_base_plain(frames[0]), 50)
-    log(f"[kernel] edge_pyramid: bit-exact on {frames.shape[0]} 1080p "
-        f"frames and {ODD_FRAMES}; 1080p kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
     out = pipeline.edge_pyramid_base(frames[0])
+    bnd = bound(nbytes(frames[0][:3], out))
+    log(f"[kernel] edge_pyramid: bit-exact on {frames.shape[0]} 1080p "
+        f"frames and in {n_cmp} comparisons at s={PYRAMID_SCALES}; 1080p "
+        f"kernel {ms:.4f} ms (device {times['1080p'][1]} us), 6MP "
+        f"{times['6mp'][0]:.4f} ms (device {times['6mp'][1]} us), plain "
+        f"{plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms")
     rows["edge_pyramid"] = kernel_row(
         "edge_pyramid", "csrc/edge_pyramid.cu", "ops/pipeline.py:90", 0.0, ms,
-        plain_ms, bound(nbytes(frames[0], out)))
+        plain_ms, bnd, device_us=times["1080p"][1], ms_6mp=times["6mp"][0],
+        device_us_6mp=times["6mp"][1])
 
     # -- kernel 2: multi_sweep on a real nominal rollout -------------------
     worst = 0.0
@@ -752,44 +803,69 @@ def phase_mpc_kernels(frames) -> dict:
     frame = frames[0]
     hh, ww = frame.shape[1:]
     pyr = costs.build_cost_pyramid_from_frame(frame)
-    args, kw = sweep_inputs(frame, M, H, 4096)
-    x, y = args[1][:, :M], args[1][:, M:]          # the rollout's points
     rng = np.random.default_rng(17)
+    probes, rollout = {}, {}
+    for b in SAMPLER_BATCHES:         # the rollout's points: state views
+        args, kw = sweep_inputs(frame, M, H, b)
+        rollout[b] = (args[1][:, :M], args[1][:, M:])
+        probes[f"rollout B={b}"] = (pyr, *rollout[b], hh, ww)
+    x, y = rollout[4096]
     small = torch.from_numpy(rng.uniform(0, 255, (64, 128)).astype(np.float32))
-    probes = {"rollout B=4096": (pyr, x, y, hh, ww)}
     for what, p, (ph, pw) in (("1080p", pyr, (hh, ww)),
                               ("64x128", costs.build_cost_pyramid(small.cuda()),
                                (64, 128))):
-        px, py = probe_coords(ph, pw, 5, M, 256, rng)
-        probes[f"probes {what}"] = (p, px.cuda(), py.cuda(), ph, pw)
+        for b in (256, 37):
+            px, py = probe_coords(ph, pw, 5, M, b, rng)
+            probes[f"probes {what} B={b}"] = (p, px.cuda(), py.cuda(), ph, pw)
+    big = [torch.from_numpy(rng.uniform(0, 255, sh).astype(np.float32)).cuda()
+           for sh in BIG_LEVELS]
+    px, py = probe_coords(*BIG_MAP, 5, M, 256, rng)
+    probes[f"probes {BIG_MAP}"] = (big, px.cuda(), py.cuda(), *BIG_MAP)
 
     def as_tuple(r):
         return r if isinstance(r, tuple) else (r,)
 
     n_cmp, cpu_err = 0, 0.0
     for what, (p, px, py, ph, pw) in probes.items():
-        for grads in (False, True):
-            got = as_tuple(sampler.sample(p, px, py, ph, pw, grads=grads))
-            plain = as_tuple(sampler.sample_plain(p, px, py, ph, pw,
-                                                  grads=grads))
-            cpu = as_tuple(sampler.sample_plain(
-                [l.cpu() for l in p], px.cpu(), py.cpu(), ph, pw,
-                grads=grads))
-            for name, g_, p_, c_ in zip(("v", "g"), got, plain, cpu):
-                if g_.shape != p_.shape or not torch.equal(g_, p_):
-                    raise AssertionError(
-                        f"sampler {what} grads={grads} {name}: kernel != "
-                        f"plain, max abs err "
-                        f"{(g_ - p_).abs().max().item():.3e}")
-                np.testing.assert_allclose(
-                    g_.cpu().numpy(), c_.numpy(), rtol=1e-5, atol=1e-6,
-                    err_msg=f"sampler {what} {name} card vs CPU")
-                cpu_err = max(cpu_err, (g_.cpu() - c_).abs().max().item())
-                n_cmp += 1
+        # two levels, and one and three (the third a 1 x 2 level at
+        # s = 128)
+        extra = torch.from_numpy(
+            rng.uniform(0, 255, (1, 2)).astype(np.float32)).cuda()
+        for levels, scales in ((p, costs.PYRAMID_SCALES), (p[:1], (16,)),
+                               ((*p, extra), (16, 64, 128))):
+            if len(levels) != 2 and not what.startswith("probes 1080p"):
+                continue
+            for grads in (False, True):
+                got = as_tuple(sampler.sample(levels, px, py, ph, pw, scales,
+                                              grads=grads))
+                plain = as_tuple(sampler.sample_plain(levels, px, py, ph, pw,
+                                                      scales, grads=grads))
+                cpu = as_tuple(sampler.sample_plain(
+                    [l.cpu() for l in levels], px.cpu(), py.cpu(), ph, pw,
+                    scales, grads=grads))
+                for name, g_, p_, c_ in zip(("v", "g"), got, plain, cpu):
+                    if g_.shape != p_.shape or not torch.equal(g_, p_):
+                        raise AssertionError(
+                            f"sampler {what} {len(levels)} levels "
+                            f"grads={grads} {name}: kernel != plain, max abs "
+                            f"err {(g_ - p_).abs().max().item():.3e}")
+                    np.testing.assert_allclose(
+                        g_.cpu().numpy(), c_.numpy(), rtol=1e-5, atol=1e-6,
+                        err_msg=f"sampler {what} {name} card vs CPU")
+                    cpu_err = max(cpu_err, (g_.cpu() - c_).abs().max().item())
+                    n_cmp += 1
     v, g = sampler.sample(pyr, x, y, hh, ww, grads=True)
     ms = cuda_time_ms(lambda: sampler.sample(pyr, x, y, hh, ww, grads=True),
                       200)
     vals_ms = cuda_time_ms(lambda: sampler.sample(pyr, x, y, hh, ww), 200)
+    dev = {}
+    for b in (4096, 256):
+        dev[f"vg B={b}"] = device_us(
+            lambda: sampler.sample(pyr, *rollout[b], hh, ww, grads=True),
+            "sample_kernel", 20)
+        dev[f"vals B={b}"] = device_us(
+            lambda: sampler.sample(pyr, *rollout[b], hh, ww), "sample_kernel",
+            20)
     plain_ms = cuda_time_ms(
         lambda: sampler.sample_plain(pyr, x, y, hh, ww, grads=True), 20)
     analytic_ms = cuda_time_ms(
@@ -798,16 +874,18 @@ def phase_mpc_kernels(frames) -> dict:
     bnd = bound(nbytes(x, y, v, g, *pyr), n_pts * (4 + 40 * len(pyr)))
     vals_bnd = bound(nbytes(x, y, v, *pyr), n_pts * (4 + 25 * len(pyr)))
     log(f"[kernel] sampler: bit-exact with its plain version in {n_cmp} "
-        f"comparisons (rollout points, off-frame / border / integer probes "
-        f"at 1080p and 64x128); card vs CPU max abs err {cpu_err:.3e}; "
-        f"{n_pts} points: value+gradient {ms:.4f} ms (bound "
+        f"comparisons (rollout points at B={SAMPLER_BATCHES}, off-frame / "
+        f"border / integer probes at 1080p and 64x128, 1-3 levels, levels "
+        f"{BIG_LEVELS}); card vs CPU max abs err "
+        f"{cpu_err:.3e}; {n_pts} points: value+gradient {ms:.4f} ms (bound "
         f"{bnd['bound_ms']:.4f}), values {vals_ms:.4f} ms (bound "
         f"{vals_bnd['bound_ms']:.4f}), plain {plain_ms:.4f} ms, dense "
-        f"analytic sampler {analytic_ms:.4f} ms")
+        f"analytic sampler {analytic_ms:.4f} ms; device us {dev}")
     rows["sampler"] = kernel_row(
         "sampler", *MPC_ROWS["sampler"], 0.0, ms, plain_ms, bnd,
-        analytic_ms=analytic_ms, vals_ms=vals_ms,
-        vals_bound_ms=vals_bnd["bound_ms"])
+        device_us=dev["vg B=4096"], analytic_ms=analytic_ms, vals_ms=vals_ms,
+        vals_device_us=dev["vals B=4096"], vals_bound_ms=vals_bnd["bound_ms"],
+        device_us_b256=dev["vg B=256"], vals_device_us_b256=dev["vals B=256"])
 
     # -- kernels 10-12: the per-sweep kernels ------------------------------
     worst = dict.fromkeys(MPC_ROWS, 0.0)
@@ -2181,7 +2259,7 @@ def main() -> int:
     ilqr = MPCConfig(horizon=H, num_features=M, edge_refresh="ilqr",
                      edge_sampler="pallas")
     for name, run in (
-            ("kernels", lambda: rows.update(phase_kernels(frames))),
+            ("kernels", lambda: rows.update(phase_kernels(frames, photos))),
             ("mpc kernels", lambda: rows.update(phase_mpc_kernels(frames))),
             ("image kernels",
              lambda: rows.update(phase_image_kernels(frames, photos))),

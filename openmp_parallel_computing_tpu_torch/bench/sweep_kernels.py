@@ -9,16 +9,21 @@ gains in global memory: ``*_global``), ``sweep.backward_sweep`` and
 ``sweep.forward_sweep`` (on the backward's gains); the batched Riccati
 backward ``riccati_lanes.backward_batched`` on the fused backend's own
 inputs (n = 2m); ``sweep.full_solve`` at B=4096 (5 ADMM iterations x 1
-sweep, relax 1.3); and the zero-gain ``sweep.forward_sweep`` at B=16384,
-the nominal rollout's kernel form (``forward_sweep_zero_*``). Each by CUDA
+sweep, relax 1.3); the zero-gain ``sweep.forward_sweep`` at B=16384,
+the nominal rollout's kernel form (``forward_sweep_zero_*``); and the
+gather sampler ``sampler.sample`` on the rollout's points of the 1080p
+pyramid, in the gradient mode at each batch (``sampler_vg_*``) and in the
+value mode at B=4096 (``sampler_vals_*``). Each by CUDA
 events over ITERS launches after a warm-up and by torch.profiler device time;
 one JSON line with the package it timed and the card's name and power
 limit. The input builders and timing helpers are ``chip_smoke.py``'s,
 taken from this checkout. ``--root DIR`` imports the package from the
 checkout at DIR instead (for example a ``git archive`` of another commit
 unpacked under ``build/``): it is how two versions of the kernels are
-timed in turns on one card, since their wrappers keep one signature.
-Without a card it raises.
+timed in turns on one card, since their wrappers keep one signature, and
+how variants of a kernel are timed (copies of the package whose csrc
+constants are edited). ``--only PREFIX`` times only the cases whose key
+starts with PREFIX. Without a card it raises.
 """
 
 from __future__ import annotations
@@ -38,19 +43,43 @@ ZERO_BATCH = 16384
 FULL = dict(sweeps=1, admm_iters=5, relax=1.3)
 
 
+def sampler_cases(smoke, frame, m: int = M, h: int = H,
+                  batches=BATCHES) -> dict:
+    """``{key: (call, profiler kernel name part, CUDA-event iterations)}``
+    of the gather sampler on the rollout's points of ``frame``'s pyramid:
+    the gradient mode at each batch, the value mode at the first."""
+    from openmp_parallel_computing_tpu_torch.models.mpc import costs, sampler
+
+    out = {}
+    pyramid = costs.build_cost_pyramid_from_frame(frame)
+    hh, ww = frame.shape[1:]
+    for b in batches:
+        args, _ = smoke.sweep_inputs(frame, m, h, b)
+        x, y = args[1][:, :m], args[1][:, m:]      # the rollout's points
+        out[f"sampler_vg_b{b}"] = (
+            functools.partial(sampler.sample, pyramid, x, y, hh, ww,
+                              grads=True), "sample_kernel", ITERS)
+        if b == batches[0]:
+            out[f"sampler_vals_b{b}"] = (
+                functools.partial(sampler.sample, pyramid, x, y, hh, ww),
+                "sample_kernel", ITERS)
+    return out
+
+
 def cases(smoke, frame, m: int = M, h: int = H, batches=BATCHES,
           zero_batch: int = ZERO_BATCH) -> dict:
     """``{key: (call, profiler kernel name part, CUDA-event iterations)}``
     of every timed kernel at (m, h) and each batch (full_solve at the
-    first, the zero-gain forward at ``zero_batch``), on ``frame``'s
-    device, with the helpers of the ``chip_smoke`` module ``smoke``. The
-    per-sweep kernels' profiler key, ``sweep_kernel``, and the Riccati
-    kernel's, ``riccati_kernel``, name them in this package and in earlier
+    first, the zero-gain forward at ``zero_batch``, the sampler's value
+    mode at the first), on ``frame``'s device, with the helpers of the
+    ``chip_smoke`` module ``smoke``. The per-sweep kernels' profiler key,
+    ``sweep_kernel``, the Riccati kernel's, ``riccati_kernel``, and the
+    sampler's, ``sample_kernel``, name them in this package and in earlier
     ones."""
     from openmp_parallel_computing_tpu_torch.models.mpc import (
         riccati_lanes, sweep)
 
-    out = {}
+    out = sampler_cases(smoke, frame, m, h, batches)
     for b in batches:
         args, kw = smoke.sweep_inputs(frame, m, h, b)
         out[f"multi_sweep_b{b}"] = (
@@ -85,14 +114,22 @@ def cases(smoke, frame, m: int = M, h: int = H, batches=BATCHES,
     return out
 
 
-def measure(smoke) -> dict:
-    """The times of every case at the main path's shapes."""
+def select(found: dict, only: str) -> dict:
+    """The cases of ``found`` whose key starts with ``only`` (all for
+    "")."""
+    return {k: v for k, v in found.items() if k.startswith(only)}
+
+
+def measure(smoke, only: str = "") -> dict:
+    """The times of every case (whose key starts with ``only``) at the
+    main path's shapes."""
     from openmp_parallel_computing_tpu_torch import data
 
     frame = data.load_frame_planar("cuda")
     return {key: dict(ms=smoke.cuda_time_ms(call, iters),
                       device_us=smoke.device_us(call, kernel, 5))
-            for key, (call, kernel, iters) in cases(smoke, frame).items()}
+            for key, (call, kernel, iters)
+            in select(cases(smoke, frame), only).items()}
 
 
 def ab_main(argv, description: str, what: str, measure_fn,
@@ -100,12 +137,15 @@ def ab_main(argv, description: str, what: str, measure_fn,
     """The command line of a kernel bench: ``--root DIR`` picks the
     checkout whose package is timed (this one by default); the input
     builders and timers are always this checkout's ``chip_smoke``.
-    ``measure_fn(smoke)`` gives the timed cases; prints one JSON line with
-    the package timed, the card's name and power limit, ``fields`` and
-    the cases. Raises without a card, naming ``what``."""
+    ``measure_fn(smoke, only)`` gives the timed cases whose key starts
+    with ``--only``; prints one JSON line with the package timed, the
+    card's name and power limit, ``fields`` and the cases. Raises without
+    a card, naming ``what``."""
     ap = argparse.ArgumentParser(description=description)
     ap.add_argument("--root", default=str(ROOT),
                     help="checkout whose package to time (default: this one)")
+    ap.add_argument("--only", default="",
+                    help="time only the cases whose key starts with this")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(ROOT))
     import chip_smoke            # this checkout's, before --root is searched
@@ -122,7 +162,7 @@ def ab_main(argv, description: str, what: str, measure_fn,
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(json.dumps({"package": pkg.__file__, "device": card, **fields,
-                      **measure_fn(chip_smoke)}), flush=True)
+                      **measure_fn(chip_smoke, args.only)}), flush=True)
     return 0
 
 

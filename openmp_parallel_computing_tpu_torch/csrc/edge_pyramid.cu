@@ -12,91 +12,175 @@
 // divides by s*s. Block sums are integers below 2^24, so the order in
 // which they are added cannot change them.
 //
-// What bounds it on Hopper: reading the frame (3 bytes a pixel, ~6 MB
-// for 1080p) and writing 1/256 of that as floats; the arithmetic is a
-// few dozen integer operations a pixel. Design: one CUDA block per
-// (s-row band x 128-column tile). The block stages the luma of its band
-// plus a one-row/one-column halo in shared memory (each input byte is
-// read by ~1.1 blocks), every thread then walks one column of the band,
-// sums its magnitudes in a register, and one shared-memory atomic per
-// thread folds the column sums into the tile's 128/s block sums.
-// sqrt is __fsqrt_rn, the IEEE correctly rounded square root: gx^2+gy^2
-// <= 2,080,800 is exact in f32, so its floor is the integer square root
-// whatever the compiler flags (an approximate sqrt can return k - eps for
-// a perfect square k^2 and floor one below).
+// What bounds it on Hopper: reading the frame (3 bytes a pixel, ~6.2 MB
+// for 1080p, ~1.9 us at 3.35 TB/s) and writing 1/256 of that as floats;
+// the arithmetic is a few dozen integer operations a pixel. Design: the
+// edge pass's row-streaming body (stencil_rows.cuh) with its loads, luma
+// and Sobel (edge_rows.cuh), and an emit that sums instead of storing. A
+// warp walks a strip of rows of a band of 32 * V columns (a run of V
+// bytes a lane and plane, one vector load), the luma formed once per
+// pixel and the neighbours taken by shuffles. Each lane sums its
+// magnitudes by block column in registers down the strip; at the end of a
+// block row the lanes of one block column fold their sums with
+// __shfl_xor_sync (s = 16 at V = 4: four lanes) and one lane writes the
+// mean. For s < V a lane holds V / s block columns. Where a block row is
+// taller than a warp's strip, the kGroup warps of a thread block that walk
+// its rows in turn add their folded sums through shared memory, and the
+// first of them writes. No atomics: every output is written once.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "edge_rows.cuh"
 
 namespace {
 
-constexpr int kTileW = 128;
-constexpr int kThreads = 256;
+using namespace edge_rows;
 
-__global__ void edge_pyramid_kernel(const uint8_t* __restrict__ img,
-                                    float* __restrict__ out,
-                                    int H, int W, int s, int out_w) {
-  extern __shared__ int smem[];
-  const int halo_w = kTileW + 2;
-  int* lum = smem;                                   // (s + 2) x (kTileW + 2)
-  int* bsum = smem + (s + 2) * halo_w;               // kTileW / s
-  const int band = blockIdx.y;
-  const int x0 = blockIdx.x * kTileW;
-  const int y0 = band * s;
-  const size_t plane = (size_t)H * W;
-  const int tid = threadIdx.x;
+// The walk's sizes, chosen by timing variants of the pyramid at 1080p
+// (s = 16, the main path) on an H100 (bench/kernel_variants.py, PERF.md
+// §6).
+constexpr int kPyrRun = 4;         // V: bytes a lane and plane row
+constexpr int kPyrStripRows = 4;   // least rows a warp walks
+constexpr int kPyrRingRows = 4;    // D: rows loaded ahead (at most a strip)
 
-  if (tid < kTileW / s) bsum[tid] = 0;
-  for (int idx = tid; idx < (s + 2) * halo_w; idx += blockDim.x) {
-    const int ry = idx / halo_w;
-    const int rx = idx - ry * halo_w;
-    const int gy = y0 - 1 + ry;
-    const int gx = x0 - 1 + rx;
-    int v = 0;
-    if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
-      const size_t o = (size_t)gy * W + gx;
-      v = (19595 * (int)img[o] + 38470 * (int)img[plane + o] +
-           7471 * (int)img[2 * plane + o]) >> 16;
+// The rows a warp walks at scale s: kPyrStripRows, or s / kWarpsPerBlock
+// where that is more, so the kWarpsPerBlock warps of a block cover a whole
+// block row. Both are powers of two.
+constexpr int strip_rows(int s) {
+  return s / kWarpsPerBlock > kPyrStripRows ? s / kWarpsPerBlock
+                                            : kPyrStripRows;
+}
+
+template <int kS, int V>
+struct Pyramid : LumaRows<3, V> {
+  using Row = typename LumaRows<3, V>::Row;
+  static constexpr int S = strip_rows(kS);
+  static constexpr int kGroup = kS > S ? kS / S : 1;  // warps of a block row
+  static constexpr int kLanes = kS > V ? kS / V : 1;  // lanes a block column
+  static constexpr int kCols = kS < V ? V / kS : 1;   // block columns a lane
+  static_assert(kGroup <= kWarpsPerBlock && kLanes <= kWarpSize, "geometry");
+
+  float* __restrict__ out;
+  int out_w;
+  mutable int acc[kCols];
+
+  // Add row y's magnitudes; at the last row of a block row (or of the
+  // image), write the block row where one warp walks all of it.
+  __device__ __forceinline__ void emit(const Row& up, const Row& mid,
+                                       const Row& dn, int y) const {
+    const int H = this->H, W = this->W, x = this->s.x;
+    if (y > 0 && y < H - 1) {
+      int o[V];
+      sobel_run(up, mid, dn, o);
+      // Columns 0 and W - 1 are border, columns past W are not there.
+      if (x == 0 || x + V >= W) {
+#pragma unroll
+        for (int v = 0; v < V; ++v)
+          if (x + v == 0 || x + v >= W - 1) o[v] = 0;
+      }
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) {
+        constexpr int n = V / kCols;
+#pragma unroll
+        for (int v = 0; v < n; ++v) acc[j] += o[j * n + v];
+      }
     }
-    lum[idx] = v;
-  }
-  __syncthreads();
-
-  // kThreads is a multiple of kTileW: each thread owns one column.
-  const int col = tid % kTileW;
-  const int gx = x0 + col;
-  int acc = 0;
-  if (gx >= 1 && gx < W - 1) {
-    for (int row = tid / kTileW; row < s; row += kThreads / kTileW) {
-      const int gy = y0 + row;
-      if (gy < 1 || gy >= H - 1) continue;
-      const int* up = lum + row * halo_w + col;      // halo row above
-      const int* mid = up + halo_w;
-      const int* dn = mid + halo_w;
-      const int gxv = -up[0] - 2 * mid[0] - dn[0] + up[2] + 2 * mid[2] + dn[2];
-      const int gyv = up[0] + 2 * up[1] + up[2] - dn[0] - 2 * dn[1] - dn[2];
-      const float m = floorf(__fsqrt_rn((float)(gxv * gxv + gyv * gyv)));
-      acc += min((int)m, 255);
+    if constexpr (kGroup == 1) {
+      if ((y + 1) % kS == 0 || y == H - 1) {
+        fold();
+        if (this->s.lane % kLanes == 0) {
+#pragma unroll
+          for (int j = 0; j < kCols; ++j)
+            if (x + j * kS < W)
+              out[(size_t)(y / kS) * out_w + x / kS + j] =
+                  (float)acc[j] / (float)(kS * kS);
+        }
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) acc[j] = 0;
+      }
     }
   }
-  if (acc) atomicAdd(&bsum[col / s], acc);
-  __syncthreads();
 
-  const int ox = blockIdx.x * (kTileW / s) + tid;
-  if (tid < kTileW / s && ox < out_w)
-    out[(size_t)band * out_w + ox] = (float)bsum[tid] / (float)(s * s);
+  // The sum of each block column in every lane of it.
+  __device__ __forceinline__ void fold() const {
+#pragma unroll
+    for (int d = 1; d < kLanes; d <<= 1) {
+#pragma unroll
+      for (int j = 0; j < kCols; ++j)
+        acc[j] += __shfl_xor_sync(kFullMask, acc[j], d);
+    }
+  }
+};
+
+// One thread block: a band of 32 * V columns and kWarpsPerBlock strips of
+// S rows below each other; neighbouring blocks take neighbouring bands.
+template <int kS>
+__global__ void __launch_bounds__(kThreads)
+    edge_pyramid_kernel(const uint8_t* __restrict__ img,
+                        float* __restrict__ out, int H, int W, int out_w) {
+  using P = Pyramid<kS, kPyrRun>;
+  constexpr int V = kPyrRun, S = P::S;
+  constexpr int kBandCols = kWarpSize * V / kS;    // block columns of a band
+  const int bands = (W + kWarpSize * V - 1) / (kWarpSize * V);
+  const int band = (int)(blockIdx.x % (unsigned)bands);
+  const int warp = (int)(threadIdx.x / kWarpSize);
+  Strip st;
+  st.lane = (int)(threadIdx.x % kWarpSize);
+  st.xb = band * kWarpSize * V;
+  st.x = st.xb + st.lane * V;
+  st.y0 = (int)(blockIdx.x / (unsigned)bands) * kWarpsPerBlock * S + warp * S;
+  st.z = 0;
+  P k{{img, H, W, (size_t)H * W, st}, out, out_w, {}};
+  walk<S, (kPyrRingRows < S ? kPyrRingRows : S)>(k, st.y0, H);
+  if constexpr (P::kGroup > 1) {
+    __shared__ int part[kWarpsPerBlock][kBandCols];
+    k.fold();
+    if (st.lane % P::kLanes == 0) {
+#pragma unroll
+      for (int j = 0; j < P::kCols; ++j)
+        part[warp][st.lane * V / kS + j] = k.acc[j];
+    }
+    __syncthreads();
+    const int y0 = st.y0;                 // first row of the block row
+    if (warp % P::kGroup == 0 && y0 < H) {
+      for (int c = st.lane; c < kBandCols; c += kWarpSize) {
+        const int bx = band * kBandCols + c;
+        int sum = 0;
+#pragma unroll
+        for (int w = 0; w < P::kGroup; ++w) sum += part[warp + w][c];
+        if (bx < out_w)
+          out[(size_t)(y0 / kS) * out_w + bx] = (float)sum / (float)(kS * kS);
+      }
+    }
+  }
+}
+
+template <int kS>
+int launch(const uint8_t* img, float* out, int H, int W, cudaStream_t st) {
+  constexpr int rows = kWarpsPerBlock * strip_rows(kS);   // rows a block
+  constexpr int band_w = kWarpSize * kPyrRun;
+  const long long bands = (W + band_w - 1) / band_w;
+  const long long blocks = bands * ((H + rows - 1) / rows);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  edge_pyramid_kernel<kS><<<(unsigned)blocks, kThreads, 0, st>>>(
+      img, out, H, W, (W + kS - 1) / kS);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int edge_pyramid_launch(const void* img, void* out, int H, int W,
                                    int s, void* stream) {
-  if (s < 1 || s > 64 || kTileW % s != 0) return (int)cudaErrorInvalidValue;
-  const int out_h = (H + s - 1) / s;
-  const int out_w = (W + s - 1) / s;
-  dim3 grid((W + kTileW - 1) / kTileW, out_h);
-  const size_t shmem = ((size_t)(s + 2) * (kTileW + 2) + kTileW / s) * sizeof(int);
-  edge_pyramid_kernel<<<grid, kThreads, shmem, (cudaStream_t)stream>>>(
-      (const uint8_t*)img, (float*)out, H, W, s, out_w);
-  return (int)cudaGetLastError();
+  if (H < 1 || W < 1) return (int)cudaErrorInvalidValue;
+  const uint8_t* in = (const uint8_t*)img;
+  float* o = (float*)out;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (s) {
+    case 1: return launch<1>(in, o, H, W, st);
+    case 2: return launch<2>(in, o, H, W, st);
+    case 4: return launch<4>(in, o, H, W, st);
+    case 8: return launch<8>(in, o, H, W, st);
+    case 16: return launch<16>(in, o, H, W, st);
+    case 32: return launch<32>(in, o, H, W, st);
+    case 64: return launch<64>(in, o, H, W, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

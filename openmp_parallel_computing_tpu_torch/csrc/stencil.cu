@@ -20,17 +20,20 @@
 // row-streaming body of stencil_rows.cuh: a warp walks a strip of rows,
 // a lane loading 4 bytes of each of R, G and B a row; it forms the luma
 // once per staged pixel, keeps three luma rows in registers, and writes
-// R, G, B (and A) with 4-byte stores. Its square root is the approximate
+// R, G, B (and A) with 4-byte stores. Its loads, luma and square root are
+// edge_rows.cuh's, which csrc/edge_pyramid.cu shares: the approximate
 // rsqrtf with a margin that makes the floor exact (isqrt_255), not the
 // several instructions of a correctly rounded sqrt. A pass never runs in
 // place (its neighbours' inputs would be overwritten): the wrapper
 // ping-pongs two buffers.
 
+#include "edge_rows.cuh"
 #include "stencil3x3.cuh"
 #include "stencil_rows.cuh"
 
 namespace {
 
+using namespace edge_rows;
 using namespace stencil3x3;
 using namespace stencil_rows;
 
@@ -58,21 +61,6 @@ __global__ void sobel_kernel(const uint8_t* __restrict__ in,
   }
 }
 
-// min(floor(sqrt(n)), 255) for 0 <= n < 2^23, exact. m = min(n, 255^2)
-// goes to float and back by the 2^23 bias (m and the floor as the low
-// mantissa bits), not the conversion instructions. The approximate rsqrtf
-// (at most 2 ulp) gives s = m / sqrt(m) within 1e-4 of sqrt(m) <= 255;
-// floor(s + 2^-10) is then exact: a perfect square k^2 lands in
-// [k, k + 0.002), and any other m's root is at least 1 / 510 below the
-// next integer, more than 2^-10 + 1e-4.
-__device__ __forceinline__ int isqrt_255(int n) {
-  constexpr float kBias = 8388608.f;  // 2^23
-  const int m = min(n, 255 * 255);
-  const float f = __int_as_float(0x4b000000 | m) - kBias;
-  const float s = __fmaf_rn(f, rsqrtf(fmaxf(f, 1.f)), 0x1p-10f);
-  return __float_as_int(__fadd_rz(s, kBias)) - 0x4b000000;
-}
-
 // The walk's sizes, chosen by timing the pass at 1080p and 6 MP on an
 // H100 (PERF.md §6): runs of 4, 8 and 16 bytes, strips of 2-16 rows,
 // rings of 2-8 rows.
@@ -83,87 +71,38 @@ constexpr int kEdgeRun = 4;        // V: bytes a lane and plane row
 // The fused edge pass of one strip: C planes in (3 or 4), the luma's
 // Sobel magnitude out to R, G and B, alpha copied.
 template <int C>
-struct Edge {
+struct Edge : LumaRows<C, kEdgeRun> {
   static constexpr int V = kEdgeRun;
-  struct Raw {
-    Run<uint8_t, V> c[C];  // R, G, B (and A) runs
-    uint8_t e[3];          // R, G, B of the band's outer column (lanes 0, 31)
-  };
-  struct Row {
-    int l[V + 2];          // luma of columns x - 1 .. x + V
-    Run<uint8_t, V> a;     // alpha run (C == 4)
-  };
+  using Row = typename LumaRows<C, V>::Row;
 
-  const uint8_t* __restrict__ src;
   uint8_t* __restrict__ dst;
-  int H, W;
-  size_t plane;
   int zero_border;
-  Strip s;
-
-  __device__ __forceinline__ Raw fetch(int y) const {
-    Raw raw;
-    if (y < 0 || y >= H) {
-#pragma unroll
-      for (int c = 0; c < C; ++c) raw.c[c] = zero_run<uint8_t, V>();
-#pragma unroll
-      for (int c = 0; c < 3; ++c) raw.e[c] = 0;
-      return raw;
-    }
-    const uint8_t* row = src + (size_t)y * W;
-#pragma unroll
-    for (int c = 0; c < C; ++c)
-      raw.c[c] = fetch_run<V>(row + c * plane, s.x, W);
-#pragma unroll
-    for (int c = 0; c < 3; ++c) raw.e[c] = fetch_edge<V>(row + c * plane, s, W);
-    return raw;
-  }
-
-  __device__ __forceinline__ Row stage(const Raw& raw) const {
-    Row w;
-#pragma unroll
-    for (int v = 0; v < V; ++v)
-      w.l[v + 1] = luma_fix(elem(raw.c[0], v), elem(raw.c[1], v),
-                            elem(raw.c[2], v));
-    link<V>(w.l, luma_fix(raw.e[0], raw.e[1], raw.e[2]), s.lane);
-    if constexpr (C == 4) w.a = raw.c[3];
-    return w;
-  }
 
   __device__ __forceinline__ void emit(const Row& up, const Row& mid,
                                        const Row& dn, int y) const {
+    const int H = this->H, W = this->W, x = this->s.x;
     int o[V];
     if (zero_border && (y == 0 || y == H - 1)) {
 #pragma unroll
       for (int v = 0; v < V; ++v) o[v] = 0;
     } else {
-      int cs[V + 2], dd[V + 2];  // column sums (1 2 1) and up - dn
-#pragma unroll
-      for (int j = 0; j < V + 2; ++j) {
-        cs[j] = up.l[j] + 2 * mid.l[j] + dn.l[j];
-        dd[j] = up.l[j] - dn.l[j];
-      }
-#pragma unroll
-      for (int v = 0; v < V; ++v) {
-        const int gx = cs[v + 2] - cs[v];
-        const int gy = dd[v] + 2 * dd[v + 1] + dd[v + 2];
-        o[v] = isqrt_255(gx * gx + gy * gy);
-      }
+      sobel_run(up, mid, dn, o);
       // The border columns 0 and W - 1, in the lanes that hold them.
-      if (zero_border && (s.x == 0 || (unsigned)(W - 1 - s.x) < (unsigned)V)) {
+      if (zero_border && (x == 0 || (unsigned)(W - 1 - x) < (unsigned)V)) {
 #pragma unroll
         for (int v = 0; v < V; ++v)
-          if (s.x + v == 0 || s.x + v == W - 1) o[v] = 0;
+          if (x + v == 0 || x + v == W - 1) o[v] = 0;
       }
     }
     uint8_t* row = dst + (size_t)y * W;
 #pragma unroll
-    for (int c = 0; c < 3; ++c) store_run<uint8_t>(row + c * plane, s.x, W, o);
+    for (int c = 0; c < 3; ++c)
+      store_run<uint8_t>(row + c * this->plane, x, W, o);
     if constexpr (C == 4) {
       int a[V];
 #pragma unroll
       for (int v = 0; v < V; ++v) a[v] = elem(mid.a, v);
-      store_run<uint8_t>(row + 3 * plane, s.x, W, a);
+      store_run<uint8_t>(row + 3 * this->plane, x, W, a);
     }
   }
 };
@@ -174,7 +113,7 @@ __global__ void __launch_bounds__(kThreads)
                 int H, int W, int zero_border) {
   Strip s;
   if (!strip_of<Edge<C>::V, kEdgeStripRows>(1, H, W, s)) return;
-  Edge<C> k{in, out, H, W, (size_t)H * W, zero_border, s};
+  Edge<C> k{{in, H, W, (size_t)H * W, s}, out, zero_border};
   walk<kEdgeStripRows, kEdgeRingRows>(k, s.y0, H);
 }
 

@@ -22,8 +22,10 @@ import torch
 
 from openmp_parallel_computing_tpu_torch import probe
 from openmp_parallel_computing_tpu_torch import ops
+from openmp_parallel_computing_tpu_torch import _build
 from openmp_parallel_computing_tpu_torch.bench import (
-    _chain, headline, image_kernels, mpc_batch, sweep_kernels)
+    _chain, headline, image_kernels, kernel_variants, mpc_batch,
+    sweep_kernels)
 from openmp_parallel_computing_tpu_torch.models.mpc import VisualServoMPC, sweep
 from openmp_parallel_computing_tpu_torch.utils.config import MPCConfig
 
@@ -158,17 +160,21 @@ def test_sweep_kernels_bench_cases_run_on_the_cpu(frame):
     (multi_sweep, the unified sweep in its admitted form and with the gains
     in global memory, backward, forward) and the batched Riccati backward
     on the fused path's inputs at each batch, full_solve at the first, the
-    zero-gain forward at its own batch; each call runs (the plain versions
-    on the CPU, where both unified forms give the same bits), and forcing
-    the global form leaves the admission as it was."""
+    zero-gain forward at its own batch, the gather sampler's gradient mode
+    on the rollout's points at each batch and its value mode at the first;
+    each call runs (the plain versions on the CPU, where both unified forms
+    give the same bits), and forcing the global form leaves the admission
+    as it was."""
     smoke = _chip_smoke()
     admit = sweep.group_sweep_fits
     got = sweep_kernels.cases(smoke, frame, m=2, h=3, batches=(5, 3),
                               zero_batch=7)
     names = ("multi_sweep", "unified_sweep", "unified_sweep_global",
-             "backward_sweep", "forward_sweep", "riccati_backward")
+             "backward_sweep", "forward_sweep", "riccati_backward",
+             "sampler_vg")
     assert set(got) == ({f"{n}_b{b}" for n in names for b in (5, 3)}
-                        | {"full_solve_b5", "forward_sweep_zero_b7"})
+                        | {"full_solve_b5", "forward_sweep_zero_b7",
+                           "sampler_vals_b5"})
     outs = {}
     for key, (call, kernel, iters) in got.items():
         outs[key] = call()
@@ -183,11 +189,27 @@ def test_sweep_kernels_bench_cases_run_on_the_cpu(frame):
         K, k = outs[f"riccati_backward_b{b}"]
         assert K.shape == (b, 3, 6, 4) and k.shape == (b, 3, 6)
         assert got[f"riccati_backward_b{b}"][1] == "riccati_kernel"
+        v, g = outs[f"sampler_vg_b{b}"]
+        assert v.shape == (4, 2, b) and g.shape == (4, 4, b)
+        assert got[f"sampler_vg_b{b}"][1] == "sample_kernel"
+    assert torch.equal(outs["sampler_vals_b5"], outs["sampler_vg_b5"][0])
     ps_c, us_c, _ = outs["forward_sweep_zero_b7"]   # zero gains: every
     assert ps_c.shape == (4, 4, 4, 7)                # candidate the rollout
     for a in range(1, 4):
         assert torch.equal(ps_c[:, a], ps_c[:, 0])
         assert torch.equal(us_c[:, a], us_c[:, 0])
+
+
+def test_bench_only_selects_cases_by_key_prefix(frame):
+    """``--only PREFIX`` keeps the cases whose key starts with PREFIX (the
+    sampler's three, one kernel's variants timed alone) and all for ""."""
+    got = sweep_kernels.cases(_chip_smoke(), frame, m=2, h=3,
+                              batches=(5, 3), zero_batch=7)
+    assert set(sweep_kernels.select(got, "sampler")) == {
+        "sampler_vg_b5", "sampler_vg_b3", "sampler_vals_b5"}
+    assert set(sweep_kernels.select(got, "full_solve")) == {"full_solve_b5"}
+    assert sweep_kernels.select(got, "") == got
+    assert sweep_kernels.select(got, "nothing") == {}
 
 
 def test_sweep_kernels_bench_needs_a_card():
@@ -216,14 +238,15 @@ def test_sweep_kernels_root_imports_the_package_of_that_checkout(tmp_path):
 
 def test_image_kernels_bench_cases_run_on_the_cpu():
     """bench/image_kernels.py's cases at a small size: the blur, conv3x3
-    on run-time taps, the edge pass, grayscale, Sobel and a copy on each
-    frame, each call ``passes`` passes of its op (the plain versions on
-    the CPU), keyed by kernel and frame."""
+    on run-time taps, the edge pass, the perception kernel (s=16),
+    grayscale, Sobel and a copy on each frame, each call ``passes`` passes
+    of its op (the plain versions on the CPU), keyed by kernel and
+    frame."""
     from openmp_parallel_computing_tpu_torch.ops.conv import conv3x3_plain
     from openmp_parallel_computing_tpu_torch.ops.grayscale import (
         grayscale_plain)
     from openmp_parallel_computing_tpu_torch.ops.pipeline import (
-        edge_pipeline_plain)
+        edge_pipeline_plain, edge_pyramid_base_plain)
     from openmp_parallel_computing_tpu_torch.ops.sobel import sobel_plain
 
     rng = np.random.default_rng(9)
@@ -232,7 +255,8 @@ def test_image_kernels_bench_cases_run_on_the_cpu():
               "b": torch.from_numpy(rng.integers(0, 256, (4, 5, 17),
                                                  dtype=np.uint8))}
     got = image_kernels.cases(_chip_smoke(), frames, passes=2)
-    names = ("blur", "conv3x3_sharpen", "edge", "grayscale", "sobel", "copy")
+    names = ("blur", "conv3x3_sharpen", "edge", "edge_pyramid", "grayscale",
+             "sobel", "copy")
     assert set(got) == {f"{n}_{label}" for n in names for label in frames}
     for label, img in frames.items():
         want = {
@@ -247,13 +271,15 @@ def test_image_kernels_bench_cases_run_on_the_cpu():
             out = call()
             assert kernel == ("Memcpy" if name == "copy" else "_kernel")
             assert iters > 0
-            if name in ("sobel", "copy"):
-                plain = sobel_plain(img[0]) if name == "sobel" else img
+            if name in ("sobel", "copy", "edge_pyramid"):
+                plain = {"sobel": sobel_plain(img[0]), "copy": img,
+                         "edge_pyramid": edge_pyramid_base_plain(img)}[name]
                 assert len(out) == 2
                 assert all(torch.equal(o, plain) for o in out)
             else:
                 assert torch.equal(out, want[name]), (name, label)
     assert ops.conv3x3.launches == 0 and ops.edge_pipeline.launches == 0
+    assert ops.edge_pyramid_base.launches == 0
 
 
 def test_image_kernels_bench_needs_a_card():
@@ -280,6 +306,39 @@ def test_image_kernels_root_imports_the_package_of_that_checkout(tmp_path):
     assert "no CUDA device: the image kernels" in out.stderr
 
 
+@pytest.mark.parametrize("name", sorted(kernel_variants.VARIANTS))
+def test_kernel_variants_edit_the_sources(tmp_path, name):
+    """Each timed variant applies to the sources as they are (every text
+    edit matches once), edits only its own source, and leaves the first
+    variant of each source (the source as it is) unchanged."""
+    source, edits = kernel_variants.VARIANTS[name]
+    d = kernel_variants.prepare([name], _build.CSRC, tmp_path)[name]
+    for path in sorted(_build.CSRC.iterdir()):
+        copy = (d / "csrc" / path.name).read_text()
+        if path.name != f"{source}.cu" or not edits:
+            assert copy == path.read_text(), path.name
+        else:
+            assert copy != path.read_text()
+
+
+def test_kernel_variants_edits_match_once():
+    text = "constexpr int kA = 4;  // a\nfoo(bar);\nfoo(baz);\n"
+    got = kernel_variants.edited(text, [kernel_variants.const("kA", 8),
+                                        ("foo(bar)", "qux")])
+    assert got == "constexpr int kA = 8;  // a\nqux;\nfoo(baz);\n"
+    with pytest.raises(ValueError, match="2 times"):
+        kernel_variants.edited(text, [("foo(", "x(")])
+    with pytest.raises(ValueError, match="0 times"):
+        kernel_variants.edited(text, [("absent", "x")])
+
+
+def test_kernel_variants_need_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is attached: the variants would run")
+    with pytest.raises(RuntimeError, match="no CUDA device: the kernel"):
+        kernel_variants.main([])
+
+
 def test_probe_reports_no_card_without_raising():
     info = probe.probe()
     assert info["device_count"] == torch.cuda.device_count()
@@ -296,7 +355,8 @@ def test_bench_and_probe_import_without_jax():
         "sys.modules['openmp_parallel_computing_tpu'] = None\n"
         "from openmp_parallel_computing_tpu_torch import probe\n"
         "from openmp_parallel_computing_tpu_torch.bench import (_chain,"
-        " headline, mpc_batch, sweep_kernels)\n"
+        " headline, image_kernels, kernel_variants, mpc_batch,"
+        " sweep_kernels)\n"
         "bad = [k for k in sys.modules if k.startswith('jax')"
         " and sys.modules[k] is not None]\n"
         "assert not bad, bad\n"

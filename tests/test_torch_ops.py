@@ -228,15 +228,19 @@ def test_wrappers_reject_bad_input_and_count_no_cpu_launch():
 
 
 @pytest.mark.parametrize("header, rebuilt", [
-    ("stencil3x3.cuh", {"stencil", "grayscale"}),
-    ("stencil_rows.cuh", {"stencil", "conv3x3"}),
+    ("stencil3x3.cuh", {"stencil", "grayscale", "edge_pyramid"}),
+    ("stencil_rows.cuh", {"stencil", "conv3x3", "edge_pyramid"}),
+    ("edge_rows.cuh", {"stencil", "edge_pyramid"}),
 ])
 def test_build_hash_covers_included_headers(tmp_path, monkeypatch, header,
                                             rebuilt):
     """Editing a shared csrc header changes the library name of every
-    kernel that includes it (and of no other), without running nvcc: the
-    halo-tile header rebuilds Sobel's and grayscale's sources, the
-    row-streaming body rebuilds the edge pass's and conv3x3's."""
+    kernel that includes it, directly or through another header (and of no
+    other), without running nvcc: the halo-tile header rebuilds Sobel's
+    and grayscale's sources and, through the luma rows, the perception
+    kernel's; the row-streaming body rebuilds the edge pass's, conv3x3's
+    and the perception kernel's; the luma rows (edge_rows.cuh) the edge
+    pass's and the perception kernel's. The sampler includes none."""
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", csrc)
@@ -245,7 +249,7 @@ def test_build_hash_covers_included_headers(tmp_path, monkeypatch, header,
         raise AssertionError("nvcc must not run")
 
     monkeypatch.setattr(_build, "nvcc_path", no_nvcc)
-    names = ("stencil", "conv3x3", "grayscale", "edge_pyramid")
+    names = ("stencil", "conv3x3", "grayscale", "edge_pyramid", "sampler")
     before = {n: _build._target(n)[0].name for n in names}
     path = csrc / header
     for n in rebuilt:

@@ -31,8 +31,10 @@ def test_edge_pyramid_base_equals_pallas_kernel(shape):
     np.testing.assert_array_equal(got.numpy(), ref)
 
 
-@pytest.mark.parametrize("s", [4, 8])
+@pytest.mark.parametrize("s", [1, 2, 4, 8, 32, 64])
 def test_edge_pyramid_base_other_scales(s):
+    """Every other pool scale the kernel takes (s <= 64 dividing 128) on a
+    frame that no scale above 1 divides."""
     rng = np.random.default_rng(s)
     img = rng.integers(0, 256, (3, 37, 45), dtype=np.uint8)
     ref = np.asarray(jax_pipeline.edge_pyramid_base(jnp.asarray(img), s=s))

@@ -14,18 +14,21 @@ Any failure raises and the script exits non-zero.
    group-sweep kernels (multi_sweep, full_solve, and the unified, backward
    and forward kernels of csrc/sweep.cu), (n = 4, 8, 16) of the batched
    Riccati kernel, or of the row-streaming stencils (conv3x3's twelve
-   type/mode instances and its blur instance; the edge pass for C = 3,
-   4; the perception kernel for s = 1, 2, 4, 8, 16, 32, 64), or of the
-   gather sampler's four instances (two modes x one or two points a
-   thread).
+   type/mode instances and its blur instance; the edge pass for C = 1
+   (also Sobel), 3, 4; the perception kernel for one and three planes
+   at s = 1, 2, 4, 8, 16, 32, 64 and at a run-time s), or of the gather
+   sampler's four instances (two modes x one or two points a thread), or
+   of grayscale, channel_sum (eight dtypes) and gray_minmax.
 3. Kernel vs plain: each kernel against its plain PyTorch version on the
    same inputs at the shapes the main path gives it, with both times and
    the least time the card could take (``bound``). The perception kernel
-   bit-exact on the 1080p fixture and its ring of 8 shifted frames, and at
-   every pool scale it takes (PYRAMID_SCALES) on ODD_FRAMES, EDGE_SHAPES
-   (1 and 2 rows, widths around a lane's run, a 16-column block and a
-   128-column band, an RGBA frame of odd plane size), a plane that starts
-   off a 4-byte boundary and both photos, timed at 1080p and 6MP; the
+   bit-exact on the 1080p fixture and its ring of 8 shifted frames, at
+   its compiled scales (PYRAMID_SCALES) on ODD_FRAMES, EDGE_SHAPES (1 and
+   2 rows, widths around a lane's run, a 16-column block and a 128-column
+   band, an RGBA frame of odd plane size), a plane that starts off a
+   4-byte boundary, both photos and grey frames (C = 1) of each, and at
+   every scale up to POOL_MAX (and POOL_BIG) that the JAX package takes
+   on a POOL_FRAME frame and its grey plane, timed at 1080p and 6MP; the
    multi-sweep kernel within MULTI_SWEEP_TOL at MULTI_SHAPES (m=8, H=20,
    B=4096 on a real nominal rollout, smaller feature counts, ragged
    batches B=999, 1 and 254 whose last block holds groups past the end),
@@ -50,12 +53,13 @@ Any failure raises and the script exits non-zero.
    and on the NaN batch, and backward + forward against unified; rows
    10-12 timed at B=4096 and 256. The image kernels
    (grayscale, sobel, edge, conv3x3) bit-exact with their plain versions
-   on the ring, the half-mega and 6MP photos, odd and 1-3-row frames, at
-   passes 1 and 3, both borders and every conv mode of the CPU tests; the
-   row-streaming body's edges (EDGE_SHAPES: widths around a lane's run
-   and a warp's band, 1 and 2 rows, an RGBA frame of odd plane size, a
-   plane that starts off a 4-byte boundary) for conv3x3 and the
-   edge pass, int32 and float32 conv inputs with negative values, and the
+   on the ring, the half-mega and 6MP photos, odd and 1-3-row frames and
+   grey frames (C = 1) of them, at passes 1 and 3, both borders and every
+   conv mode of the CPU tests; the row-streaming body's edges
+   (EDGE_SHAPES: widths around a lane's run and a warp's band, 1 and 2
+   rows, an RGBA frame of odd plane size, a plane that starts off a
+   4-byte boundary) for conv3x3, the edge pass and Sobel (every plane),
+   int32 and float32 conv inputs with negative values, and the
    integer division at the int32 extremes for every norm in DIV_NORMS;
    with kernel and plain times per pass (CUDA events) and device us a
    pass (profiler) at 1080p and 6MP. The one-launch solve
@@ -104,13 +108,17 @@ Any failure raises and the script exits non-zero.
    1080p, half-mega and 6MP (the ladder of tests/test_golden_parity.py).
    Then the two reduction kernels (channel_sum, gray_minmax) against their
    plain versions: bit-exact on u8 (the image kernels' inputs, C=4 at
-   1080p, 1-pixel-wide frames, all-0 and all-255, the legacy input) and on
-   int32, float32 within SUM_F32_RTOL, the same bits on a second call, the
-   card against the CPU at 1080p; times by CUDA events and the profiler at
-   1080p and 6MP, the library's int64 ``torch.sum`` beside channel_sum.
+   1080p, 1-pixel-wide frames, all-0 and all-255, the legacy input; grey
+   frames for gray_minmax) and on int32, float32 within SUM_F32_RTOL, the
+   same bits on a second call; channel_sum on every dtype (SUM_DTYPES) with
+   planes off 4- and 16-byte boundaries, integers bit-exact, floats within
+   SUM_F32_RTOL and the same bits again, and a u8 plane above 2^24 pixels
+   (BIG_PLANE); the card against the CPU at 1080p; times by CUDA events
+   and the profiler at 1080p and 6MP, the library's int64 ``torch.sum``
+   beside channel_sum.
 6. The reductions' path: ``ops.channel_mean``, ``ops.channel_sum`` and
    ``ops.grayscale_mean_minmax`` over the ring and on the legacy input,
-   launches counted (channel_sum two a call), the legacy golden's gray
+   launches counted (channel_sum one a call), the legacy golden's gray
    planes and min/max (2, 249) reproduced bit for bit.
 7. The probe: ``probe.probe()`` reports the kernel path supported on the
    card.
@@ -157,8 +165,12 @@ H, M = 20, 8
 BATCHES = ((4096, 20), (256, 40))  # (scenarios, timed steps)
 RING = 8
 ODD_FRAMES = ((3, 40, 72), (4, 33, 50), (3, 17, 130))
-# Every pool scale the perception kernel takes (s <= 64 dividing 128).
+# The pool scales of the perception kernel's compiled instances; any other
+# scale runs its run-time instance. POOL_FRAME: the frame on which every
+# scale up to POOL_MAX that the JAX package takes (s = 1, 2, 4, 8-128) and
+# POOL_BIG are checked.
 PYRAMID_SCALES = (1, 2, 4, 8, 16, 32, 64)
+POOL_FRAME, POOL_MAX, POOL_BIG = (3, 75, 130), 128, (200, 1000)
 
 # The per-sweep path (phase 4b) and the measurements of phase 4c.
 ILQR_BATCHES = ((4096, 10), (256, 20))     # (scenarios, timed steps)
@@ -185,13 +197,16 @@ MULTI_SHAPES = SWEEP_SHAPES + ((M, H, 999), (M, H, 1), (4, 8, 254))
 TOO_LONG_H, LONG_BATCH = 400, 64
 LONG_H_FITS = 200                # the longest checked that fits at m=8
 NAN_BATCH, NAN_SCENARIOS = 256, (5, 77, 200)
-# The group kernels and the row-streaming stencils must not spill: ptxas
-# reports 0 bytes of spill stores for each of their instances, by library
-# and kernel: the integer template arguments of each (m = 2, 4, 8 for the
-# sweeps; n = 4, 8, 16 for the Riccati backward; C = 3, 4 for the edge
-# pass; s for the perception kernel), or the number of instances (conv3x3:
-# three input types x four accumulator/output modes; the blur instance;
-# the sampler: two modes x one or two points a thread).
+# The group kernels, the row-streaming stencils and the image and
+# reduction kernels must not spill: ptxas reports 0 bytes of spill stores
+# for each of their instances, by library and kernel: the integer
+# template arguments of each (m = 2, 4, 8 for the sweeps; n = 4, 8, 16 for
+# the Riccati backward; C = 1, 3, 4 for the edge pass and Sobel; the planes
+# read (1 or 3) and s for the perception kernel, the planes for its
+# run-time scale, for grayscale and for gray_minmax; the eight dtypes of
+# channel_sum), or the number of instances (conv3x3: three input types x
+# four accumulator/output modes; the blur instance; the sampler: two
+# modes x one or two points a thread).
 SWEEP_MS, RICCATI_NS = {2, 4, 8}, {4, 8, 16}
 NO_SPILL = {"multi_sweep": {"multi_sweep_kernel": SWEEP_MS},
             "full_solve": {"full_solve_kernel": SWEEP_MS},
@@ -200,8 +215,13 @@ NO_SPILL = {"multi_sweep": {"multi_sweep_kernel": SWEEP_MS},
                       "forward_sweep_kernel": SWEEP_MS},
             "riccati": {"riccati_kernel": RICCATI_NS},
             "conv3x3": {"conv3x3_kernel": 12, "blur_kernel": 1},
-            "stencil": {"edge_kernel": {3, 4}},
-            "edge_pyramid": {"edge_pyramid_kernel": {1, 2, 4, 8, 16, 32, 64}},
+            "stencil": {"edge_kernel": {1, 3, 4}},
+            "edge_pyramid": {"edge_pyramid_kernel": {
+                (p, s) for p in (1, 3) for s in PYRAMID_SCALES},
+                "edge_pyramid_s_kernel": {1, 3}},
+            "grayscale": {"grayscale_kernel": {1, 3}},
+            "reductions": {"channel_sum_kernel": set(range(8)),
+                           "gray_minmax_kernel": {1, 3}},
             "sampler": {"sample_kernel": 4}}
 MPC_ROWS = {   # kernel -> (source, TPU kernel it replaces)
     "sampler": ("csrc/sampler.cu", "models/mpc/sampler_pallas.py:57"),
@@ -275,7 +295,7 @@ EDGE_SHAPES = (tuple((3, 5, w) for w in EDGE_WIDTHS)
 DIV_NORMS = range(1, 1001)
 # The profiler's kernel name for each image row's timed pass (the u8 blur
 # runs conv3x3's blur instance).
-IMAGE_KEYS = {"grayscale": "grayscale_kernel", "sobel": "sobel_kernel",
+IMAGE_KEYS = {"grayscale": "grayscale_kernel", "sobel": "edge_kernel<1>",
               "edge": "edge_kernel", "conv3x3": "blur_kernel"}
 IMAGE_ROWS = {   # kernel -> (source, TPU kernel it replaces)
     "grayscale": ("csrc/grayscale.cu", "ops/grayscale.py:58"),
@@ -297,10 +317,18 @@ REDUCTION_ROWS = {   # kernel -> (source, TPU kernel it replaces)
 # pixel, and extremes as tests/test_fuzz.py makes them.
 REDUCTION_FRAMES = ((3, 29, 1), (3, 1, 1), (4, 1, 1))
 CONSTANT_SHAPE = (3, 40, 136)
-# channel_sum of float32 against its plain version: both sum in double
-# and round once to float32, in different orders, so the last bit may
-# differ.
+# channel_sum of a float image against its plain version: both sum in
+# double and round once to float32, in different orders, so the last bit
+# may differ.
 SUM_F32_RTOL = 1e-6
+# channel_sum's dtypes: the kernel's eight instances, and the three that
+# are cast (or viewed) before it. Each on SUM_SHAPE at plane offsets of
+# 0 bytes, one element and 4 bytes into a buffer (off 4- and 16-byte
+# boundaries), and u8 on BIG_PLANE (above 2^24 pixels a channel, all 255:
+# a sum above 2^32).
+SUM_DTYPES = ("uint8", "int8", "int16", "uint16", "int32", "float16",
+              "bfloat16", "float32", "bool", "int64", "float64")
+SUM_SHAPE, BIG_PLANE = (3, 37, 131), (1, 4200, 4200)
 # The headline bench (phase 7), cut in depth: bench.py's batches, fewer
 # steps and trials.
 HEADLINE_RUN = dict(scenarios=4096, steps=10, scenarios_small=256,
@@ -444,13 +472,22 @@ def phase_build() -> dict:
             if isinstance(want, int):
                 ok = len(found) == want
             else:
-                ok = {int(re.search(r"ILi(\d+)E", e).group(1))
-                      for e in found} == want
+                ok = {template_ints(e) for e in found} == want
             if not ok or any(found.values()):
                 raise AssertionError(
                     f"{name}: ptxas spill stores of {kernel} {found}, want "
                     f"0 bytes for each of its instances ({want})")
     return reports
+
+
+def template_ints(mangled: str):
+    """The integer template arguments of a mangled kernel name (those
+    right after its ``*_kernel`` name, bools left out): the one value, or a
+    tuple of several."""
+    found = re.search(r"_kernelI((?:L[bi]\d+E)+)E", mangled)
+    values = tuple(int(v) for v in re.findall(r"Li(\d+)E", found.group(1))
+                   ) if found else ()
+    return values[0] if len(values) == 1 else values
 
 
 _MANGLED_TYPES = {"h": "u8", "i": "i32", "f": "f32"}
@@ -533,16 +570,42 @@ def phase_kernels(frames, photos) -> dict:
     inputs["(5, 9, 77)[1:]"] = rand((5, 9, 77))[1:]
     inputs["ring[0]"] = frames[0]
     inputs.update(photos)
+    # Grey frames (C = 1): each frame's first plane, and planes off a
+    # 4-byte boundary.
+    inputs.update({f"{what}[:1]": img[:1]
+                   for what, img in list(inputs.items())})
+    inputs["(5, 9, 77)[1:2]"] = rand((5, 9, 77))[1:2]
     n_cmp = 0
+
+    def check(what, img, s):
+        nonlocal n_cmp
+        got = pipeline.edge_pyramid_base(img, s).cpu()
+        plain = pipeline.edge_pyramid_base_plain(
+            img.cpu() if img.numel() < 2 ** 16 else img, s).cpu()
+        if got.shape != plain.shape or not torch.equal(got, plain):
+            raise AssertionError(f"edge_pyramid kernel != plain on {what} "
+                                 f"at s={s}")
+        n_cmp += 1
+
     for what, img in inputs.items():
         for s in PYRAMID_SCALES:
-            got = pipeline.edge_pyramid_base(img, s).cpu()
-            plain = pipeline.edge_pyramid_base_plain(
-                img.cpu() if img.numel() < 2 ** 16 else img, s).cpu()
-            if got.shape != plain.shape or not torch.equal(got, plain):
-                raise AssertionError(f"edge_pyramid kernel != plain on {what} "
-                                     f"at s={s}")
-            n_cmp += 1
+            check(what, img, s)
+    # Every scale the JAX package takes on one odd frame, RGB and grey: the
+    # compiled instances and the run-time one.
+    pool = rand(POOL_FRAME)
+    scales = []
+    for s in (*range(1, POOL_MAX + 1), *POOL_BIG):
+        try:
+            pipeline.check_pool_scale(s, POOL_FRAME[2])
+        except ValueError:
+            continue
+        scales.append(s)
+        for img in (pool, pool[:1]):
+            check(f"{tuple(img.shape)}", img, s)
+    for s in (10, 12, 24, 48, 96, 128):
+        for what, img in (("ring[0]", frames[0]),
+                          ("6mp[:1]", photos["6mp"][:1])):
+            check(what, img, s)
     times = {}
     for label, img in (("1080p", frames[0]), ("6mp", photos["6mp"])):
         run = lambda: pipeline.edge_pyramid_base(img)  # noqa: E731
@@ -554,7 +617,9 @@ def phase_kernels(frames, photos) -> dict:
     out = pipeline.edge_pyramid_base(frames[0])
     bnd = bound(nbytes(frames[0][:3], out))
     log(f"[kernel] edge_pyramid: bit-exact on {frames.shape[0]} 1080p "
-        f"frames and in {n_cmp} comparisons at s={PYRAMID_SCALES}; 1080p "
+        f"frames and in {n_cmp} comparisons at s={PYRAMID_SCALES} (C = 1, 3, "
+        f"4) and at the {len(scales)} scales the JAX package takes on "
+        f"{POOL_FRAME} (s = {scales[0]}..{scales[-1]}); 1080p "
         f"kernel {ms:.4f} ms (device {times['1080p'][1]} us), 6MP "
         f"{times['6mp'][0]:.4f} ms (device {times['6mp'][1]} us), plain "
         f"{plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms")
@@ -1761,6 +1826,12 @@ def phase_image_kernels(frames, photos) -> dict:
                                  f"max abs err {err}")
         checks[kernel] += 1
 
+    # Grey frames (C = 1): the grayscale and edge-pass instances of one
+    # plane (the first, and one off a 4-byte boundary).
+    inputs.update({f"{what}[:1]": img[:1]
+                   for what, img in list(inputs.items())
+                   if not what.startswith("ring[") or what == "ring[0]"})
+    inputs["(5, 9, 77)[1:2]"] = rand((5, 9, 77))[1:2]
     for what, img in inputs.items():
         for p in (1, 3):
             same("grayscale", f"{what} passes={p}",
@@ -1769,9 +1840,10 @@ def phase_image_kernels(frames, photos) -> dict:
                 same("edge", f"{what} passes={p} border={border}",
                      ops.edge_pipeline(img, border, p),
                      edge_pipeline_plain(img, border, p))
-        for border in ("zero", "none"):
-            same("sobel", f"{what}[0] border={border}",
-                 ops.sobel(img[0], border), sobel_plain(img[0], border))
+        if img.shape[0] > 1:
+            for border in ("zero", "none"):
+                same("sobel", f"{what}[0] border={border}",
+                     ops.sobel(img[0], border), sobel_plain(img[0], border))
     conv_inputs = {k: v for k, v in inputs.items()
                    if not k.startswith("ring[") or k == "ring[0]"}
     conv_inputs["(1, 5, 5)"] = rand((1, 5, 5))
@@ -1807,8 +1879,14 @@ def phase_image_kernels(frames, photos) -> dict:
         edge_inputs[f"{shape} int32"] = signed
         edge_inputs[f"{shape} float32"] = signed.float() * 1.5 + 0.375
     for what, img in edge_inputs.items():
+        if img.dtype == torch.uint8:     # Sobel, the one-plane edge pass
+            for k in range(img.shape[0]):
+                for border in ("zero", "none"):
+                    same("sobel", f"{what}[{k}] border={border}",
+                         ops.sobel(img[k], border),
+                         sobel_plain(img[k], border))
         for p in (1, 3):
-            if img.dtype == torch.uint8 and img.shape[0] in (3, 4):
+            if img.dtype == torch.uint8 and img.shape[0] in (1, 3, 4):
                 for border in ("zero", "none"):
                     same("edge", f"{what} passes={p} border={border}",
                          ops.edge_pipeline(img, border, p),
@@ -1927,6 +2005,9 @@ def phase_reduction_kernels(frames, photos) -> dict:
         inputs[f"all {v}"] = torch.full(CONSTANT_SHAPE, v, dtype=torch.uint8,
                                         device="cuda")
     inputs["legacy"] = legacy_input("cuda")[0]
+    # Grey frames (C = 1): a plane, and one off a 4-byte boundary.
+    inputs["ring[0][:1]"] = frames[0][:1]
+    inputs["(5, 9, 77)[1:2]"] = rand((5, 9, 77))[1:2]
     n_cmp, worst = {"channel_sum": 0, "gray_minmax": 0}, 0.0
 
     def same(kernel, what, got, plain):
@@ -1943,6 +2024,8 @@ def phase_reduction_kernels(frames, photos) -> dict:
         same("gray_minmax", what, gray, red.grayscale_mean_minmax_plain(img))
         same("gray_minmax", f"{what} again", ops.grayscale_mean_minmax(img),
              gray)
+        if img.shape[0] == 1:
+            continue
         for name, (kern, plain) in sums.items():
             got = kern(img)
             same("channel_sum", f"{name} {what}", (got,), (plain(img),))
@@ -1970,6 +2053,36 @@ def phase_reduction_kernels(frames, photos) -> dict:
             worst = max(worst, err.max().item())
             same("channel_sum", f"float32 {name} {what} again", (kern(img),),
                  (got,))
+    # Every dtype, with planes at 0 bytes, one element and 4 bytes into
+    # their buffer; integers bit-exact, floats within SUM_F32_RTOL, the
+    # same bits on a second call; u8 above 2^24 pixels a channel.
+    for dt in SUM_DTYPES:
+        dtype = getattr(torch, dt)
+        n = SUM_SHAPE[0] * SUM_SHAPE[1] * SUM_SHAPE[2]
+        for skip in sorted({0, 1, 4 // dtype.itemsize or 1}):
+            flat = sum_values(dtype, n + skip, gen)
+            img = flat[skip:].view(SUM_SHAPE)
+            for name, (kern, plain) in sums.items():
+                what = f"{dt} {name} at +{skip * dtype.itemsize} bytes"
+                got, want = kern(img), plain(img)
+                if dtype.is_floating_point:
+                    err = (got - want).abs()
+                    if not (err <= SUM_F32_RTOL * want.abs()).all():
+                        raise AssertionError(f"{what}: kernel {got} vs "
+                                             f"plain {want}")
+                    worst = max(worst, err.max().item())
+                else:
+                    same("channel_sum", what, (got,), (want,))
+                same("channel_sum", f"{what} again", (kern(img),), (got,))
+    for what, img in (("all 255", torch.full(BIG_PLANE, 255,
+                                             dtype=torch.uint8,
+                                             device="cuda")),
+                      ("random", sum_values(torch.uint8, BIG_PLANE[1]
+                                            * BIG_PLANE[2] + 1, gen)[1:]
+                       .view(BIG_PLANE))):
+        for name, (kern, plain) in sums.items():
+            same("channel_sum", f"{name} {BIG_PLANE} {what}", (kern(img),),
+                 (plain(img),))
     f0, f0_cpu = frames[0], frames[0].cpu()
     same("channel_sum", "ring[0] vs CPU", (ops.channel_sum(f0).cpu(),),
          (red.channel_sum_plain(f0_cpu),))
@@ -1978,10 +2091,10 @@ def phase_reduction_kernels(frames, photos) -> dict:
     same("gray_minmax", "ring[0] vs CPU",
          [t.cpu() for t in ops.grayscale_mean_minmax(f0)],
          red.grayscale_mean_minmax_plain(f0_cpu))
-    log(f"[kernel] reductions: bit-exact with their plain versions (u8, "
-        f"int32; gray, min, max) and the same on a second call: {n_cmp} "
-        f"comparisons; float32 channel_sum max abs err {worst:.3e} (rtol "
-        f"{SUM_F32_RTOL})")
+    log(f"[kernel] reductions: bit-exact with their plain versions (the "
+        f"integer dtypes; gray, min, max) and the same on a second call: "
+        f"{n_cmp} comparisons; float channel_sum max abs err {worst:.3e} "
+        f"(rtol {SUM_F32_RTOL})")
 
     rows = {}
     for label, img in (("1080p", frames[0]), ("6mp", photos["6mp"])):
@@ -1991,7 +2104,7 @@ def phase_reduction_kernels(frames, photos) -> dict:
         timed = {
             "channel_sum": (
                 lambda: ops.channel_sum(img),
-                lambda: red.channel_sum_plain(img), "channel_sum_",
+                lambda: red.channel_sum_plain(img), "channel_sum_kernel",
                 bound(nbytes(img, out)),
                 lambda: torch.sum(img, dim=(1, 2), dtype=torch.int64)),
             "gray_minmax": (
@@ -2028,6 +2141,22 @@ def phase_reduction_kernels(frames, photos) -> dict:
     return rows
 
 
+def sum_values(dtype, n: int, gen):
+    """n values of ``dtype`` on the card, spread over its range: random
+    bytes as the dtype's bits for the integers (bool: 0 and 1), values in
+    [-1000, 3000) for the floats."""
+    import torch
+
+    if dtype.is_floating_point:
+        return (4000 * torch.rand(n, generator=gen, dtype=torch.float64)
+                - 1000).to(dtype).cuda()
+    if dtype == torch.bool:
+        return torch.randint(0, 2, (n,), generator=gen).bool().cuda()
+    raw = torch.randint(0, 256, (n * dtype.itemsize,), generator=gen,
+                        dtype=torch.uint8).cuda()
+    return raw.view(dtype)
+
+
 def phase_reductions(frames, rows: dict) -> None:
     """The reductions' path: the public ops API over the ring and the
     legacy input, counts set to 0 just before and read just after; each
@@ -2047,9 +2176,9 @@ def phase_reductions(frames, rows: dict) -> None:
     torch.cuda.synchronize()
     got = {"channel_sum": ops.channel_sum.launches,
            "gray_minmax": ops.grayscale_mean_minmax.launches}
-    # channel_sum: two launches a call, two calls a frame; gray_minmax:
-    # one a frame and one for the legacy input.
-    want = {"channel_sum": 2 * 2 * frames.shape[0],
+    # channel_sum: one launch a call, two calls a frame; gray_minmax: one
+    # a frame and one for the legacy input.
+    want = {"channel_sum": 2 * frames.shape[0],
             "gray_minmax": frames.shape[0] + 1}
     if got != want:
         raise AssertionError(f"reductions: launch counts {got} != {want}")

@@ -6,14 +6,17 @@ Times a pass of the u8 Gaussian blur (``ops.gaussian_blur``, conv3x3's
 main path), of conv3x3 on run-time taps (sharpen, norm 3, u8 -> u8:
 ``conv3x3_sharpen``), of the fused edge pass (``ops.edge_pipeline``), a
 launch of the perception kernel (``ops.edge_pyramid_base`` at s=16, the
-MPC step's: ``edge_pyramid``), and
-for reference of grayscale, the Sobel stencil and a copy of the frame
-(``Tensor.clone``: what moving a pass's bytes costs at that size, not the
-same function), on the 1080p frame and the 6 MP photo: by CUDA events
-over PASSES passes a call (``ms``, a pass)
-and by torch.profiler device time (``device_us``, a launch, which is a
-pass). One JSON line with the package it timed and the card's name and
-power limit. The frame, its output and the ping-pong buffer stay in the
+MPC step's: ``edge_pyramid``), of grayscale and the Sobel of plane 0, a
+call of ``ops.channel_sum`` (u8, C = 3) with the one library call that
+computes the same sums beside it (int64 ``torch.sum``: ``torch_sum``),
+and a copy of the frame (``Tensor.clone``: what moving a pass's bytes
+costs at that size, not the same function), on the 1080p frame and the
+6 MP photo (and the 1080p frame with an alpha plane, ``1080p_rgba``,
+for the RGBA instances): by CUDA events over PASSES passes a call
+(``ms``, a pass) and by torch.profiler device time (``device_us``, a
+pass: the mean device time of a launch times the launches of a pass,
+which are one but for channel_sum's two in earlier packages). One JSON line with the package it
+timed and the card's name and power limit. The frame, its output and the ping-pong buffer stay in the
 card's L2 from pass to pass at 1080p (~19 MB of 50 MB), not at 6 MP.
 ``--root DIR`` imports the package from the checkout at DIR, and
 ``--only PREFIX`` keeps the cases whose key starts with PREFIX, as in
@@ -35,14 +38,21 @@ ITERS = 3               # CUDA-event calls of PASSES passes each
 SHARPEN = ((0, -1, 0), (-1, 5, -1), (0, -1, 0))
 
 
+# Profiler keys: every kernel of the package and of earlier ones (a call
+# launches one kernel only, or channel_sum's), the device-to-device copy
+# that ``clone`` of a contiguous frame is, and torch.sum's reduction.
+KEYS = {"copy": "Memcpy", "channel_sum": "channel_sum",
+        "torch_sum": "reduce_kernel"}
+
+
 def cases(smoke, frames: dict, passes: int = PASSES) -> dict:
     """``{key: (call, profiler kernel name part, CUDA-event iterations)}``:
     each call runs ``passes`` passes of one kernel on one planar u8 frame
-    of ``frames`` (``{label: frame}``), keyed ``<kernel>_<label>``. The
-    profiler key matches every kernel of the package and of earlier ones
-    (a call launches one kernel only), and the device-to-device copy that
-    ``clone`` of a contiguous frame is. ``smoke`` is unused; it keeps the
-    signature of ``sweep_kernels.cases``."""
+    of ``frames`` (``{label: frame}``), keyed ``<kernel>_<label>``, with
+    the profiler key of KEYS (else ``_kernel``). ``smoke`` is unused; it
+    keeps the signature of ``sweep_kernels.cases``."""
+    import torch
+
     from openmp_parallel_computing_tpu_torch import ops
 
     out = {}
@@ -56,25 +66,46 @@ def cases(smoke, frames: dict, passes: int = PASSES) -> dict:
                                            for _ in range(passes)],
             "grayscale": lambda x=img: ops.grayscale(x, passes=passes),
             "sobel": lambda x=img: [ops.sobel(x[0]) for _ in range(passes)],
+            "channel_sum": lambda x=img: [ops.channel_sum(x)
+                                          for _ in range(passes)],
+            "torch_sum": lambda x=img: [
+                torch.sum(x, dim=(1, 2), dtype=torch.int64)
+                for _ in range(passes)],
             "copy": lambda x=img: [x.clone() for _ in range(passes)],
         }
         for name, call in calls.items():
-            key = "Memcpy" if name == "copy" else "_kernel"
-            out[f"{name}_{label}"] = (call, key, ITERS)
+            out[f"{name}_{label}"] = (call, KEYS.get(name, "_kernel"), ITERS)
     return out
 
 
 def measure(smoke, only: str = "") -> dict:
     """Each case's (whose key starts with ``only``) ms and device us a
-    pass at 1080p and 6 MP."""
+    pass at 1080p, 6 MP and 1080p RGBA."""
     from openmp_parallel_computing_tpu_torch import data
 
-    frames = {"1080p": data.load_frame_planar("cuda"),
-              "6mp": smoke.load_planar(data.six_mp_path(), "cuda")}
+    import torch
+
+    frame = data.load_frame_planar("cuda")
+    frames = {"1080p": frame,
+              "6mp": smoke.load_planar(data.six_mp_path(), "cuda"),
+              "1080p_rgba": torch.cat([frame, frame[:1]])}
+    from openmp_parallel_computing_tpu_torch import ops
+
     found = sweep_kernels.select(cases(smoke, frames), only)
-    return {key: dict(ms=smoke.cuda_time_ms(call, iters) / PASSES,
-                      device_us=smoke.device_us(call, kernel, 1))
-            for key, (call, kernel, iters) in found.items()}
+    out = {}
+    for key, (call, kernel, iters) in found.items():
+        # Launches a pass: channel_sum's from its counter (two in earlier
+        # packages), one for every other case. The device time of a
+        # launch is the profiler's mean, which a dropped event leaves as
+        # it is.
+        before = ops.channel_sum.launches
+        call()
+        launches = (ops.channel_sum.launches - before) / PASSES \
+            if key.startswith("channel_sum") else 1
+        us = smoke.device_us(call, kernel, 1)
+        out[key] = dict(ms=smoke.cuda_time_ms(call, iters) / PASSES,
+                        device_us=None if us is None else us * launches)
+    return out
 
 
 def main(argv=None) -> int:

@@ -10,10 +10,12 @@ version at the main path's shapes (but the FLOORS, which leave part of
 the work out to show what the rest costs), and each is timed by torch.profiler
 device time a launch in two rounds: the gather sampler on the rollout's
 points (``bench/sweep_kernels.py``'s ``sampler_cases``), ``edge_pyramid``
-on the 1080p frame and the 6 MP photo at s=16. Prints one JSON line with
+on the 1080p frame and the 6 MP photo at s=16, Sobel of their first
+planes and ``channel_sum`` of them (u8, C = 3). Prints one JSON line with
 the card's name and power limit and, for each variant, its ptxas
 register and spill lines and its times. How the run, strip and ring sizes
-of csrc/edge_pyramid.cu and the sampler's form were chosen (PERF.md §6).
+of csrc/edge_pyramid.cu and Sobel's, the sampler's form and channel_sum's
+grid were chosen (PERF.md §6).
 Without a card it raises.
 """
 
@@ -103,8 +105,59 @@ SAMPLER_SHARED = [
   P.smem = at * (int)sizeof(float);"""),
 ]
 
+# channel_sum's ticket as one acquire-release atomic (libcu++), and the
+# last block's fence an acquire fence, in place of two __threadfence():
+# timed no faster (PERF.md §6). The floors leave out the finish (the
+# ticket and the last block's sum) or the loads.
+CHANNEL_SUM_ACQ_REL = [
+    ("#include <cuda_runtime.h>\n\nnamespace {",
+     "#include <cuda_runtime.h>\n\n#include <cuda/atomic>\n\nnamespace {"),
+    ("""    __threadfence();       // the partial is visible before the ticket
+    last = atomicAdd(ticket, 1u) == (unsigned)chunks - 1;""",
+     """    last = cuda::atomic_ref<unsigned, cuda::thread_scope_device>(*ticket)
+               .fetch_add(1u, cuda::memory_order_acq_rel) ==
+           (unsigned)chunks - 1;"""),
+    ("  if (!last) return;\n  __threadfence();",
+     "  if (!last) return;\n  cuda::atomic_thread_fence("
+     "cuda::memory_order_acquire, cuda::thread_scope_device);"),
+]
+
 # name -> (source, edits); the first of each source is the source as it is.
+# Sobel (csrc/stencil.cu's one-plane edge pass): runs of 4, 8 and 16 bytes,
+# strips of 2, 4 and 8 rows, rings of 2 and 4. channel_sum (csrc/reductions.cu): the grid's
+# blocks an SM and the 16-byte loads a thread has in flight.
 VARIANTS = {
+    "sobel": ("stencil", []),
+    "sobel_strip8": ("stencil", [const("kSobelStripRows", 8)]),
+    "sobel_ring2": ("stencil", [const("kSobelRingRows", 2)]),
+    "sobel_strip2": ("stencil", [const("kSobelStripRows", 2),
+                                 const("kSobelRingRows", 2)]),
+    "sobel_run8": ("stencil", [const("kSobelRun", 8)]),
+    "sobel_run8_strip8": ("stencil", [const("kSobelRun", 8),
+                                      const("kSobelStripRows", 8)]),
+    "sobel_run8_strip2": ("stencil", [const("kSobelRun", 8),
+                                      const("kSobelStripRows", 2),
+                                      const("kSobelRingRows", 2)]),
+    "sobel_run16": ("stencil", [const("kSobelRun", 16)]),
+    "sobel_run16_strip8": ("stencil", [const("kSobelRun", 16),
+                                       const("kSobelStripRows", 8)]),
+    "channel_sum": ("reductions", []),
+    "channel_sum_blocks2": ("reductions", [const("kBlocksPerSM", 2)]),
+    "channel_sum_blocks8": ("reductions", [const("kBlocksPerSM", 8)]),
+    "channel_sum_blocks16": ("reductions", [const("kBlocksPerSM", 16)]),
+    "channel_sum_threads128": ("reductions", [const("kThreads", 128),
+                                              const("kBlocksPerSM", 8)]),
+    "channel_sum_threads512": ("reductions", [const("kThreads", 512),
+                                              const("kBlocksPerSM", 2)]),
+    "channel_sum_loads2": ("reductions", [const("kLoads", 2)]),
+    "channel_sum_loads8": ("reductions", [const("kLoads", 8)]),
+    "channel_sum_acq_rel": ("reductions", CHANNEL_SUM_ACQ_REL),
+    "channel_sum_no_finish": ("reductions", [(
+        "last = atomicAdd(ticket, 1u) == (unsigned)chunks - 1;",
+        "last = false;")]),
+    "channel_sum_no_loads": ("reductions", [(
+        "for (size_t i = t; i < words; i += kLoads * stride) {",
+        "for (size_t i = t; i < 0; i += kLoads * stride) {")]),
     "edge_pyramid": ("edge_pyramid", []),
     "edge_pyramid_strip8": ("edge_pyramid", [const("kPyrStripRows", 8)]),
     "edge_pyramid_strip16": ("edge_pyramid", [const("kPyrStripRows", 16)]),
@@ -129,7 +182,8 @@ VARIANTS = {
                                        "for (int l = 0; l < 0; ++l)")]),
 }
 # Floors, timed but not checked: the launch without part of its work.
-FLOORS = {"sampler_no_levels"}
+FLOORS = {"sampler_no_levels", "channel_sum_no_finish",
+          "channel_sum_no_loads"}
 
 
 def edited(text: str, edits) -> str:
@@ -182,11 +236,12 @@ def main(argv=None) -> int:
     import chip_smoke
     import torch
 
-    from openmp_parallel_computing_tpu_torch import _build, data
+    from openmp_parallel_computing_tpu_torch import _build, data, ops
     from openmp_parallel_computing_tpu_torch.bench import (
         image_kernels, sweep_kernels)
     from openmp_parallel_computing_tpu_torch.models.mpc import sampler
-    from openmp_parallel_computing_tpu_torch.ops import pipeline
+    from openmp_parallel_computing_tpu_torch.ops import pipeline, reductions
+    from openmp_parallel_computing_tpu_torch.ops.sobel import sobel_plain
 
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the kernel variants run on a GPU")
@@ -207,32 +262,48 @@ def main(argv=None) -> int:
 
     frame = data.load_frame_planar("cuda")
     photo = chip_smoke.load_planar(data.six_mp_path(), "cuda")
+    images = image_kernels.cases(chip_smoke, {"1080p": frame, "6mp": photo},
+                                 passes=1)
+
+    def image_cases(prefix):
+        return {k: v for k, v in images.items() if k.startswith(prefix)}
+
+    # Each source's timed cases, and the (kernel call, plain result) pairs
+    # it is held to bit for bit.
     timed = {"sampler": sweep_kernels.sampler_cases(chip_smoke, frame),
-             "edge_pyramid": {
-                 k: v for k, v in image_kernels.cases(
-                     chip_smoke, {"1080p": frame, "6mp": photo},
-                     passes=1).items() if k.startswith("edge_pyramid")}}
-    plain = {"sampler": [sampler.sample_plain(*call.args, **call.keywords)
-                         for key, (call, _, _) in timed["sampler"].items()
-                         if "_vg_" in key],
-             "edge_pyramid": [pipeline.edge_pyramid_base_plain(img)
-                              for img in (frame, photo)]}
+             "edge_pyramid": image_cases("edge_pyramid_"),
+             "stencil": image_cases("sobel_"),
+             "reductions": image_cases("channel_sum_")}
+    # The photo's first plane one byte into its buffer: off any boundary.
+    odd = torch.cat([photo[0, 0, :1], photo[0].flatten()])[1:].view(
+        photo.shape[1:])
+    checks = {
+        "sampler": [(lambda c=call: c(), sampler.sample_plain(
+            *call.args, **call.keywords))
+            for key, (call, _, _) in timed["sampler"].items()
+            if "_vg_" in key],
+        "edge_pyramid": [(lambda x=img: pipeline.edge_pyramid_base(x),
+                          pipeline.edge_pyramid_base_plain(img))
+                         for img in (frame, photo)],
+        "stencil": [(lambda x=p, b=b: ops.sobel(x, b), sobel_plain(p, b))
+                    for p in (frame[0], photo[0], odd)
+                    for b in ("zero", "none")],
+        "reductions": [(lambda x=img: ops.channel_sum(x),
+                        reductions.channel_sum_plain(img))
+                       for img in (frame, photo, photo[1:])],
+    }
     for rnd in range(ROUNDS):
         for name in names:
             use(_build, dirs[name])
             source = VARIANTS[name][0]
             if rnd == 0 and name not in FLOORS:   # bit for bit
-                if source == "sampler":
-                    got = [call() for key, (call, _, _)
-                           in timed[source].items() if "_vg_" in key]
-                    pairs = [(a, b) for g_, p_ in zip(got, plain[source])
-                             for a, b in zip(g_, p_)]
-                else:
-                    pairs = list(zip([pipeline.edge_pyramid_base(img)
-                                      for img in (frame, photo)],
-                                     plain[source]))
-                if not all(torch.equal(a, b) for a, b in pairs):
-                    raise AssertionError(f"variant {name} != plain version")
+                for call, want in checks[source]:
+                    got = call()
+                    pairs = (zip(got, want) if isinstance(got, tuple)
+                             else [(got, want)])
+                    if not all(torch.equal(a, b) for a, b in pairs):
+                        raise AssertionError(
+                            f"variant {name} != plain version")
             for key, (call, kernel, _) in timed[source].items():
                 us = chip_smoke.device_us(call, kernel, ITERS)
                 report[name].setdefault(key, []).append(us)

@@ -65,9 +65,14 @@ def main(argv: list[str] | None = None, device: str = "cuda") -> int:
         print(f"error loading image: {exc}", file=sys.stderr)
         return 1
 
-    chw = torch.from_numpy(np.ascontiguousarray(
-        np.transpose(hwc, (2, 0, 1)))).to(dev)
-    run(chw)        # warm-up (and the kernels' build at first use)
+    # A writable copy: the decoder's array may be read-only, and a grey
+    # frame's transpose is already contiguous (a view of it).
+    chw = torch.from_numpy(np.transpose(hwc, (2, 0, 1)).copy()).to(dev)
+    try:
+        run(chw)    # warm-up (and the kernels' build at first use)
+    except (ValueError, TypeError) as exc:    # an input the kernel refuses
+        print(f"error: --kernel {args.kernel}: {exc}", file=sys.stderr)
+        return 1
     _sync(dev)
 
     t0 = time.perf_counter()

@@ -6,18 +6,20 @@
 // A lane loads a run of V bytes of each of R, G and B (and A) a row, and
 // lanes 0 and 31 the band's outer column; stage forms the fixed-point luma
 // once per pixel and takes the neighbouring columns from the neighbouring
-// lanes by shuffles. sobel_run gives a row's V magnitudes
+// lanes by shuffles. One plane (C = 1: the plane of ops.sobel, or a grey
+// frame) is its own luma, since luma_fix(p, p, p) == p: one run a row is
+// loaded and its bytes taken as they are. sobel_run gives a row's V magnitudes
 // min(floor(sqrt(gx^2 + gy^2)), 255) from the window of three luma rows,
 // with no border rule: each emit applies its own.
 
 #pragma once
 
-#include "stencil3x3.cuh"
+#include "luma.cuh"
 #include "stencil_rows.cuh"
 
 namespace edge_rows {
 
-using stencil3x3::luma_fix;
+using luma::luma_fix;
 using namespace stencil_rows;
 
 // min(floor(sqrt(n)), 255) for 0 <= n < 2^23, exact. m = min(n, 255^2)
@@ -36,7 +38,7 @@ __device__ __forceinline__ int isqrt_255(int n) {
 }
 
 // The loads and the luma rows of a strip: C planes in (3 or 4; alpha is
-// loaded, not used for the luma), V bytes a lane.
+// loaded, not used for the luma; 1 below), V bytes a lane.
 template <int C, int V>
 struct LumaRows {
   struct Raw {
@@ -79,6 +81,45 @@ struct LumaRows {
                             elem(raw.c[2], v));
     link<V>(w.l, luma_fix(raw.e[0], raw.e[1], raw.e[2]), s.lane);
     if constexpr (C == 4) w.a = raw.c[3];
+    return w;
+  }
+};
+
+// One plane: a run of V bytes a row (and the band's outer byte), the bytes
+// themselves as the luma.
+template <int V>
+struct LumaRows<1, V> {
+  struct Raw {
+    Run<uint8_t, V> c[1];
+    uint8_t e;             // the band's outer column (lanes 0, 31)
+  };
+  struct Row {
+    int l[V + 2];          // columns x - 1 .. x + V
+  };
+
+  const uint8_t* __restrict__ src;
+  int H, W;
+  size_t plane;
+  Strip s;
+
+  __device__ __forceinline__ Raw fetch(int y) const {
+    Raw raw;
+    if (y < 0 || y >= H) {
+      raw.c[0] = zero_run<uint8_t, V>();
+      raw.e = 0;
+      return raw;
+    }
+    const uint8_t* row = src + (size_t)y * W;
+    raw.c[0] = fetch_run<V>(row, s.x, W);
+    raw.e = fetch_edge<V>(row, s, W);
+    return raw;
+  }
+
+  __device__ __forceinline__ Row stage(const Raw& raw) const {
+    Row w;
+#pragma unroll
+    for (int v = 0; v < V; ++v) w.l[v + 1] = elem(raw.c[0], v);
+    link<V>(w.l, (int)raw.e, s.lane);
     return w;
   }
 };

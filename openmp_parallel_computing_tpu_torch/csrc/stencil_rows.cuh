@@ -245,4 +245,36 @@ __device__ __forceinline__ void walk(const K& k, int y0, int H) {
   }
 }
 
+// walk over a run-time count of rows n: for a strip that is not a
+// constant (csrc/edge_pyramid.cu at a run-time scale), and for the edge
+// pass, which it makes faster. A separate copy: walk itself written as
+// walk_rows<D>(k, y0, S, H) cost conv3x3's blur 15% at 1080p on an H100
+// (PERF.md §6).
+template <int D, class K>
+__device__ __forceinline__ void walk_rows(const K& k, int y0, int n, int H) {
+  static_assert(D >= 2, "ring depth");
+  typename K::Raw ring[D];
+#pragma unroll
+  for (int i = 0; i < D; ++i) ring[i] = k.fetch(y0 - 1 + i);
+  typename K::Row up = k.stage(ring[0]);
+  ring[0] = k.fetch(y0 - 1 + D);
+  typename K::Row mid = k.stage(ring[1]);
+  ring[1] = k.fetch(y0 + D);
+  const int end = n < H - y0 ? n : H - y0;
+#pragma unroll 1
+  for (int i0 = 0; i0 < end; i0 += D) {
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+      const int i = i0 + j;        // output row y0 + i; the same for the warp
+      if (i >= end) return;
+      const int slot = (j + 2) % D;
+      const typename K::Row dn = k.stage(ring[slot]);
+      if (i + 1 + D <= n) ring[slot] = k.fetch(y0 + i + 1 + D);
+      k.emit(up, mid, dn, y0 + i);
+      up = mid;
+      mid = dn;
+    }
+  }
+}
+
 }  // namespace stencil_rows

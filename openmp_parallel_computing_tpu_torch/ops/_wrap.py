@@ -7,6 +7,13 @@ from typing import Callable
 
 import torch
 
+# The channel counts of the frame ops (grayscale, the edge pass, the
+# perception kernel, the channel-mean grayscale): a grey frame (C = 1,
+# read as R = G = B, as the JAX kernels read it), RGB and RGBA. A grey +
+# alpha frame (C = 2) is refused: what the JAX kernels give there rests on
+# their clamped reads of planes 1 and 2 and is no contract.
+FRAME_CHANNELS = (1, 3, 4)
+
 
 def on_card(t: torch.Tensor) -> bool:
     """True for a CUDA tensor (the kernel runs), False for a CPU tensor

@@ -1,4 +1,5 @@
-"""Grayscale: fixed-point BT.601 luma to R, G and B, alpha kept.
+"""Grayscale: fixed-point BT.601 luma to R, G and B, alpha kept; a grey
+frame (C = 1) is its own luma.
 
 ``grayscale`` is the port of ``openmp_parallel_computing_tpu.ops.grayscale.
 grayscale``: on a CUDA tensor it launches ``csrc/grayscale.cu`` once per
@@ -25,10 +26,11 @@ def grayscale_plain(img: torch.Tensor, passes: int = 1) -> torch.Tensor:
 
 
 def grayscale(img: torch.Tensor, passes: int = 1) -> torch.Tensor:
-    """Planar (C, H, W) u8, C in {3, 4} -> the same shape, luma in R, G
-    and B, alpha kept; ``passes`` repeats the kernel (the reference
-    drivers' repeat loop). The input is never modified."""
-    _wrap.check_image(img, 3, channels=(3, 4))
+    """Planar (C, H, W) u8, C in {1, 3, 4} -> the same shape, luma in R, G
+    and B, alpha kept (C = 1: the plane, the luma of R = G = B);
+    ``passes`` repeats the kernel (the reference drivers' repeat loop). The
+    input is never modified."""
+    _wrap.check_image(img, 3, channels=_wrap.FRAME_CHANNELS)
     _wrap.check_passes(passes)
     if not _wrap.on_card(img):
         return grayscale_plain(img, passes)

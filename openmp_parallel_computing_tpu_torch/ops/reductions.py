@@ -4,8 +4,8 @@ grayscale with its global min and max.
 Ports of ``openmp_parallel_computing_tpu.ops.reductions``, the twins of
 the reference's OpenMP reduction clauses (``old/parallel_avg_pixel.c``,
 ``old/parallel_to_grayscale.c``). On a CUDA tensor each wrapper launches
-the kernels of ``csrc/reductions.cu``, which do the whole reduction,
-across blocks too (no library reduction follows them); on a CPU tensor it
+a kernel of ``csrc/reductions.cu``, which does the whole reduction,
+across blocks too (no library reduction follows it); on a CPU tensor it
 runs the plain version. Integer inputs give the same bits either way.
 """
 
@@ -18,20 +18,46 @@ import torch
 from openmp_parallel_computing_tpu_torch import _build
 from openmp_parallel_computing_tpu_torch.ops import _wrap, xla_ref
 
-# channel_sum's input dtypes, with their codes in csrc/reductions.cu.
-SUM_DTYPES = {torch.uint8: 0, torch.int32: 1, torch.float32: 2}
-# At most this many blocks a channel in channel_sum's first launch, each
-# leaving one 8-byte partial in the scratch the wrapper allocates.
-SUM_BLOCKS = 512
+# channel_sum's kernel instances by input dtype, with their codes in
+# csrc/reductions.cu: the dtypes an image can have.
+SUM_DTYPES = {torch.uint8: 0, torch.int8: 1, torch.int16: 2,
+              torch.uint16: 3, torch.int32: 4, torch.float16: 5,
+              torch.bfloat16: 6, torch.float32: 7}
+# The other dtypes JAX's channel_sum takes, as the dtype it holds them in:
+# 64 bits canonicalised to 32 (int64 wraps, float64 rounds), bool read as
+# its bytes 0 and 1. They are cast (bool viewed) before the kernel.
+SUM_CASTS = {torch.bool: torch.uint8, torch.int64: torch.int32,
+             torch.float64: torch.float32}
+# 8-byte slots a channel in channel_sum's scratch: at most SUM_SLOTS - 1
+# blocks' partials, then the channel's ticket.
+SUM_SLOTS = 1025
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+# channel_sum's scratch by (device, stream): tickets zeroed once at
+# allocation, left zero by every call. A call on another stream has its
+# own scratch, and calls on one stream run in order, so no call can see a
+# ticket that another has not reset yet.
+_scratch: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _held(img: torch.Tensor) -> torch.Tensor:
+    """``img`` in the dtype JAX holds it in (``SUM_CASTS``); bool as a
+    u8 view, without a copy."""
+    to = SUM_CASTS.get(img.dtype)
+    if to is None:
+        return img
+    return img.view(to) if img.dtype == torch.bool else img.to(to)
 
 
 def channel_sum_plain(img: torch.Tensor) -> torch.Tensor:
     """Plain version: the exact sum of an integer image rounded once to
-    float32; a float32 image summed in double, then rounded."""
-    if img.dtype == torch.float32:
+    float32; a float image summed in double, then rounded. Dtypes as
+    JAX holds them (``SUM_CASTS``)."""
+    img = _held(img)
+    if img.is_floating_point():
         return img.double().sum(dim=(1, 2)).float()
+    if img.dtype == torch.uint16:     # through int16, which every device has
+        img = img.view(torch.int16).to(torch.int32) & 0xFFFF
     return img.to(torch.int64).sum(dim=(1, 2)).to(torch.float32)
 
 
@@ -46,46 +72,52 @@ def channel_mean_plain(img: torch.Tensor) -> torch.Tensor:
 
 
 def _check_sum(img: torch.Tensor) -> None:
-    _wrap.check_image(img, 3, dtypes=tuple(SUM_DTYPES))
+    _wrap.check_image(img, 3, dtypes=(*SUM_DTYPES, *SUM_CASTS))
     if img.shape[0] < 1:
         raise ValueError(f"no channels: shape {tuple(img.shape)}")
 
 
-def _sum_kernels(img: torch.Tensor, mean: bool) -> torch.Tensor:
-    """channel_sum's two kernel launches on the card (one C call), counted
-    on ``channel_sum``; ``mean`` divides by float32(H*W) in the second."""
+def _sum_kernel(img: torch.Tensor, mean: bool) -> torch.Tensor:
+    """channel_sum's one kernel launch on the card, counted on
+    ``channel_sum``; ``mean`` divides by float32(H*W) in it."""
+    img = _held(img)
     c, h, w = img.shape
+    key = (img.device.index, torch.cuda.current_stream(img.device).cuda_stream)
+    slots = _scratch.get(key)
+    if slots is None or slots.numel() < c * SUM_SLOTS:
+        slots = torch.zeros(c * SUM_SLOTS, dtype=torch.int64,
+                            device=img.device)
+        _scratch[key] = slots
     fn = _build.function("reductions", "channel_sum_launch",
                          [_P, _I, _I, _I, _I, _P, _I, ctypes.c_longlong, _P,
                           _P])
-    partials = torch.empty((c, SUM_BLOCKS), dtype=torch.int64,
-                           device=img.device)
     out = torch.empty((c,), dtype=torch.float32, device=img.device)
     _build.launch(fn, "channel_sum", img, img.data_ptr(), c, h, w,
-                  SUM_DTYPES[img.dtype], partials.data_ptr(), SUM_BLOCKS,
+                  SUM_DTYPES[img.dtype], slots.data_ptr(), SUM_SLOTS,
                   h * w if mean else 0, out.data_ptr())
-    channel_sum.launches += 2       # the block partials, the channel sums
+    channel_sum.launches += 1
     return out
 
 
 def channel_sum(img: torch.Tensor) -> torch.Tensor:
-    """Planar (C, H, W) u8, int32 or float32 -> (C,) float32 per-channel
-    sum. Two kernel launches on the card (block partials, then a fixed-
-    order sum a channel); the same result on every run."""
+    """Planar (C, H, W) -> (C,) float32 per-channel sum, for u8, int8,
+    int16, uint16, int32, float16, bfloat16 and float32 images, and bool,
+    int64 and float64 ones as JAX holds them (``SUM_CASTS``). One kernel
+    launch on the card; the same result on every run."""
     _check_sum(img)
     if not _wrap.on_card(img):
         return channel_sum_plain(img)
-    return _sum_kernels(img, mean=False)
+    return _sum_kernel(img, mean=False)
 
 
 def channel_mean(img: torch.Tensor) -> torch.Tensor:
     """Planar (C, H, W) -> (C,) float32 per-channel mean,
-    ``channel_sum(img) / float32(H*W)``; on the card the division is done
-    in channel_sum's second launch."""
+    ``channel_sum(img) / float32(H*W)``, for channel_sum's dtypes; on the
+    card the division is done in channel_sum's launch."""
     _check_sum(img)
     if not _wrap.on_card(img):
         return channel_mean_plain(img)
-    return _sum_kernels(img, mean=True)
+    return _sum_kernel(img, mean=True)
 
 
 def grayscale_mean_minmax_plain(img: torch.Tensor):
@@ -94,10 +126,11 @@ def grayscale_mean_minmax_plain(img: torch.Tensor):
 
 
 def grayscale_mean_minmax(img: torch.Tensor):
-    """Planar (C, H, W) u8, C in {3, 4}, alpha ignored -> ((3, H, W) int32
-    gray = (r+g+b)//3 in every plane, min, max), min and max 0-d int32
-    tensors on the input's device. One kernel launch on the card."""
-    _wrap.check_image(img, 3, channels=(3, 4))
+    """Planar (C, H, W) u8, C in {1, 3, 4}, alpha ignored -> ((3, H, W)
+    int32 gray = (r+g+b)//3 in every plane, min, max), min and max 0-d
+    int32 tensors on the input's device; a grey frame (C = 1) is read as
+    R = G = B, so its gray is its plane. One kernel launch on the card."""
+    _wrap.check_image(img, 3, channels=_wrap.FRAME_CHANNELS)
     if not _wrap.on_card(img):
         return grayscale_mean_minmax_plain(img)
     c, h, w = img.shape

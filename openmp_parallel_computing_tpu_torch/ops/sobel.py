@@ -1,9 +1,9 @@
 """Sobel edge magnitude of a u8 plane.
 
 ``sobel`` is the port of ``openmp_parallel_computing_tpu.ops.sobel.sobel``:
-on a CUDA tensor it launches ``sobel_kernel`` of ``csrc/stencil.cu``; on a
-CPU tensor it runs the plain version ``sobel_plain`` (``xla_ref.sobel``).
-The two are bit-exact.
+on a CUDA tensor it launches the one-plane edge pass ``edge_kernel<1>`` of
+``csrc/stencil.cu`` (a plane is its own luma); on a CPU tensor it runs the
+plain version ``sobel_plain`` (``xla_ref.sobel``). The two are bit-exact.
 """
 
 from __future__ import annotations

@@ -39,17 +39,26 @@ def chw_to_hwc(img: torch.Tensor) -> torch.Tensor:
     return img.permute(1, 2, 0).contiguous()
 
 
+def rgb_planes(img: torch.Tensor) -> torch.Tensor:
+    """The (3, H, W) R, G and B planes of a planar frame: planes 0-2 for
+    C >= 3, the one plane three times (a view) for a grey frame (C = 1),
+    as the JAX kernels read a grey frame."""
+    return img.expand(3, -1, -1) if img.shape[0] == 1 else img[:3]
+
+
 def luma(img: torch.Tensor) -> torch.Tensor:
-    """Planar (C, H, W) u8 -> (H, W) u8 fixed-point luma plane."""
-    r = img[0].to(torch.int32)
-    g = img[1].to(torch.int32)
-    b = img[2].to(torch.int32)
+    """Planar (C, H, W) u8 -> (H, W) u8 fixed-point luma plane. The
+    weights sum to 2^16, so a grey frame's luma is its plane."""
+    r, g, b = rgb_planes(img).to(torch.int32)
     lum = (LUMA_FIX_R * r + LUMA_FIX_G * g + LUMA_FIX_B * b) >> LUMA_FIX_SHIFT
     return lum.to(torch.uint8)          # exact: 0 <= lum <= 255
 
 
 def _broadcast_rgb(plane: torch.Tensor, img: torch.Tensor) -> torch.Tensor:
-    """An (H, W) u8 plane written to R, G and B, ``img``'s alpha kept."""
+    """An (H, W) u8 plane written to R, G and B, ``img``'s alpha kept; a
+    grey frame's one plane for C = 1."""
+    if img.shape[0] == 1:
+        return plane[None].contiguous()
     out = plane[None].expand(3, *plane.shape)
     if img.shape[0] > 3:
         out = torch.cat([out, img[3:]], dim=0)
@@ -57,7 +66,8 @@ def _broadcast_rgb(plane: torch.Tensor, img: torch.Tensor) -> torch.Tensor:
 
 
 def grayscale(img: torch.Tensor) -> torch.Tensor:
-    """Planar (C, H, W) u8 -> same shape u8; luma in RGB, alpha kept."""
+    """Planar (C, H, W) u8 -> same shape u8; luma in RGB, alpha kept; a
+    grey frame (C = 1) comes back unchanged."""
     return _broadcast_rgb(luma(img), img)
 
 
@@ -95,7 +105,8 @@ def sobel(gray: torch.Tensor, border: str = "zero") -> torch.Tensor:
 
 def edge_pipeline(img: torch.Tensor, border: str = "zero") -> torch.Tensor:
     """Planar (C, H, W) u8 -> (C, H, W) u8: the Sobel edge of the luma
-    plane broadcast to RGB, alpha passed through."""
+    plane broadcast to RGB, alpha passed through; for a grey frame
+    (C = 1), the Sobel edge of its plane."""
     return _broadcast_rgb(sobel(luma(img), border), img)
 
 
@@ -155,10 +166,11 @@ def channel_mean(img: torch.Tensor) -> torch.Tensor:
 def grayscale_mean_minmax(img: torch.Tensor
                           ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Channel-mean grayscale with its min and max, the reference's
-    ``parallel_to_grayscale``: planar (C, H, W) u8, C >= 3, alpha ignored
-    -> ((3, H, W) int32 contiguous, min, max), gray = (r+g+b)/3 with C
-    integer division (the sum is non-negative, so floor is truncation);
-    min and max are 0-d int32 tensors on the input's device."""
-    gray = img[:3].to(torch.int32).sum(dim=0, dtype=torch.int32) // 3
+    ``parallel_to_grayscale``: planar (C, H, W) u8, C = 1 (read as
+    R = G = B) or C >= 3, alpha ignored -> ((3, H, W) int32 contiguous,
+    min, max), gray = (r+g+b)/3 with C integer division (the sum is
+    non-negative, so floor is truncation); min and max are 0-d int32
+    tensors on the input's device."""
+    gray = rgb_planes(img).to(torch.int32).sum(dim=0, dtype=torch.int32) // 3
     return gray[None].expand(3, *gray.shape).contiguous(), gray.amin(), \
         gray.amax()

@@ -239,14 +239,16 @@ def test_sweep_kernels_root_imports_the_package_of_that_checkout(tmp_path):
 def test_image_kernels_bench_cases_run_on_the_cpu():
     """bench/image_kernels.py's cases at a small size: the blur, conv3x3
     on run-time taps, the edge pass, the perception kernel (s=16),
-    grayscale, Sobel and a copy on each frame, each call ``passes`` passes
-    of its op (the plain versions on the CPU), keyed by kernel and
-    frame."""
+    grayscale, Sobel, channel_sum, int64 torch.sum and a copy on each
+    frame, each call ``passes`` passes of its op (the plain versions on the
+    CPU), keyed by kernel and frame."""
     from openmp_parallel_computing_tpu_torch.ops.conv import conv3x3_plain
     from openmp_parallel_computing_tpu_torch.ops.grayscale import (
         grayscale_plain)
     from openmp_parallel_computing_tpu_torch.ops.pipeline import (
         edge_pipeline_plain, edge_pyramid_base_plain)
+    from openmp_parallel_computing_tpu_torch.ops.reductions import (
+        channel_sum_plain)
     from openmp_parallel_computing_tpu_torch.ops.sobel import sobel_plain
 
     rng = np.random.default_rng(9)
@@ -256,7 +258,9 @@ def test_image_kernels_bench_cases_run_on_the_cpu():
                                                  dtype=np.uint8))}
     got = image_kernels.cases(_chip_smoke(), frames, passes=2)
     names = ("blur", "conv3x3_sharpen", "edge", "edge_pyramid", "grayscale",
-             "sobel", "copy")
+             "sobel", "channel_sum", "torch_sum", "copy")
+    keys = {"copy": "Memcpy", "channel_sum": "channel_sum",
+            "torch_sum": "reduce_kernel"}
     assert set(got) == {f"{n}_{label}" for n in names for label in frames}
     for label, img in frames.items():
         want = {
@@ -269,17 +273,22 @@ def test_image_kernels_bench_cases_run_on_the_cpu():
         for name in names:
             call, kernel, iters = got[f"{name}_{label}"]
             out = call()
-            assert kernel == ("Memcpy" if name == "copy" else "_kernel")
+            assert kernel == keys.get(name, "_kernel")
             assert iters > 0
-            if name in ("sobel", "copy", "edge_pyramid"):
+            if name in ("sobel", "copy", "edge_pyramid", "channel_sum",
+                        "torch_sum"):
                 plain = {"sobel": sobel_plain(img[0]), "copy": img,
-                         "edge_pyramid": edge_pyramid_base_plain(img)}[name]
+                         "edge_pyramid": edge_pyramid_base_plain(img),
+                         "channel_sum": channel_sum_plain(img),
+                         "torch_sum": img.to(torch.int64).sum(dim=(1, 2)),
+                         }[name]
                 assert len(out) == 2
                 assert all(torch.equal(o, plain) for o in out)
             else:
                 assert torch.equal(out, want[name]), (name, label)
     assert ops.conv3x3.launches == 0 and ops.edge_pipeline.launches == 0
     assert ops.edge_pyramid_base.launches == 0
+    assert ops.channel_sum.launches == 0
 
 
 def test_image_kernels_bench_needs_a_card():

@@ -228,7 +228,7 @@ def test_wrappers_reject_bad_input_and_count_no_cpu_launch():
 
 
 @pytest.mark.parametrize("header, rebuilt", [
-    ("stencil3x3.cuh", {"stencil", "grayscale", "edge_pyramid"}),
+    ("luma.cuh", {"stencil", "grayscale", "edge_pyramid"}),
     ("stencil_rows.cuh", {"stencil", "conv3x3", "edge_pyramid"}),
     ("edge_rows.cuh", {"stencil", "edge_pyramid"}),
 ])
@@ -236,11 +236,12 @@ def test_build_hash_covers_included_headers(tmp_path, monkeypatch, header,
                                             rebuilt):
     """Editing a shared csrc header changes the library name of every
     kernel that includes it, directly or through another header (and of no
-    other), without running nvcc: the halo-tile header rebuilds Sobel's
-    and grayscale's sources and, through the luma rows, the perception
-    kernel's; the row-streaming body rebuilds the edge pass's, conv3x3's
-    and the perception kernel's; the luma rows (edge_rows.cuh) the edge
-    pass's and the perception kernel's. The sampler includes none."""
+    other), without running nvcc: the luma header rebuilds grayscale's
+    source and, through the luma rows, the edge pass's (and Sobel's) and
+    the perception kernel's; the row-streaming body rebuilds the edge
+    pass's, conv3x3's and the perception kernel's; the luma rows
+    (edge_rows.cuh) the edge pass's and the perception kernel's. The
+    sampler includes none."""
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", csrc)

@@ -16,6 +16,16 @@ Tolerances:
   package's own bound for this kernel.
 - The plain ``xla_ref.channel_mean`` twins: rtol 1e-6 (two float32 means,
   summed in different orders).
+- ``channel_sum``/``channel_mean`` on every dtype JAX takes
+  (``test_channel_sum_dtypes_match_jax``): the port sums integers exactly
+  and floats in double, rounding once; JAX casts to float32 and sums in
+  float32. Bit-exact for bool, u8, int8 and int16 at (3, 37, 131), where
+  the float32 partial sums JAX forms stay integers below 2^24 (u8: at most
+  255 x 4847; the signed ones cancel); uint16, int32 and int64 (values
+  over the int32 range, which both wrap to int32) rtol 1e-6 as above,
+  their sums passing 2^24; float16, bfloat16,
+  float32 and float64 (rounded to float32 by both) rtol 1e-6: JAX rounds
+  each float32 partial sum, the port rounds the exact-in-double sum once.
 """
 
 import subprocess
@@ -90,6 +100,54 @@ def test_channel_sum_int32_and_float32_match_pallas(dtype):
     np.testing.assert_allclose(got.numpy(), exact, rtol=1e-7)
 
 
+# dtype -> (values as numpy makes them, rtol against JAX; 0 = bit-exact)
+SUM_CASES = {
+    "bool": (lambda r, sh: r.integers(0, 2, sh).astype(np.bool_), 0),
+    "uint8": (lambda r, sh: r.integers(0, 256, sh).astype(np.uint8), 0),
+    "int8": (lambda r, sh: r.integers(-128, 128, sh).astype(np.int8), 0),
+    "int16": (lambda r, sh: r.integers(-2 ** 15, 2 ** 15, sh)
+              .astype(np.int16), 0),
+    "uint16": (lambda r, sh: r.integers(0, 2 ** 16, sh).astype(np.uint16),
+               1e-6),
+    "int32": (lambda r, sh: r.integers(-2 ** 31, 2 ** 31, sh)
+              .astype(np.int32), 1e-6),
+    "int64": (lambda r, sh: r.integers(-2 ** 40, 2 ** 40, sh), 1e-6),
+    "float16": (lambda r, sh: r.uniform(0, 1000, sh).astype(np.float16), 1e-6),
+    "bfloat16": (lambda r, sh: r.uniform(0, 1000, sh).astype(np.float32),
+                 1e-6),
+    "float32": (lambda r, sh: r.uniform(0, 1e5, sh).astype(np.float32), 1e-6),
+    "float64": (lambda r, sh: r.uniform(0, 1e5, sh), 1e-6),
+}
+
+
+@pytest.mark.parametrize("dtype", sorted(SUM_CASES))
+def test_channel_sum_dtypes_match_jax(dtype):
+    """Every dtype JAX's channel_sum takes, with JAX's semantics: 64-bit
+    inputs held in 32 bits (int64 wraps), narrow integers exact, floats
+    summed wide; tolerances in the module docstring."""
+    make, rtol = SUM_CASES[dtype]
+    arr = make(np.random.default_rng(len(dtype)), (3, 37, 131))
+    t = torch.from_numpy(arr)
+    j = jnp.asarray(arr)
+    if dtype == "bfloat16":
+        t, j = t.to(torch.bfloat16), j.astype(jnp.bfloat16)
+    assert t.dtype == getattr(torch, dtype)
+    for ours, theirs in ((ops.channel_sum, jops.channel_sum),
+                         (ops.channel_mean, jops.channel_mean)):
+        got = ours(t)
+        assert got.dtype == torch.float32 and tuple(got.shape) == (3,)
+        want = np.asarray(theirs(j))
+        if rtol:
+            np.testing.assert_allclose(got.numpy(), want, rtol=rtol)
+        else:
+            np.testing.assert_array_equal(got.numpy(), want)
+    if not t.is_floating_point():       # integers: the exact sum, rounded
+        held = np.asarray(j).astype(np.int64)
+        np.testing.assert_array_equal(
+            ops.channel_sum(t).numpy(),
+            held.reshape(3, -1).sum(axis=1).astype(np.float32))
+
+
 def test_channel_mean_is_float32_division_of_the_sum():
     t = torch.from_numpy(_u8((3, 37, 131)))
     want = ops.channel_sum(t) / torch.tensor(37 * 131, dtype=torch.float32)
@@ -144,8 +202,10 @@ def test_plain_twins_equal_jax_twins():
 
 
 @pytest.mark.parametrize("fn,img,err", [
-    (ops.channel_sum, torch.zeros((3, 4, 4), dtype=torch.float16), TypeError),
-    (ops.channel_mean, torch.zeros((3, 4, 4), dtype=torch.int64), TypeError),
+    (ops.grayscale, torch.zeros((2, 4, 4), dtype=torch.uint8), ValueError),
+    (ops.edge_pipeline, torch.zeros((2, 4, 4), dtype=torch.uint8),
+     ValueError),
+    (ops.channel_sum, torch.zeros((3, 4, 4), dtype=torch.uint32), TypeError),
     (ops.grayscale_mean_minmax, torch.zeros((3, 4, 4), dtype=torch.float16),
      TypeError),
     (ops.grayscale_mean_minmax, torch.zeros((2, 4, 4), dtype=torch.uint8),

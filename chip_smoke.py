@@ -18,7 +18,7 @@ Any failure raises and the script exits non-zero.
    (also Sobel), 3, 4; the perception kernel for one and three planes
    at s = 1, 2, 4, 8, 16, 32, 64 and at a run-time s), or of the gather
    sampler's four instances (two modes x one or two points a thread), or
-   of grayscale, channel_sum (eight dtypes) and gray_minmax.
+   of grayscale, channel_sum (nine dtypes) and gray_minmax.
 3. Kernel vs plain: each kernel against its plain PyTorch version on the
    same inputs at the shapes the main path gives it, with both times and
    the least time the card could take (``bound``). The perception kernel
@@ -126,6 +126,26 @@ Any failure raises and the script exits non-zero.
    batches, fewer steps and trials): its JSON line, finite positive
    rates, the perception and multi_sweep launches of every step and gated
    solve, no other MPC kernel.
+9. The runtime: ``MPCRuntime`` and ``AdaptiveRuntime`` (plant on true
+   depths, prior z0 = 8) at RUNTIME_BATCH on the ring, a checkpoint a
+   frame in a temporary directory; the frame-RESUME_AT checkpoint
+   restored into a new runtime and run to RUNTIME_FRAMES gives the
+   uninterrupted run's controls bit for bit (and, adaptive, its depths
+   and Adam moments); ``adaptive_receding_horizon`` for RUNTIME_FRAMES
+   steps, finite; the perception and multi_sweep launches of each path
+   against ``expected_launches``; each runtime on the card against the
+   CPU at RUNTIME_CPU_BATCH, RUNTIME_CPU_STEPS steps from the card's
+   state, u0 within STEP_TOL.
+10. The bench surfaces at BENCH_RUN: ``bench.chains.run``,
+   ``bench.device_loop.measure`` and ``bench.sysid_loop_study.run_price``
+   with their perception and multi_sweep launches counted; the image
+   harness (``bench.harness.bench_kernel`` for grayscale on the 1080p
+   frame, ``bench.image_set`` for blur on the half-mega photo and edge on
+   each fixture, CSVs under chiprun_out/bench_surfaces) with the
+   grayscale, edge and conv3x3 launches counted and the CSV schema
+   checked, and the decoder ``imgio`` took; ``channel_sum`` on uint32
+   (values up to 2^32 - 1), uint64 and complex64 frames of the ring's
+   size against its plain version, timed.
 
 The last three lines of standard output are the card's name and power
 limit, a JSON object describing each kernel, and
@@ -203,7 +223,7 @@ NAN_BATCH, NAN_SCENARIOS = 256, (5, 77, 200)
 # template arguments of each (m = 2, 4, 8 for the sweeps; n = 4, 8, 16 for
 # the Riccati backward; C = 1, 3, 4 for the edge pass and Sobel; the planes
 # read (1 or 3) and s for the perception kernel, the planes for its
-# run-time scale, for grayscale and for gray_minmax; the eight dtypes of
+# run-time scale, for grayscale and for gray_minmax; the nine dtypes of
 # channel_sum), or the number of instances (conv3x3: three input types x
 # four accumulator/output modes; the blur instance; the sampler: two
 # modes x one or two points a thread).
@@ -220,7 +240,7 @@ NO_SPILL = {"multi_sweep": {"multi_sweep_kernel": SWEEP_MS},
                 (p, s) for p in (1, 3) for s in PYRAMID_SCALES},
                 "edge_pyramid_s_kernel": {1, 3}},
             "grayscale": {"grayscale_kernel": {1, 3}},
-            "reductions": {"channel_sum_kernel": set(range(8)),
+            "reductions": {"channel_sum_kernel": set(range(9)),
                            "gray_minmax_kernel": {1, 3}},
             "sampler": {"sample_kernel": 4}}
 MPC_ROWS = {   # kernel -> (source, TPU kernel it replaces)
@@ -321,14 +341,26 @@ CONSTANT_SHAPE = (3, 40, 136)
 # double and round once to float32, in different orders, so the last bit
 # may differ.
 SUM_F32_RTOL = 1e-6
-# channel_sum's dtypes: the kernel's eight instances, and the three that
-# are cast (or viewed) before it. Each on SUM_SHAPE at plane offsets of
+# channel_sum's dtypes: the kernel's nine instances, and those that are
+# cast (or viewed) before it. Each on SUM_SHAPE at plane offsets of
 # 0 bytes, one element and 4 bytes into a buffer (off 4- and 16-byte
 # boundaries), and u8 on BIG_PLANE (above 2^24 pixels a channel, all 255:
 # a sum above 2^32).
 SUM_DTYPES = ("uint8", "int8", "int16", "uint16", "int32", "float16",
-              "bfloat16", "float32", "bool", "int64", "float64")
+              "bfloat16", "float32", "uint32", "bool", "int64", "float64",
+              "uint64", "complex64")
 SUM_SHAPE, BIG_PLANE = (3, 37, 131), (1, 4200, 4200)
+# The runtime phase (9): MPCRuntime and AdaptiveRuntime at RUNTIME_BATCH
+# for RUNTIME_FRAMES frames, resumed from the RESUME_AT checkpoint; the
+# card against the CPU at RUNTIME_CPU_BATCH for RUNTIME_CPU_STEPS steps.
+RUNTIME_BATCH, RUNTIME_FRAMES, RESUME_AT = 4096, 10, 5
+RUNTIME_CPU_BATCH, RUNTIME_CPU_STEPS = 256, 3
+# The bench surfaces (phase 10), cut in depth: the chain, the receding
+# window, the sysid price, the image harness (runs x passes).
+BENCH_RUN = dict(chain_batch=256, chain_reps=10, chain_trials=3,
+                 loop_batch=256, loop_frames=20, loop_trials=3,
+                 price_batch=4096, price_steps=20, price_trials=3,
+                 runs=2, passes=10)
 # The headline bench (phase 7), cut in depth: bench.py's batches, fewer
 # steps and trials.
 HEADLINE_RUN = dict(scenarios=4096, steps=10, scenarios_small=256,
@@ -2065,7 +2097,7 @@ def phase_reduction_kernels(frames, photos) -> dict:
             for name, (kern, plain) in sums.items():
                 what = f"{dt} {name} at +{skip * dtype.itemsize} bytes"
                 got, want = kern(img), plain(img)
-                if dtype.is_floating_point:
+                if dtype.is_floating_point or dtype.is_complex:
                     err = (got - want).abs()
                     if not (err <= SUM_F32_RTOL * want.abs()).all():
                         raise AssertionError(f"{what}: kernel {got} vs "
@@ -2144,12 +2176,16 @@ def phase_reduction_kernels(frames, photos) -> dict:
 def sum_values(dtype, n: int, gen):
     """n values of ``dtype`` on the card, spread over its range: random
     bytes as the dtype's bits for the integers (bool: 0 and 1), values in
-    [-1000, 3000) for the floats."""
+    [-1000, 3000) for the floats and the complex real parts (imaginary
+    parts in [0, 1))."""
     import torch
 
-    if dtype.is_floating_point:
-        return (4000 * torch.rand(n, generator=gen, dtype=torch.float64)
-                - 1000).to(dtype).cuda()
+    if dtype.is_floating_point or dtype.is_complex:
+        re = 4000 * torch.rand(n, generator=gen, dtype=torch.float64) - 1000
+        if dtype.is_complex:
+            re = torch.complex(re, torch.rand(n, generator=gen,
+                                              dtype=torch.float64))
+        return re.to(dtype).cuda()
     if dtype == torch.bool:
         return torch.randint(0, 2, (n,), generator=gen).bool().cuda()
     raw = torch.randint(0, 256, (n * dtype.itemsize,), generator=gen,
@@ -2365,6 +2401,403 @@ def phase_image_cli(frames, photos, rows: dict) -> None:
             log(f"[golden] {golden_ladder(golden, out, size)}")
 
 
+# -- phase 9: the runtime, the online depth learner ---------------------------
+
+def runtime_start(batch: int, seed: int = 0):
+    """(p0, target, depth, depth_true) of ``batch`` scenarios as numpy
+    float32 arrays from a numpy seed: ``random_scenarios``' ranges, true
+    depths in [1.2, 2.0] (the sysid study's plant)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def uniform(shape, lo, hi):
+        return rng.uniform(lo, hi, shape).astype(np.float32)
+
+    return (uniform((batch, 2 * M), -0.6, 0.6),
+            uniform((batch, 2 * M), -0.5, 0.5),
+            uniform((batch, M), 1.0, 5.0), uniform((batch, M), 1.2, 2.0))
+
+
+def counted(fn):
+    """``fn()`` with the MPC kernels' counts set to 0 just before and read
+    just after, the gate's decisions logged: (result, launches, gates
+    fired, wall seconds)."""
+    import torch
+
+    from openmp_parallel_computing_tpu_torch.models.mpc import solver
+
+    torch.cuda.synchronize()
+    reset_counts()
+    with GateLog(solver) as gates:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return out, read_counts(), sum(gates.fired), wall
+
+
+def check_launches(label: str, cfg, batch: int, steps: int, launches: dict,
+                   fired: int, perception: int | None = None) -> None:
+    """Launches of ``steps`` solves against ``expected_launches``;
+    ``perception``: the perception launches when they are not one a
+    solve. Fails when the path launched either kernel no time."""
+    want = expected_launches(cfg, batch, steps, fired)
+    if perception is not None:
+        want["edge_pyramid"] = perception
+    if launches != want or not (launches["edge_pyramid"]
+                                and launches["multi_sweep"]):
+        raise AssertionError(f"{label} B={batch}: launch counts {launches} "
+                             f"!= expected {want}")
+
+
+def phase_runtime(frames, rows: dict) -> None:
+    """MPCRuntime and AdaptiveRuntime for RUNTIME_FRAMES frames at
+    RUNTIME_BATCH with a checkpoint a frame, the frame-RESUME_AT
+    checkpoint restored into a new runtime and run to the end (controls,
+    and for the adaptive runtime its depths and Adam moments, equal to the
+    uninterrupted run's bit for bit); adaptive_receding_horizon for
+    RUNTIME_FRAMES steps; launches of the perception and multi_sweep
+    kernels counted on each path; at RUNTIME_CPU_BATCH, each runtime on
+    the card against the CPU, RUNTIME_CPU_STEPS steps from one state
+    within STEP_TOL."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from openmp_parallel_computing_tpu_torch.models.mpc import (
+        AdaptiveRuntime, MPCRuntime, VisualServoMPC, dynamics)
+    from openmp_parallel_computing_tpu_torch.models.mpc.adaptive import (
+        adaptive_receding_horizon)
+    from openmp_parallel_computing_tpu_torch.models.mpc.sysid import (
+        DepthEstimator, state_leaves)
+    from openmp_parallel_computing_tpu_torch.utils.config import MPCConfig
+
+    cfg = MPCConfig(horizon=H, num_features=M, edge_refresh="solve")
+    B, n, k = RUNTIME_BATCH, RUNTIME_FRAMES, RESUME_AT
+    p0, target, depth, depth_true = runtime_start(B)
+    dt_true = torch.from_numpy(depth_true).cuda()
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(dir=ROOT / "build"))
+    try:
+        def resumed(make, name, feed):
+            """A new runtime restored from the frame-k checkpoint of
+            ``name`` (copied alone into a directory), run to frame n."""
+            alone = tmp / f"{name}_resume"
+            alone.mkdir()
+            shutil.copy(tmp / name / f"ckpt_{k:08d}.npz", alone)
+            rt = make(alone)
+            if not rt.restore_latest() or rt.frame_idx != k:
+                raise AssertionError(f"{name}: restore gave frame "
+                                     f"{rt.frame_idx}, want {k}")
+            return rt, [feed(rt, i) for i in range(k, n)]
+
+        # MPCRuntime: the uninterrupted run, counted.
+        rt = MPCRuntime(cfg, tmp / "mpc", device="cuda")
+        rt.reset(p0, target, depth)
+        us, launches, fired, wall = counted(
+            lambda: [rt.step(frames[i % RING]).clone() for i in range(n)])
+        check_launches("MPCRuntime", cfg, B, n, launches, fired)
+        if len(list((tmp / "mpc").glob("ckpt_*.npz"))) != n:
+            raise AssertionError("MPCRuntime: a checkpoint a frame expected")
+        rt2, us2 = resumed(lambda d: MPCRuntime(cfg, d, device="cuda"), "mpc",
+                           lambda r, i: r.step(frames[i % RING]))
+        if not all(torch.equal(a, b) for a, b in zip(us[k:], us2)):
+            raise AssertionError("MPCRuntime: the resumed run's controls != "
+                                 "the uninterrupted run's")
+        rows["edge_pyramid"]["launches_runtime"] = launches["edge_pyramid"]
+        rows["multi_sweep"]["launches_runtime"] = launches["multi_sweep"]
+        log(f"[runtime] MPCRuntime B={B}: {n} frames in {wall:.3f} s "
+            f"({B * n / wall:.1f} solves/s, a checkpoint a frame), launches "
+            f"{ {a: c for a, c in launches.items() if c} }, gate fired "
+            f"{fired}/{n}; resumed from frame {k}: controls bit-equal")
+
+        # AdaptiveRuntime: the plant moves under the true depths.
+        def adaptive(d):
+            return AdaptiveRuntime(cfg, ckpt_dir=d, device="cuda")
+
+        obs = [torch.from_numpy(p0).cuda()]
+
+        def run_adaptive():
+            out = []
+            for i in range(n):
+                u = ar.step(frames[i % RING], obs[i]).clone()
+                obs.append(dynamics.step(obs[i], u, dt_true, cfg.dt))
+                out.append(u)
+            return out
+
+        ar = adaptive(tmp / "adaptive")
+        ar.reset(p0, target, z0=8.0)
+        us, launches, fired, wall = counted(run_adaptive)
+        check_launches("AdaptiveRuntime", cfg, B, n, launches, fired)
+        ar2, us2 = resumed(adaptive, "adaptive",
+                           lambda r, i: r.step(frames[i % RING], obs[i]))
+        same = all(torch.equal(a, b) for a, b in zip(us[k:], us2))
+        same_state = all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(
+            state_leaves(ar.sysid), state_leaves(ar2.sysid)))
+        if not (same and same_state):
+            raise AssertionError(f"AdaptiveRuntime: resumed run != "
+                                 f"uninterrupted (controls {same}, depths "
+                                 f"and moments {same_state})")
+        derr = [(d - dt_true).abs().mean().item() for d in
+                (torch.full_like(dt_true, 8.0), ar.depths())]
+        rows["edge_pyramid"]["launches_adaptive"] = launches["edge_pyramid"]
+        rows["multi_sweep"]["launches_adaptive"] = launches["multi_sweep"]
+        log(f"[runtime] AdaptiveRuntime B={B}: {n} frames in {wall:.3f} s, "
+            f"launches { {a: c for a, c in launches.items() if c} }, gate "
+            f"fired {fired}/{n}; resumed from frame {k}: controls, depths "
+            f"and Adam moments bit-equal; mean depth error {derr[0]:.4f} -> "
+            f"{derr[1]:.4f}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # adaptive_receding_horizon over the ring.
+    mpc = VisualServoMPC(cfg, "cuda")
+    est = DepthEstimator(M, cfg.dt, lr=0.05, device="cuda")
+    scen = runtime_scenario(mpc, p0, target, depth)
+    (u0s, cost_seq, losses, _, st), launches, fired, wall = counted(
+        lambda: adaptive_receding_horizon(mpc, est, frames, scen, dt_true, n,
+                                          est.init(B, z0=8.0)))
+    check_launches("adaptive_receding_horizon", cfg, B, n, launches, fired)
+    if not all(torch.isfinite(t).all() for t in (u0s, cost_seq, losses)):
+        raise AssertionError("adaptive_receding_horizon: non-finite output")
+    if u0s.shape != (n, B, 6) or losses.shape != (n,):
+        raise AssertionError(f"adaptive_receding_horizon: shapes "
+                             f"{u0s.shape} {losses.shape}")
+    rows["edge_pyramid"]["launches_adaptive_loop"] = launches["edge_pyramid"]
+    rows["multi_sweep"]["launches_adaptive_loop"] = launches["multi_sweep"]
+    log(f"[runtime] adaptive_receding_horizon B={B}: {n} steps in "
+        f"{wall:.3f} s ({B * n / wall:.1f} solves/s), launches "
+        f"{ {a: c for a, c in launches.items() if c} }, sysid loss "
+        f"{losses[0].item():.3e} -> {losses[-1].item():.3e}")
+    runtime_card_vs_cpu(frames, cfg)
+
+
+def runtime_scenario(mpc, p0, target, depth):
+    """A Scenario on ``mpc``'s device from numpy arrays, zero plan."""
+    import torch
+
+    from openmp_parallel_computing_tpu_torch.models.mpc import Scenario
+
+    dev = mpc.device
+    return Scenario(p0=torch.from_numpy(p0).to(dev),
+                    target=torch.from_numpy(target).to(dev),
+                    depth=torch.from_numpy(depth).to(dev),
+                    us0=torch.zeros((p0.shape[0], H, 6), device=dev))
+
+
+def runtime_card_vs_cpu(frames, cfg) -> None:
+    """MPCRuntime and AdaptiveRuntime at RUNTIME_CPU_BATCH on the card
+    and on the CPU, RUNTIME_CPU_STEPS steps, each from the card's state
+    (copied to the CPU runtime before the step): u0 within STEP_TOL."""
+    import numpy as np
+    import torch
+
+    from openmp_parallel_computing_tpu_torch.models.mpc import (
+        AdaptiveRuntime, MPCRuntime, dynamics)
+    from openmp_parallel_computing_tpu_torch.models.mpc.sysid import (
+        state_from_leaves, state_leaves)
+
+    t0 = time.perf_counter()
+    B = RUNTIME_CPU_BATCH
+    p0, target, depth, depth_true = runtime_start(B, seed=1)
+    runtimes = {
+        "MPCRuntime": (lambda d: MPCRuntime(cfg, device=d),
+                       lambda r: r.reset(p0, target, depth)),
+        "AdaptiveRuntime": (lambda d: AdaptiveRuntime(cfg, device=d),
+                            lambda r: r.reset(p0, target, z0=8.0))}
+    worst = {}
+    for name, (make, reset) in runtimes.items():
+        card, cpu = make("cuda"), make("cpu")
+        reset(card)
+        adaptive = name == "AdaptiveRuntime"
+        p = torch.from_numpy(p0)
+        worst[name] = 0.0
+        for i in range(RUNTIME_CPU_STEPS):
+            # the CPU runtime takes the card's state before each step
+            cpu.scen = _to(card.scen, "cpu")
+            if adaptive:
+                cpu.sysid = state_from_leaves(state_leaves(card.sysid), "cpu")
+                cpu._last = (None if card._last is None else
+                             tuple(t.cpu() for t in card._last))
+            f = frames[i % RING]
+            args = (p,) if adaptive else ()
+            u_card = card.step(f, *(a.cuda() for a in args)).cpu()
+            u_cpu = cpu.step(f.cpu(), *args)
+            np.testing.assert_allclose(u_card.numpy(), u_cpu.numpy(),
+                                       rtol=STEP_TOL, atol=STEP_TOL,
+                                       err_msg=f"{name} step {i}")
+            worst[name] = max(worst[name], (u_card - u_cpu).abs().max().item())
+            if adaptive:
+                p = dynamics.step(p, u_card, torch.from_numpy(depth_true),
+                                  cfg.dt)
+    log(f"[runtime] card vs CPU, B={B}, {RUNTIME_CPU_STEPS} steps each from "
+        f"the card's state: max abs err u0 {worst} (tol {STEP_TOL}); "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+# -- phase 10: the bench surfaces ------------------------------------------------
+
+def phase_bench_surfaces(frames, rows: dict) -> None:
+    """The port's benches, cut in depth, their launches counted: the
+    chain (``bench.chains.run``), the receding window
+    (``bench.device_loop.measure``), the image harness
+    (``bench.harness.bench_kernel`` for grayscale on the 1080p frame,
+    ``bench.image_set`` for blur on the half-mega photo and edge on each
+    fixture; CSVs under chiprun_out/bench_surfaces), the sysid price
+    (``bench.sysid_loop_study.run_price``); the decoder imgio used; and
+    channel_sum on uint32, uint64 and complex64 frames against its plain
+    version, timed."""
+    import csv
+
+    import torch
+
+    from openmp_parallel_computing_tpu_torch import data, imgio, ops
+    from openmp_parallel_computing_tpu_torch.bench import (
+        chains, device_loop, harness, image_set, sysid_loop_study)
+    from openmp_parallel_computing_tpu_torch.utils.config import MPCConfig
+
+    cfg = MPCConfig(horizon=H, num_features=M, edge_refresh="solve")
+    k = BENCH_RUN
+    out, launches, fired, wall = counted(lambda: chains.run(
+        scenarios=k["chain_batch"], reps=k["chain_reps"],
+        trials=k["chain_trials"], device="cuda"))
+    steps = 1 + k["chain_reps"] * k["chain_trials"]
+    check_launches("chains", cfg, k["chain_batch"], steps, launches, fired)
+    chain = out
+    log(f"[bench] chains B={k['chain_batch']}: {json.dumps(out)} "
+        f"({wall:.1f} s, launches "
+        f"{ {a: c for a, c in launches.items() if c} })")
+
+    windows = 2 + k["loop_trials"]
+    row, launches, fired, wall = counted(lambda: device_loop.measure(
+        k["loop_batch"], k["loop_frames"], frames[0], k["loop_trials"]))
+    check_launches("device_loop", cfg, k["loop_batch"],
+                   windows * k["loop_frames"], launches, fired,
+                   perception=windows)
+    log(f"[bench] device_loop: {json.dumps(row)}; the chain's median "
+        f"{chain['median']} solves/s at B={k['chain_batch']} ({wall:.1f} s)")
+
+    price, launches, fired, wall = counted(lambda: sysid_loop_study.run_price(
+        [k["price_batch"]], k["price_steps"], k["price_trials"], H,
+        device="cuda"))
+    solves = 2 * (2 + k["price_trials"]) * k["price_steps"]
+    check_launches("sysid price", cfg, k["price_batch"], solves, launches,
+                   fired)
+    log(f"[bench] sysid price: {json.dumps(price)} ({wall:.1f} s)")
+
+    # The image harness; its kernels' wrappers carry the counts.
+    wrappers = {"grayscale": ops.grayscale, "edge": ops.edge_pipeline,
+                "conv3x3": ops.conv3x3, "sobel": ops.sobel}
+    out_dir = ROOT / "chiprun_out" / "bench_surfaces"
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    gray = harness.bench_kernel(data.frame_path(), runs=k["runs"],
+                                passes=k["passes"], kernel="grayscale",
+                                out_dir=out_dir / "grayscale_1080p")
+    decoder = imgio.decoder_used()
+    blur = image_set.blur_halfmega(out_dir, runs=k["runs"], passes=k["passes"])
+    edge = image_set.edge_images_set(out_dir, runs=k["runs"],
+                                     passes=k["passes"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {n: w.launches for n, w in wrappers.items()}
+    per = (1 + k["runs"]) * k["passes"]        # warm-up + runs, each passes
+    want = {"grayscale": per, "edge": per * len(data.fixture_set()),
+            "conv3x3": per, "sobel": 0}
+    if got != want:
+        raise AssertionError(f"harness: launch counts {got} != {want}")
+    for name in ("grayscale", "edge", "conv3x3"):
+        rows[name]["launches_harness"] = got[name]
+    for csv_path in sorted(out_dir.rglob("*_bench.csv")):
+        with open(csv_path) as f:
+            table = list(csv.reader(f))
+        if table[0] != harness.CSV_HEADER or len(table) != 2:
+            raise AssertionError(f"{csv_path}: {table}")
+    cli_on_jpeg(frames[0], out_dir)
+    log(f"[bench] harness ({wall:.1f} s, decoder {decoder!r} of "
+        f"{imgio.available_decoders()}, native codec: "
+        f"{imgio.native_status()}): grayscale 1080p {gray[0].avg_real_s:.6f} "
+        f"s, blur half-mega {blur[0].avg_real_s:.6f} s, edge {edge} "
+        f"(s a run of {k['passes']} passes); launches {got}")
+    channel_sum_new_dtypes(frames, rows)
+
+
+def cli_on_jpeg(frame, out_dir) -> None:
+    """The image CLI on a JPEG of ``frame`` (written by imgio.save_jpeg):
+    rc 0 and the edge pass of the decoded JPEG. A missing JPEG codec
+    (``save_jpeg``'s ``OSError``) fails the run."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from openmp_parallel_computing_tpu_torch import cli, imgio
+    from openmp_parallel_computing_tpu_torch.ops.pipeline import (
+        edge_pipeline_plain)
+
+    src, dst = out_dir / "frame.jpg", out_dir / "frame_edge.png"
+    imgio.save_jpeg(src, np.transpose(frame.cpu().numpy(), (1, 2, 0)))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main([str(src), str(dst), "3", "--kernel", "edge"])
+    want = edge_pipeline_plain(load_planar(src, "cpu"), passes=3).numpy()
+    got = np.transpose(imgio.load(dst), (2, 0, 1))
+    if rc != 0 or not np.array_equal(got, want):
+        raise AssertionError(f"CLI on a JPEG: rc {rc}, output equal to the "
+                             f"plain edge pass: {np.array_equal(got, want)}")
+    log(f"[bench] CLI on a JPEG ({imgio.decoder_used()}): rc 0, "
+        f"{buf.getvalue().strip()}; output equals the plain edge pass of the "
+        f"decoded JPEG")
+
+
+def channel_sum_new_dtypes(frames, rows: dict) -> None:
+    """channel_sum on ring[0]-sized uint32 (values up to 2^32 - 1), uint64
+    and complex64 frames against its plain version (the integers
+    bit-exact, complex64 within SUM_F32_RTOL), the same bits on a second
+    call, with kernel and plain times."""
+    import torch
+
+    from openmp_parallel_computing_tpu_torch import ops
+    from openmp_parallel_computing_tpu_torch.ops import reductions as red
+
+    gen = torch.Generator().manual_seed(21)
+    shape = tuple(frames[0].shape)
+    n = shape[0] * shape[1] * shape[2]
+    imgs = {"uint32": sum_values(torch.uint32, n, gen).view(shape),
+            "uint64": sum_values(torch.uint64, n, gen).view(shape),
+            "complex64": sum_values(torch.complex64, n, gen).view(shape)}
+    imgs["uint32"].view(torch.uint8)[0, 0, :8] = 255     # two of 2^32 - 1
+    for dt, img in imgs.items():
+        got, want = ops.channel_sum(img), red.channel_sum_plain(img)
+        err = (got - want).abs().max().item()
+        ok = (torch.equal(got, want) if dt != "complex64" else
+              bool(((got - want).abs() <= SUM_F32_RTOL * want.abs()).all()))
+        if not ok or not torch.equal(ops.channel_sum(img), got):
+            raise AssertionError(f"channel_sum {dt}: kernel {got} vs plain "
+                                 f"{want}")
+        call = functools.partial(ops.channel_sum, img)
+        ms = cuda_time_ms(call, 200)
+        plain_ms = cuda_time_ms(lambda: red.channel_sum_plain(img), 50)
+        # device us a call: the kernel alone, and every kernel of the call
+        # (uint64 and complex64 are cast first)
+        dev = device_us(call, "channel_sum_kernel", 20, per_call=True)
+        dev_all = device_us(call, "", 20, per_call=True)
+        bnd = bound(nbytes(img, got))
+        rows["channel_sum"].update({
+            f"ms_{dt}": ms, f"plain_ms_{dt}": plain_ms,
+            f"bound_ms_{dt}": bnd["bound_ms"], f"device_us_{dt}": dev,
+            f"device_us_call_{dt}": dev_all})
+        log(f"[bench] channel_sum {dt} {shape}: max abs err {err:.3e}, "
+            f"{ms:.4f} ms a call (device {dev} us the kernel, {dev_all} us "
+            f"the call with its cast), plain {plain_ms:.4f} ms, bound "
+            f"{bnd['bound_ms']:.4f} ms (the {dt} frame read once)")
+
+
 def main() -> int:
     if not (PKG / "__init__.py").is_file():
         raise SystemExit(f"chip_smoke: the port package is missing beside "
@@ -2405,7 +2838,9 @@ def main() -> int:
              lambda: rows.update(phase_reduction_kernels(frames, photos))),
             ("reductions", lambda: phase_reductions(frames, rows)),
             ("probe", phase_probe),
-            ("headline", phase_headline)):
+            ("headline", phase_headline),
+            ("runtime", lambda: phase_runtime(frames, rows)),
+            ("bench surfaces", lambda: phase_bench_surfaces(frames, rows))):
         t0 = time.perf_counter()
         run()
         log(f"[time] phase {name}: {time.perf_counter() - t0:.1f} s")

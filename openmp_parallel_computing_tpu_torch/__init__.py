@@ -6,7 +6,9 @@ analytic edge linearization, the multi-sweep iLQR kernel
 ``csrc/multi_sweep.cu``), and the image-kernel entry point (the CLI and
 kernel registry over ``csrc/grayscale.cu``, ``csrc/stencil.cu`` and
 ``csrc/conv3x3.cu``), with the reductions (``csrc/reductions.cu``), the
-capability probe and the headline MPC bench. Kernels are compiled with
+capability probe, the headline MPC bench and the bench surfaces, the
+controller runtime with its checkpoints and the online depth learner.
+Kernels are compiled with
 nvcc at first use (``_build``); on CPU tensors every kernel wrapper runs
 its plain PyTorch version instead. This package imports neither JAX nor
 the JAX package.
@@ -14,10 +16,13 @@ the JAX package.
 Layout:
     cli.py, __main__.py    <in> <out.png> [passes] --kernel ... on the card
     probe.py               python -m openmp_parallel_computing_tpu_torch.probe
-    bench/                 headline (bench.py on the card), mpc_batch, _chain
-    utils/config.py        MPCConfig
+    bench/                 headline (bench.py on the card), mpc_batch, _chain,
+                           chains, device_loop, harness + __main__ (the C8
+                           sweep), image_set, sysid_loop_study
+    utils/                 config (MPCConfig), timing, checkpoint
     data/                  fixture paths (the JAX package's PNG files)
-    imgio.py               zlib + numpy PNG decoder and encoder
+    imgio.py               image load (native codec, Pillow, own PNG
+                           decoder), save_png, save_jpeg
     ops/xla_ref.py         plain luma, grayscale, Sobel, edge, conv3x3,
                            channel_mean, grayscale_mean_minmax
     ops/grayscale.py, sobel.py, pipeline.py, conv.py, reductions.py
@@ -25,7 +30,8 @@ Layout:
     ops/runner.py          kernel registry, make_runner
     models/vision/         EdgeBatchRunner
     models/mpc/            dynamics, costs, riccati_lanes, sweep (kernel 2),
-                           solver (VisualServoMPC)
+                           solver (VisualServoMPC), runtime (MPCRuntime),
+                           sysid (DepthEstimator), adaptive
     convert.py             JAX-package state -> port state
 """
 

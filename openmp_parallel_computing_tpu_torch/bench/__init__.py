@@ -1,5 +1,9 @@
-"""MPC benchmarks of the port: the headline closed loop
-(``bench.headline``, the counterpart of the repository's ``bench.py``),
-the batch sweep (``bench.mpc_batch``) and the warm-start chain they share
-(``bench._chain``). They run on the card unless the caller asks for the
-CPU."""
+"""Benchmarks of the port: the headline closed loop (``bench.headline``,
+the counterpart of the repository's ``bench.py``), the batch sweep
+(``bench.mpc_batch``), the warm-start chain they share (``bench._chain``)
+and its multi-trial form (``bench.chains``), the receding window
+(``bench.device_loop``), the reference's C8 image sweep
+(``bench.harness``, ``python -m openmp_parallel_computing_tpu_torch.bench``,
+``bench.image_set``), the adaptive loop's quality and price
+(``bench.sysid_loop_study``), and the kernel benches. They run on the
+card unless the caller asks for the CPU."""

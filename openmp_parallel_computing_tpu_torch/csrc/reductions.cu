@@ -21,9 +21,10 @@
 // first 16-byte boundary and a scalar tail: planes 1 and up of an
 // odd-sized u8 frame start off any 4-byte boundary. A word's elements are
 // summed at once: four bytes by __dp4a, two 16-bit lanes by __dp2a_lo,
-// floats converted and added in double. Integers accumulate exactly in
-// 64 bits, floats in double. The block reduces with warp shuffles in a
-// fixed order and writes its partial to the scratch; after
+// 32-bit integers widened to 64 bits, floats converted and added in
+// double. Integers accumulate exactly in 64 bits, floats in double. The
+// block reduces with warp shuffles in a fixed order and writes its
+// partial to the scratch; after
 // __threadfence() it takes a ticket of its channel, and the block that
 // takes the last ticket sums the channel's partials in chunk order, rounds
 // once to float32 (divided by float32(H*W) for the mean, as the plain
@@ -64,7 +65,7 @@ constexpr int kMaxDevices = 64;
 constexpr size_t kMaxBlocks = 1024;
 
 // channel_sum's input dtypes, with the codes the wrapper passes.
-enum Dtype { kU8, kI8, kI16, kU16, kI32, kF16, kBF16, kF32 };
+enum Dtype { kU8, kI8, kI16, kU16, kI32, kF16, kBF16, kF32, kU32 };
 
 // Each dtype's element (16-bit floats as their bits) and accumulator.
 template <int D> struct Elem;
@@ -76,6 +77,7 @@ template <> struct Elem<kI32> { using T = int32_t; using Acc = long long; };
 template <> struct Elem<kF16> { using T = uint16_t; using Acc = double; };
 template <> struct Elem<kBF16> { using T = uint16_t; using Acc = double; };
 template <> struct Elem<kF32> { using T = float; using Acc = double; };
+template <> struct Elem<kU32> { using T = uint32_t; using Acc = long long; };
 
 __device__ __forceinline__ float bf16_lo(unsigned w) {
   return __uint_as_float(w << 16);
@@ -104,12 +106,14 @@ __device__ __forceinline__ double word_sum(unsigned w) {
 }
 
 // The sum of a 16-byte word's elements: the 8- and 16-bit integers in 32
-// bits (at most 16 x 255 or 8 x 65535 in magnitude), int32 in 64 bits,
-// floats in double (in a fixed order).
+// bits (at most 16 x 255 or 8 x 65535 in magnitude), int32 and uint32 in
+// 64 bits, floats in double (in a fixed order).
 template <int D>
 __device__ __forceinline__ typename Elem<D>::Acc vec_sum(uint4 q) {
   if constexpr (D == kI32) {
     return (long long)(int)q.x + (int)q.y + (long long)(int)q.z + (int)q.w;
+  } else if constexpr (D == kU32) {
+    return ((long long)q.x + (long long)q.y) + ((long long)q.z + (long long)q.w);
   } else if constexpr (D == kU8) {
     return __dp4a(q.w, 0x01010101u, __dp4a(q.z, 0x01010101u,
                   __dp4a(q.y, 0x01010101u, __dp4a(q.x, 0x01010101u, 0u))));
@@ -322,6 +326,7 @@ extern "C" int channel_sum_launch(const void* img, int C, int H, int W,
                                 partials, out, s);
     SUM_CASE(kU8) SUM_CASE(kI8) SUM_CASE(kI16) SUM_CASE(kU16)
     SUM_CASE(kI32) SUM_CASE(kF16) SUM_CASE(kBF16) SUM_CASE(kF32)
+    SUM_CASE(kU32)
 #undef SUM_CASE
     default:
       return (int)cudaErrorInvalidValue;

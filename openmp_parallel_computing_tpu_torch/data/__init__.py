@@ -30,6 +30,17 @@ def six_mp_path() -> Path:
     return _DATA / "photo_6mp.png"
 
 
+def fixture_set() -> dict[str, Path]:
+    """The benchmark image set, smallest to largest (the JAX package's
+    keys and order): the size-scaling axis of the reference's fixtures,
+    1080p -> 6 MP."""
+    return {
+        "frame_1080p": frame_path(),
+        "photo_half_mega": half_mega_path(),
+        "photo_6mp": six_mp_path(),
+    }
+
+
 def load_frame_hwc() -> np.ndarray:
     """Decode the canonical benchmark frame to an (H, W, C) u8 array."""
     from openmp_parallel_computing_tpu_torch import imgio

@@ -22,12 +22,15 @@ from openmp_parallel_computing_tpu_torch.ops import _wrap, xla_ref
 # csrc/reductions.cu: the dtypes an image can have.
 SUM_DTYPES = {torch.uint8: 0, torch.int8: 1, torch.int16: 2,
               torch.uint16: 3, torch.int32: 4, torch.float16: 5,
-              torch.bfloat16: 6, torch.float32: 7}
+              torch.bfloat16: 6, torch.float32: 7, torch.uint32: 8}
 # The other dtypes JAX's channel_sum takes, as the dtype it holds them in:
-# 64 bits canonicalised to 32 (int64 wraps, float64 rounds), bool read as
-# its bytes 0 and 1. They are cast (bool viewed) before the kernel.
+# 64 bits canonicalised to 32 (int64 and uint64 wrap to their low 32
+# bits, float64 rounds), bool read as its bytes 0 and 1, complex as its
+# real part in float32 (complex128 rounded once). They are cast (bool
+# viewed) before the kernel.
 SUM_CASTS = {torch.bool: torch.uint8, torch.int64: torch.int32,
-             torch.float64: torch.float32}
+             torch.uint64: torch.uint32, torch.float64: torch.float32,
+             torch.complex64: torch.float32, torch.complex128: torch.float32}
 # 8-byte slots a channel in channel_sum's scratch: at most SUM_SLOTS - 1
 # blocks' partials, then the channel's ticket.
 SUM_SLOTS = 1025
@@ -41,12 +44,22 @@ _scratch: dict[tuple[int, int], torch.Tensor] = {}
 
 
 def _held(img: torch.Tensor) -> torch.Tensor:
-    """``img`` in the dtype JAX holds it in (``SUM_CASTS``); bool as a
-    u8 view, without a copy."""
+    """``img`` in the dtype JAX holds it in (``SUM_CASTS``), contiguous
+    where ``img`` is; bool as a u8 view, without a copy; uint64 as the
+    low 32-bit word of each element, cut through int32 views (no
+    conversion between the unsigned dtypes, whose support varies by
+    device)."""
     to = SUM_CASTS.get(img.dtype)
     if to is None:
         return img
-    return img.view(to) if img.dtype == torch.bool else img.to(to)
+    if img.dtype == torch.bool:
+        return img.view(to)
+    if img.dtype == torch.uint64:         # little-endian: the low word first
+        words = img.contiguous().view(torch.int32)
+        return words.reshape(*img.shape, 2)[..., 0].contiguous().view(to)
+    if img.is_complex():
+        return img.real.to(to).contiguous()
+    return img.to(to)
 
 
 def channel_sum_plain(img: torch.Tensor) -> torch.Tensor:
@@ -58,6 +71,8 @@ def channel_sum_plain(img: torch.Tensor) -> torch.Tensor:
         return img.double().sum(dim=(1, 2)).float()
     if img.dtype == torch.uint16:     # through int16, which every device has
         img = img.view(torch.int16).to(torch.int32) & 0xFFFF
+    elif img.dtype == torch.uint32:   # through int32, likewise
+        img = img.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
     return img.to(torch.int64).sum(dim=(1, 2)).to(torch.float32)
 
 
@@ -101,9 +116,11 @@ def _sum_kernel(img: torch.Tensor, mean: bool) -> torch.Tensor:
 
 def channel_sum(img: torch.Tensor) -> torch.Tensor:
     """Planar (C, H, W) -> (C,) float32 per-channel sum, for u8, int8,
-    int16, uint16, int32, float16, bfloat16 and float32 images, and bool,
-    int64 and float64 ones as JAX holds them (``SUM_CASTS``). One kernel
-    launch on the card; the same result on every run."""
+    int16, uint16, int32, uint32, float16, bfloat16 and float32 images,
+    and bool, int64, uint64, float64, complex64 and complex128 ones as JAX
+    holds them (``SUM_CASTS``). One kernel launch on the card (after
+    PyTorch's cast for uint64 and complex); the same result on every
+    run."""
     _check_sum(img)
     if not _wrap.on_card(img):
         return channel_sum_plain(img)

@@ -20,6 +20,17 @@ from openmp_parallel_computing_tpu_torch.models.vision import EdgeBatchRunner
 
 torch.set_num_threads(2)
 
+
+def _load_with(decoder, path):
+    """``imgio.load`` with the decoders before ``decoder`` in its order
+    hidden, so that ``decoder`` is the one it takes."""
+    with pytest.MonkeyPatch.context() as mp:
+        if decoder != "native":
+            mp.setattr(imgio, "_load_lib", lambda: None)
+        if decoder == "png":
+            mp.setattr(imgio, "_have_pil", lambda: False)
+        return imgio.load(path)
+
 BUILTINS = ("grayscale", "edge", "blur")
 REPORT = re.compile(r"^(.*) ×(\d+): (\d+\.\d{4}) s$")
 
@@ -125,8 +136,9 @@ def _malformed_png(tmp_path, how: str):
 @pytest.mark.parametrize("how", ["idat", "cut10", "cut20", "cut35", "cut40"])
 def test_cli_malformed_png_returns_1_like_jax(tmp_path, capsys, how):
     bad = _malformed_png(tmp_path, how)
-    with pytest.raises(ValueError, match=re.escape(str(bad))):
-        imgio.load(bad)
+    for decoder in imgio.available_decoders():
+        with pytest.raises((OSError, ValueError), match=re.escape(str(bad))):
+            _load_with(decoder, bad)
     assert cli.main([str(bad), str(tmp_path / "o.png")], device="cpu") == 1
     ours = capsys.readouterr().err
     assert jax_cli.main([str(bad), str(tmp_path / "t.png")]) == 1
@@ -220,27 +232,60 @@ def test_load_matches_jax_loader_on_pillow_files(tmp_path, mode):
     np.testing.assert_array_equal(ours, jax_imgio.load(p))
 
 
+def _with_header(src, dst, depth=None, colour=None, interlace=None,
+                 drop=()):
+    """``src``'s PNG bytes with IHDR fields replaced (its CRC redone) and
+    the chunks named in ``drop`` taken out, written to ``dst``."""
+    raw = bytearray(src.read_bytes())
+    for at, v in ((24, depth), (25, colour), (28, interlace)):
+        if v is not None:
+            raw[at] = v
+    raw[29:33] = struct.pack(">I", zlib.crc32(bytes(raw[12:29])))
+    out, pos = bytes(raw[:8]), 8
+    while pos < len(raw):
+        n = struct.unpack(">I", raw[pos:pos + 4])[0]
+        if bytes(raw[pos + 4:pos + 8]) not in drop:
+            out += bytes(raw[pos:pos + 12 + n])
+        pos += 12 + n
+    dst.write_bytes(out)
+    return dst
+
+
 def test_load_rejects_16_bit_and_palette(tmp_path):
-    p16 = tmp_path / "g16.png"
-    Image.fromarray(np.arange(60, dtype=np.uint16).reshape(6, 10) * 1000
-                    ).save(p16)
-    assert p16.read_bytes()[24] == 16
-    with pytest.raises(ValueError, match="8-bit"):
-        imgio.load(p16)
+    """16-bit and palette PNGs decode (test_torch_imgio.py); what the
+    spec refuses does not: a 16-bit palette image, and a palette image
+    without its PLTE chunk. Every decoder that is there refuses both,
+    naming the file, as the JAX package's loader does."""
     pal = tmp_path / "pal.png"
-    Image.fromarray(np.zeros((6, 10), np.uint8), "L").convert("P").save(pal)
+    Image.fromarray(np.arange(60, dtype=np.uint8).reshape(6, 10), "L"
+                    ).convert("P").save(pal)
     assert pal.read_bytes()[25] == 3
-    with pytest.raises(ValueError, match="colour type=3"):
-        imgio.load(pal)
+    bad = [_with_header(pal, tmp_path / "p16.png", depth=16),
+           _with_header(pal, tmp_path / "noplte.png", drop=(b"PLTE",))]
+    for p in bad:
+        with pytest.raises(OSError, match=p.name):
+            jax_imgio.load(p)
+        for decoder in imgio.available_decoders():
+            with pytest.raises((OSError, ValueError), match=p.name):
+                _load_with(decoder, p)
+    with pytest.raises(ValueError, match="depth=16, colour type=3"):
+        imgio._load_png(bad[0])
+    with pytest.raises(ValueError, match="without PLTE"):
+        imgio._load_png(bad[1])
 
 
 def test_load_rejects_interlaced(tmp_path):
-    body = struct.pack(">IIBBBBB", 4, 4, 8, 2, 0, 0, 1)
-    p = tmp_path / "i.png"
-    p.write_bytes(b"\x89PNG\r\n\x1a\n" + struct.pack(">I", 13) + b"IHDR"
-                  + body + struct.pack(">I", zlib.crc32(b"IHDR" + body)))
-    with pytest.raises(ValueError, match="interlace=1"):
-        imgio.load(p)
+    """Adam7 (interlace method 1) decodes (test_torch_imgio.py); any
+    other interlace method is refused by every decoder, naming the
+    file."""
+    src = tmp_path / "g.png"
+    imgio.save_png(src, np.zeros((4, 4, 3), np.uint8))
+    p = _with_header(src, tmp_path / "i2.png", interlace=2)
+    for decoder in imgio.available_decoders():
+        with pytest.raises((OSError, ValueError), match=p.name):
+            _load_with(decoder, p)
+    with pytest.raises(ValueError, match="interlace=2"):
+        imgio._load_png(p)
 
 
 def test_save_png_rejects_bad_arrays(tmp_path):

@@ -26,6 +26,10 @@ Tolerances:
   their sums passing 2^24; float16, bfloat16,
   float32 and float64 (rounded to float32 by both) rtol 1e-6: JAX rounds
   each float32 partial sum, the port rounds the exact-in-double sum once.
+  uint32 (values up to 2^32 - 1, which int32 cannot hold: a kernel
+  instance of its own), uint64 (held as its low 32 bits by both) and
+  complex64/complex128 (the real part in float32; real parts in [0, 1000))
+  rtol 1e-6 for the same reason.
 """
 
 import subprocess
@@ -117,6 +121,15 @@ SUM_CASES = {
                  1e-6),
     "float32": (lambda r, sh: r.uniform(0, 1e5, sh).astype(np.float32), 1e-6),
     "float64": (lambda r, sh: r.uniform(0, 1e5, sh), 1e-6),
+    "uint32": (lambda r, sh: r.integers(0, 2 ** 32, sh, dtype=np.uint32),
+               1e-6),
+    "uint64": (lambda r, sh: r.integers(0, 2 ** 64 - 1, sh,
+                                        dtype=np.uint64), 1e-6),
+    "complex64": (lambda r, sh: (r.uniform(0, 1000, sh)
+                                 + 1j * r.uniform(-1, 1, sh))
+                  .astype(np.complex64), 1e-6),
+    "complex128": (lambda r, sh: r.uniform(0, 1000, sh)
+                   + 1j * r.uniform(-1, 1, sh), 1e-6),
 }
 
 
@@ -141,11 +154,29 @@ def test_channel_sum_dtypes_match_jax(dtype):
             np.testing.assert_allclose(got.numpy(), want, rtol=rtol)
         else:
             np.testing.assert_array_equal(got.numpy(), want)
-    if not t.is_floating_point():       # integers: the exact sum, rounded
+    if not (t.is_floating_point() or t.is_complex()):
+        # integers: the exact sum of the values as JAX holds them, rounded
         held = np.asarray(j).astype(np.int64)
         np.testing.assert_array_equal(
             ops.channel_sum(t).numpy(),
             held.reshape(3, -1).sum(axis=1).astype(np.float32))
+
+
+def test_channel_sum_uint32_above_int32_and_uint64_low_words():
+    """uint32 values of 2^31 and above sum as unsigned; uint64 values sum
+    as their low 32 bits (JAX with x64 off), exactly, rounded once."""
+    u32 = np.full((2, 3, 5), 2 ** 32 - 1, np.uint32)
+    u32[1] = 2 ** 31
+    got = ops.channel_sum(torch.from_numpy(u32)).numpy()
+    np.testing.assert_array_equal(
+        got, u32.reshape(2, -1).sum(axis=1, dtype=np.int64).astype(np.float32))
+    u64 = np.array([[[2 ** 40 + 3, 2 ** 63 + 9, 2 ** 33 - 1]]], np.uint64)
+    np.testing.assert_array_equal(
+        ops.channel_sum(torch.from_numpy(u64)).numpy(),
+        np.float32([3 + 9 + 2 ** 32 - 1]))
+    np.testing.assert_array_equal(
+        ops.channel_sum(torch.from_numpy(u64)).numpy(),
+        np.asarray(jops.channel_sum(jnp.asarray(u64))))
 
 
 def test_channel_mean_is_float32_division_of_the_sum():
@@ -205,7 +236,8 @@ def test_plain_twins_equal_jax_twins():
     (ops.grayscale, torch.zeros((2, 4, 4), dtype=torch.uint8), ValueError),
     (ops.edge_pipeline, torch.zeros((2, 4, 4), dtype=torch.uint8),
      ValueError),
-    (ops.channel_sum, torch.zeros((3, 4, 4), dtype=torch.uint32), TypeError),
+    (ops.channel_sum, torch.zeros((3, 4, 4), dtype=torch.complex32),
+     TypeError),
     (ops.grayscale_mean_minmax, torch.zeros((3, 4, 4), dtype=torch.float16),
      TypeError),
     (ops.grayscale_mean_minmax, torch.zeros((2, 4, 4), dtype=torch.uint8),

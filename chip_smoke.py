@@ -146,6 +146,26 @@ Any failure raises and the script exits non-zero.
    checked, and the decoder ``imgio`` took; ``channel_sum`` on uint32
    (values up to 2^32 - 1), uint64 and complex64 frames of the ring's
    size against its plain version, timed.
+11. The serving tier: the port's server in-process on 127.0.0.1:0 on the
+   card, driven with ``urllib`` (``serve.client.post``). POST /grayscale,
+   /edge and /blur of the 1080p fixture PNG at SERVE_PASSES, one request
+   at a time after a warm-up request: each answer pixel-equal to the op's
+   plain version on the CPU, SERVE_PASSES launches of rows 3, 5 and 6,
+   X-Compute and X-Elapsed printed. /control at 1080p, H=20, m=8 for B
+   in SERVE_BATCHES clients at once (distinct ring frames): every reply
+   ``batched: B``, u0 and cost within STEP_TOL of a solo card
+   ``control_step`` on the stateless engine's config, B perception
+   launches and ``expected_launches`` multi_sweep launches a batch. A
+   session of SESSION_FRAMES frames (``session_frame`` 1..3), each u0
+   within STEP_TOL of a replay of the same requests through the port's
+   server on the CPU; a request with a deadline well below the measured
+   solve time answered 503 with Retry-After; where one /control
+   request's time goes (the handler's parts timed on the server's
+   threads, SPLIT_REQUESTS requests one at a time and one round of
+   max(SERVE_BATCHES) at once); /healthz naming the card, /metricz
+   parsed. ``bench.control_batch`` and ``bench.control_latency``
+   at SERVE_BENCH, their rows printed with the card's name and power
+   limit.
 
 The last three lines of standard output are the card's name and power
 limit, a JSON object describing each kernel, and
@@ -361,6 +381,18 @@ BENCH_RUN = dict(chain_batch=256, chain_reps=10, chain_trials=3,
                  loop_batch=256, loop_frames=20, loop_trials=3,
                  price_batch=4096, price_steps=20, price_trials=3,
                  runs=2, passes=10)
+# The serving tier (phase 11): the image endpoints at SERVE_PASSES on the
+# 1080p fixture; /control micro-batches of SERVE_BATCHES clients on the
+# ring's 1080p frames, each round's batch filling at B (max_batch = B)
+# inside a window wide enough for every upload; a session of
+# SESSION_FRAMES frames replayed on the CPU; the benches cut in depth.
+SERVE_PASSES = (1, 10)
+SERVE_BATCHES = (1, 2, 4, 8)
+SERVE_WINDOW_S = 3.0
+SESSION_FRAMES = 3
+SPLIT_REQUESTS = 5
+SERVE_BENCH = dict(batch_buckets=(1, 2, 4, 8, 16), batch_runs=3,
+                   latency_buckets=(1, 4, 8), latency_runs=5)
 # The headline bench (phase 7), cut in depth: bench.py's batches, fewer
 # steps and trials.
 HEADLINE_RUN = dict(scenarios=4096, steps=10, scenarios_small=256,
@@ -2798,6 +2830,342 @@ def channel_sum_new_dtypes(frames, rows: dict) -> None:
             f"{bnd['bound_ms']:.4f} ms (the {dt} frame read once)")
 
 
+# -- phase 11: the serving tier ---------------------------------------------------
+
+def png_bytes(frame_chw, out_dir) -> bytes:
+    """A planar u8 frame (a tensor, any device) as PNG bytes (zlib level
+    1: the same pixels, a fast encode)."""
+    import numpy as np
+
+    from openmp_parallel_computing_tpu_torch import imgio
+
+    path = Path(out_dir) / "frame.png"
+    imgio.save_png(path, np.transpose(frame_chw.cpu().numpy(), (1, 2, 0)),
+                   compression=1)
+    return path.read_bytes()
+
+
+def decode_png(body: bytes, out_dir):
+    from openmp_parallel_computing_tpu_torch import imgio
+
+    path = Path(out_dir) / "answer.png"
+    path.write_bytes(body)
+    return imgio.load(path)
+
+
+def post_ok(url: str, fields: dict, png: bytes, name="f.png"):
+    """POST a multipart form with the image; (headers, body), failing on
+    any status but 200."""
+    from openmp_parallel_computing_tpu_torch.serve import client
+
+    status, headers, body = client.post(url, fields,
+                                        {"image": (name, png)})
+    if status != 200:
+        raise AssertionError(f"POST {url}: {status} {body[:300]!r}")
+    return headers, body
+
+
+def serve_images(url: str, tmp, rows: dict) -> None:
+    """The image endpoints on the 1080p fixture PNG, one request at a
+    time: each (kernel, passes) warmed by one request, then one counted
+    request whose answer must equal the plain version on the CPU."""
+    import numpy as np
+    import torch
+
+    from openmp_parallel_computing_tpu_torch import data, imgio, ops
+
+    png = data.frame_path().read_bytes()
+    cpu = torch.from_numpy(np.ascontiguousarray(
+        np.transpose(imgio.load(data.frame_path()), (2, 0, 1))))
+    wrappers = {"grayscale": ("grayscale", ops.grayscale),
+                "edge": ("edge", ops.edge_pipeline),
+                "blur": ("conv3x3", ops.conv3x3)}
+    for kernel, (row, wrapper) in wrappers.items():
+        rows[row]["launches_serve"] = 0
+        for passes in SERVE_PASSES:
+            fields = {"passes": str(passes)}
+            post_ok(f"{url}/{kernel}", fields, png, "frame_1080p.png")
+            torch.cuda.synchronize()
+            wrapper.launches = 0
+            headers, body = post_ok(f"{url}/{kernel}", fields, png,
+                                    "frame_1080p.png")
+            got = wrapper.launches
+            if got != passes:
+                raise AssertionError(f"/{kernel} passes={passes}: {got} "
+                                     f"launches of {row}")
+            rows[row]["launches_serve"] += got
+            want = ops.make_runner(kernel, passes)(cpu).numpy()
+            if not np.array_equal(decode_png(body, tmp),
+                                  np.transpose(want, (1, 2, 0))):
+                raise AssertionError(f"/{kernel} passes={passes}: the answer "
+                                     f"differs from the plain version")
+            log(f"[serve] POST /{kernel} 1080p passes={passes}: X-Compute "
+                f"{headers['X-Compute']} s, X-Elapsed {headers['X-Elapsed']} "
+                f"s; {got} launches of {row}; pixel-equal to the plain "
+                f"version on the CPU")
+
+
+def control_fields(p0, target, depth, **extra) -> dict:
+    from openmp_parallel_computing_tpu_torch.bench.control_latency import fmt
+
+    return {"p0": fmt(p0), "target": fmt(target), "depth": fmt(depth),
+            "horizon": str(H), "deadline_ms": "0", **extra}
+
+
+def post_together(url: str, requests_: list) -> list:
+    """POST each (fields, png) of ``requests_`` from its own thread, all
+    released at once; the JSON replies in order."""
+    import threading
+
+    out = [None] * len(requests_)
+    barrier = threading.Barrier(len(requests_))
+
+    def one(i):
+        barrier.wait()
+        try:
+            out[i] = json.loads(post_ok(url, *requests_[i])[1])
+        except Exception as exc:        # raised below, in the caller
+            out[i] = exc
+
+    ts = [threading.Thread(target=one, args=(i,))
+          for i in range(len(requests_))]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=300)
+    errs = [r for r in out if not isinstance(r, dict)]
+    if errs:
+        raise AssertionError(f"/control: {len(errs)} request(s) failed: "
+                             f"{errs[0]!r}")
+    return out
+
+
+def serve_control(url: str, frames, pngs, problem, rows: dict) -> float:
+    """/control at 1080p, H, M for B in SERVE_BATCHES clients at once:
+    a warm-up round, then a counted round whose replies must each say
+    ``batched: B`` and equal a solo card solve of that request (stateless
+    engine config) within STEP_TOL. Returns the least ``compute_s`` the
+    counted rounds' replies gave (seconds)."""
+    import numpy as np
+    import torch
+
+    from openmp_parallel_computing_tpu_torch.models.mpc import (
+        Scenario, VisualServoMPC)
+    from openmp_parallel_computing_tpu_torch.serve import server as srv
+    from openmp_parallel_computing_tpu_torch.utils.config import MPCConfig
+
+    p0, target, depth = problem
+    cfg = MPCConfig(horizon=H, num_features=M, admm_iters=5,
+                    admm_iters_extra=0)
+    solo = VisualServoMPC(cfg, "cuda")
+    rows["edge_pyramid"]["launches_serve"] = 0
+    rows["multi_sweep"]["launches_serve"] = 0
+    least = float("inf")
+    for b in SERVE_BATCHES:
+        srv._batcher.configure(SERVE_WINDOW_S, b)
+        reqs = [(control_fields(p0[i], target[i], depth[i]), pngs[i])
+                for i in range(b)]
+        post_together(f"{url}/control", reqs)   # the bucket's warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        replies = post_together(f"{url}/control", reqs)
+        launches = read_counts()
+        want = expected_launches(cfg, b, 1, 0)
+        want["edge_pyramid"] = b
+        if launches != want:
+            raise AssertionError(f"/control B={b}: launch counts {launches} "
+                                 f"!= expected {want}")
+        rows["edge_pyramid"]["launches_serve"] += b
+        rows["multi_sweep"]["launches_serve"] += want["multi_sweep"]
+        worst = 0.0
+        least = min(least, *(r["compute_s"] for r in replies))
+        for i, r in enumerate(replies):
+            if r["batched"] != b:
+                raise AssertionError(f"/control B={b}: reply {i} batched "
+                                     f"{r['batched']}")
+            put = lambda a: torch.from_numpy(a[i:i + 1]).to("cuda")
+            u0, sol = solo.control_step(frames[i], Scenario(
+                p0=put(p0), target=put(target), depth=put(depth),
+                us0=torch.zeros((1, H, 6), device="cuda")))
+            for what, got, ref in (("u0", r["u0"], u0[0].cpu().numpy()),
+                                   ("cost", r["cost"], sol.cost.item())):
+                np.testing.assert_allclose(
+                    got, ref, rtol=STEP_TOL, atol=STEP_TOL,
+                    err_msg=f"/control B={b} request {i} {what}")
+                worst = max(worst, float(np.abs(np.asarray(got) - ref).max()))
+        log(f"[serve] /control 1080p H={H} m={M} B={b}: every reply batched "
+            f"{b}, compute_s {replies[0]['compute_s']}; launches "
+            f"{ {k: n for k, n in launches.items() if n} }; max abs err vs "
+            f"solo card solves {worst:.3e}")
+    return least
+
+
+def serve_session(url: str, pngs, problem, sid: str) -> list:
+    """SESSION_FRAMES requests of one session, each carrying its own p0
+    (the same sequence whatever the replies); the replies' u0."""
+    p0, target, depth = problem
+    u0s = []
+    for k in range(SESSION_FRAMES):
+        r = post_together(f"{url}/control", [(control_fields(
+            p0[k], target[0], depth[0], session=sid), pngs[k])])[0]
+        if r["session"] != sid or r["session_frame"] != k + 1:
+            raise AssertionError(f"session {sid} frame {k}: {r}")
+        u0s.append(r["u0"])
+    return u0s
+
+
+def serve_split(url: str, pngs, problem, smi: str) -> None:
+    """Where one /control request's time goes: the handler
+    (``Handler._do_control``) and its parts (``read_body``,
+    ``_parse_multipart``, ``imgio.load``, ``control_request``, which holds
+    the batch window and the solve) timed on the server's threads by
+    wrapping each, for SPLIT_REQUESTS requests one at a time and one round
+    of max(SERVE_BATCHES) at once. The client's wall time less the
+    handler is HTTP, the reply and the client's own work, which runs in
+    this same process."""
+    import collections
+    import statistics
+    import threading
+
+    from openmp_parallel_computing_tpu_torch import imgio
+    from openmp_parallel_computing_tpu_torch.serve import server as srv
+
+    p0, target, depth = problem
+    spans = collections.defaultdict(list)
+    lock = threading.Lock()
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                with lock:
+                    spans[name].append(time.perf_counter() - t0)
+        return call
+
+    wrapped = [(srv.Handler, "_do_control"), (srv, "read_body"),
+               (srv, "_parse_multipart"), (imgio, "load"),
+               (srv, "control_request")]
+    saved = [(owner, name, getattr(owner, name)) for owner, name in wrapped]
+    for owner, name, fn in saved:
+        setattr(owner, name, timed(name, fn))
+    try:
+        n = max(SERVE_BATCHES)
+        for clients, rounds in ((1, SPLIT_REQUESTS), (n, 1)):
+            spans.clear()
+            walls, replies = [], []
+            for _ in range(rounds):
+                t0 = time.perf_counter()
+                replies += post_together(f"{url}/control", [
+                    (control_fields(p0[i], target[i], depth[i]), pngs[i])
+                    for i in range(clients)])
+                walls.append(time.perf_counter() - t0)
+            ms = {name: round(1e3 * statistics.median(spans[name]), 3)
+                  for _, name in wrapped}
+            ms["compute_s"] = round(1e3 * statistics.median(
+                r["compute_s"] for r in replies), 3)
+            ms["round_wall"] = round(1e3 * statistics.median(walls), 3)
+            log(f"[serve] split {clients} client(s) x {rounds} round(s), "
+                f"median ms {json.dumps(ms)}, batched "
+                f"{sorted(r['batched'] for r in replies)} ({smi})")
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+
+
+def phase_serve(frames, rows: dict) -> None:
+    """The serving tier on the card (docstring item 11)."""
+    import tempfile
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from openmp_parallel_computing_tpu_torch.bench import (
+        control_batch, control_latency)
+    from openmp_parallel_computing_tpu_torch.serve import client
+    from openmp_parallel_computing_tpu_torch.serve import server as srv
+    from openmp_parallel_computing_tpu_torch.utils.config import ServeConfig
+
+    smi = nvidia_smi_line()
+    rng = np.random.default_rng(11)
+    n = max(SERVE_BATCHES)
+    problem = tuple(rng.uniform(lo, hi, (n, k)).astype(np.float32)
+                    for lo, hi, k in ((-.6, .6, 2 * M), (-.5, .5, 2 * M),
+                                      (1., 5., M)))
+
+    def start(device):
+        httpd = srv.serve(ServeConfig(host="127.0.0.1", port=0),
+                          device=device)
+        # bench.control_latency's backlog: 8 uploads at once overflow the
+        # default of 5.
+        httpd.socket.listen(64)
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        return httpd, f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        pngs = [png_bytes(frames[i], tmp) for i in range(n)]
+        httpd, url = start("cuda")
+        try:
+            serve_images(url, tmp, rows)
+            est = serve_control(url, frames, pngs, problem, rows)
+            srv._batcher.configure(0.005, 8)     # the default window
+            card = serve_session(url, pngs, problem, "smoke-card")
+            # Shedding: a deadline a tenth of the measured solve time.
+            p0, target, depth = problem
+            deadline_ms = 1e3 * est / 10
+            status, headers, body = client.post(
+                f"{url}/control", control_fields(
+                    p0[0], target[0], depth[0],
+                    deadline_ms=f"{deadline_ms:.6f}"),
+                {"image": ("f.png", pngs[0])})
+            if status != 503 or float(headers["Retry-After"]) <= 0:
+                raise AssertionError(f"shed: {status} {dict(headers)} "
+                                     f"{body[:200]!r}")
+            health = json.loads(urllib.request.urlopen(f"{url}/healthz",
+                                                       timeout=60).read())
+            if health != {"status": "ok", "backend": "cuda", "devices": 1}:
+                raise AssertionError(f"/healthz: {health}")
+            snap = json.loads(urllib.request.urlopen(f"{url}/metricz",
+                                                     timeout=60).read())
+            log(f"[serve] shed: deadline {deadline_ms:.3f} ms against a "
+                f"{1e3 * est:.3f} ms solve -> 503, Retry-After "
+                f"{headers['Retry-After']}; /healthz {health}; /metricz "
+                f"counters {snap['counters']}")
+            serve_split(url, pngs, problem, smi)
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+        rows_cb = control_batch.bench_control_batch(
+            buckets=SERVE_BENCH["batch_buckets"], horizon=H, num_features=M,
+            runs=SERVE_BENCH["batch_runs"], device="cuda")
+        for r in rows_cb:
+            log(f"[serve] control_batch {json.dumps(r)} ({smi})")
+        study = control_latency.run_study(
+            buckets=SERVE_BENCH["latency_buckets"],
+            runs=SERVE_BENCH["latency_runs"], horizon=H, num_features=M,
+            device="cuda")
+        for r in study["rows"]:
+            log(f"[serve] control_latency {json.dumps(r)} ({smi})")
+        log(f"[serve] control_latency h2d_ms_per_frame "
+            f"{study['h2d_ms_per_frame']} ({smi})")
+        # The session replayed through the port's server on the CPU.
+        httpd, url = start("cpu")
+        try:
+            cpu = serve_session(url, pngs, problem, "smoke-cpu")
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+        np.testing.assert_allclose(card, cpu, rtol=STEP_TOL, atol=STEP_TOL,
+                                   err_msg="session: card vs CPU replay")
+        log(f"[serve] session of {SESSION_FRAMES} frames: u0 card vs CPU "
+            f"replay max abs err "
+            f"{np.abs(np.asarray(card) - np.asarray(cpu)).max():.3e}; phase "
+            f"{time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not (PKG / "__init__.py").is_file():
         raise SystemExit(f"chip_smoke: the port package is missing beside "
@@ -2840,7 +3208,8 @@ def main() -> int:
             ("probe", phase_probe),
             ("headline", phase_headline),
             ("runtime", lambda: phase_runtime(frames, rows)),
-            ("bench surfaces", lambda: phase_bench_surfaces(frames, rows))):
+            ("bench surfaces", lambda: phase_bench_surfaces(frames, rows)),
+            ("serve", lambda: phase_serve(frames, rows))):
         t0 = time.perf_counter()
         run()
         log(f"[time] phase {name}: {time.perf_counter() - t0:.1f} s")

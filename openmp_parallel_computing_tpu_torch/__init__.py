@@ -7,7 +7,9 @@ analytic edge linearization, the multi-sweep iLQR kernel
 kernel registry over ``csrc/grayscale.cu``, ``csrc/stencil.cu`` and
 ``csrc/conv3x3.cu``), with the reductions (``csrc/reductions.cu``), the
 capability probe, the headline MPC bench and the bench surfaces, the
-controller runtime with its checkpoints and the online depth learner.
+controller runtime with its checkpoints and the online depth learner,
+the batched-pyramid solve (a frame per scenario) and the HTTP serving
+tier with its micro-batched ``/control`` endpoint.
 Kernels are compiled with
 nvcc at first use (``_build``); on CPU tensors every kernel wrapper runs
 its plain PyTorch version instead. This package imports neither JAX nor
@@ -18,8 +20,13 @@ Layout:
     probe.py               python -m openmp_parallel_computing_tpu_torch.probe
     bench/                 headline (bench.py on the card), mpc_batch, _chain,
                            chains, device_loop, harness + __main__ (the C8
-                           sweep), image_set, sysid_loop_study
-    utils/                 config (MPCConfig), timing, checkpoint
+                           sweep; bench_service, C11), image_set,
+                           sysid_loop_study, control_batch, control_latency,
+                           control_session
+    serve/                 server (image endpoints, /control micro-batcher,
+                           sessions), client
+    utils/                 config (MPCConfig, ServeConfig, load), timing,
+                           checkpoint, metrics, httpguard
     data/                  fixture paths (the JAX package's PNG files)
     imgio.py               image load (native codec, Pillow, own PNG
                            decoder), save_png, save_jpeg

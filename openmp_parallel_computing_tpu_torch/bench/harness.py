@@ -18,8 +18,13 @@ repeats the kernel (the reference program's passes loop,
 ``monolithic/src/main.c:33-35``), each run timed apart from I/O up to
 ``utils.timing.sync``, as ``main.c:31-39`` times its compute region.
 Plots need matplotlib; without it the CSV is written and the plots are
-skipped with a message. The service sweep (``bench_service``, C11) waits
-for the serve port (ROADMAP.md, Queue 1 item 7).
+skipped with a message.
+
+The service sweep (``bench_service``) is the contract of
+``microservices/grayscale/scripts/bench_grayscale_service.sh`` (C11):
+requests against a running HTTP endpoint, the CSV
+``threads,avg_request_sec,std_request_sec,avg_service_sec,std_service_sec``
+(``:19``).
 """
 
 from __future__ import annotations
@@ -99,6 +104,42 @@ def bench_kernel(image: str | Path | np.ndarray, workers=(1,), runs: int = 3,
             wr.writerow([r.workers, f"{r.avg_real_s:.6f}",
                          f"{r.std_real_s:.6f}", r.avg_cpu_pct, r.avg_mem_kb])
     plot_sweep(rows, out_dir, kernel)
+    return rows
+
+
+SERVICE_CSV_HEADER = ["threads", "avg_request_sec", "std_request_sec",
+                      "avg_service_sec", "std_service_sec"]
+
+
+def bench_service(image: str | Path, url: str, workers=(1,), runs: int = 3,
+                  passes: int = 1, kernel: str = "grayscale",
+                  out_dir: str | Path = "chiprun_out") -> list[dict]:
+    """Service sweep against a running HTTP endpoint (C11): per device
+    count, one unrecorded warm-up request (the kernels' build at first
+    use) and ``runs`` requests; the end-to-end request time and the
+    server's ``X-Elapsed`` span. Writes ``<out_dir>/service_bench.csv``
+    and returns the rows."""
+    from openmp_parallel_computing_tpu_torch.serve.client import run_request
+
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    rows = []
+    for w in workers:
+        out = out_dir / f".svc_out_{w}.png"
+        run_request(url, image, out, kernel=kernel, threads=w, passes=passes)
+        req, svc = [], []
+        for _ in range(runs):
+            r = run_request(url, image, out, kernel=kernel, threads=w,
+                            passes=passes)
+            req.append(r["request_s"])
+            svc.append(r["service_s"])
+        rows.append(dict(zip(SERVICE_CSV_HEADER, (
+            w, float(np.mean(req)), float(np.std(req)),
+            float(np.mean(svc)), float(np.std(svc))))))
+    with open(out_dir / "service_bench.csv", "w", newline="") as f:
+        wr = csv.DictWriter(f, fieldnames=SERVICE_CSV_HEADER)
+        wr.writeheader()
+        wr.writerows(rows)
     return rows
 
 

@@ -48,8 +48,10 @@ def load_frame_hwc() -> np.ndarray:
     return imgio.load(frame_path())
 
 
-def load_frame_planar(device=None):
-    """The canonical benchmark frame as a planar (C, H, W) u8 tensor."""
+def load_frame_planar(device="cuda"):
+    """The canonical benchmark frame as a planar (C, H, W) u8 tensor on
+    ``device``: the card unless the caller asks for the CPU, as the JAX
+    package's returns it on its default device."""
     import torch
 
     hwc = load_frame_hwc()

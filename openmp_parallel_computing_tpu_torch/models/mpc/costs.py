@@ -7,6 +7,14 @@ Features are pulled toward strong edges: the cost of a feature is
 features. Sampling uses dense separable hat weights (bilinear
 interpolation as ``w_y^T L w_x``), the form the JAX package evaluates
 with einsums; here they are ``torch.matmul`` calls.
+
+A pyramid is shared by the batch (levels (Hf, Wf)) or per scenario
+(levels (B, Hf, Wf), the serving micro-batch's frames): scenario b then
+samples level b, its batch index the coordinates' last axis. The JAX
+package takes that case by ``jax.vmap`` of ``jax.value_and_grad`` of
+``edge_cost_pyramid`` (``solver._edge_vg_batch``, ``_edge_val_batch``);
+here the analytic weights take it, the level's batch index bound to the
+scenario's.
 """
 
 from __future__ import annotations
@@ -103,47 +111,77 @@ def build_cost_pyramid_from_frame(frame: torch.Tensor,
     return pyramid_from_base(edge_pyramid_base(frame, s=scales[0]), scales)
 
 
-def _xy_rows(ps: torch.Tensor):
-    """Interleaved states ps (..., 2m) as (N, m) x and y coordinate rows,
-    the split layout of ``edge_cost_pyramid_xy``."""
-    pts = ps.reshape(-1, ps.shape[-1] // 2, 2)
+def pyramid_batched(pyramid) -> bool:
+    """True when the levels carry a leading per-scenario batch axis
+    ((B, Hf, Wf) rather than the shared (Hf, Wf))."""
+    return pyramid[0].dim() == 3
+
+
+def _rows_times_level(w: torch.Tensor, level: torch.Tensor) -> torch.Tensor:
+    """``w @ level`` over w's last axis: (..., Hf) x (Hf, Wf) -> (..., Wf)
+    for a shared level; for a per-scenario level (B, Hf, Wf), w's
+    second-last axis is the batch and scenario b takes level b."""
+    if level.dim() == 3:
+        return torch.einsum("...bi,bij->...bj", w, level)
+    return w @ level
+
+
+def _xy_rows(ps: torch.Tensor, batched: bool):
+    """Interleaved states ps (B, K, 2m) as x and y coordinates in the
+    split layout of ``edge_cost_pyramid_xy``: (B*K, m) rows for a shared
+    pyramid, (K, m, B) for a per-scenario one (the batch last, as the
+    levels' batch axis needs)."""
+    pts = ps.reshape(ps.shape[:-1] + (-1, 2))
+    if batched:
+        pts = pts.permute(1, 2, 3, 0)                   # (K, m, 2, B)
+        return pts[:, :, 0], pts[:, :, 1]
+    pts = pts.reshape(-1, pts.shape[-2], 2)
     return pts[..., 0], pts[..., 1]
 
 
 def edge_val_batch(pyramid, ps: torch.Tensor, height: int,
                    width: int) -> torch.Tensor:
     """The fused backend's edge cost at interleaved states ps (B, K, 2m)
-    -> (B, K), by ``edge_cost_pyramid_xy`` on (B*K, m) coordinate rows
-    (the JAX package's ``edge_cost_pyramid`` up to reassociation of the
-    level sums)."""
-    return edge_cost_pyramid_xy(pyramid, *_xy_rows(ps), height,
-                                width).reshape(ps.shape[:-1])
+    -> (B, K), by ``edge_cost_pyramid_xy`` on the split coordinates (the
+    JAX package's ``edge_cost_pyramid`` up to reassociation of the level
+    sums); a shared or a per-scenario pyramid."""
+    batched = pyramid_batched(pyramid)
+    vals = edge_cost_pyramid_xy(pyramid, *_xy_rows(ps, batched), height,
+                                width)
+    return vals.transpose(0, 1) if batched else vals.reshape(ps.shape[:-1])
 
 
 def edge_vg_batch(pyramid, ps: torch.Tensor, height: int, width: int):
     """The fused backend's edge linearization at interleaved states
     ps (B, K, 2m): values (B, K) and the gradient of each state's cost
-    (B, K, 2m), by the analytic sampler ``edge_vg_pyramid_xy`` on (B*K, m)
-    coordinate rows (the JAX package takes the same gradient by autodiff
-    of ``edge_cost_pyramid``)."""
-    vals, gx, gy = edge_vg_pyramid_xy(pyramid, *_xy_rows(ps), height, width)
-    return (vals.reshape(ps.shape[:-1]),
-            torch.stack([gx, gy], dim=-1).reshape(ps.shape))
+    (B, K, 2m), by the analytic sampler ``edge_vg_pyramid_xy`` on the
+    split coordinates (the JAX package takes the same gradient by
+    autodiff of ``edge_cost_pyramid``); a shared or a per-scenario
+    pyramid."""
+    batched = pyramid_batched(pyramid)
+    vals, gx, gy = edge_vg_pyramid_xy(pyramid, *_xy_rows(ps, batched),
+                                      height, width)
+    g = torch.stack([gx, gy], dim=-1)
+    if batched:                         # (K, m, B, 2) -> (B, K, m, 2)
+        return vals.transpose(0, 1), g.permute(2, 0, 1, 3).reshape(ps.shape)
+    return vals.reshape(ps.shape[:-1]), g.reshape(ps.shape)
 
 
 def edge_cost_pyramid_xy(pyramid, x: torch.Tensor, y: torch.Tensor,
                          height: int, width: int,
                          scales=PYRAMID_SCALES) -> torch.Tensor:
     """Per-state edge cost at split-layout coordinates: x, y (K, m, *B)
-    normalized coords -> (K, *B), the mean over levels and features."""
+    normalized coords -> (K, *B), the mean over levels and features. With
+    per-scenario levels (B, Hf, Wf), *B is the one axis B."""
     xp = (x + 1.0) * 0.5 * (width - 1)
     yp = (y + 1.0) * 0.5 * (height - 1)
     total = 0.0
     for level, s in zip(pyramid, scales):
-        hf, wf = level.shape
+        hf, wf = level.shape[-2:]
         xl = _clip_coord((xp - (s - 1) / 2.0) / s, float(wf - 1))
         yl = _clip_coord((yp - (s - 1) / 2.0) / s, float(hf - 1))
-        e = ((_hat_weights(yl, hf) @ level) * _hat_weights(xl, wf)).sum(-1)
+        e = (_rows_times_level(_hat_weights(yl, hf), level)
+             * _hat_weights(xl, wf)).sum(-1)
         total = total + (1.0 - e / 255.0)
     return total.mean(dim=1) / len(pyramid)
 
@@ -154,7 +192,8 @@ def edge_vg_pyramid_xy(pyramid, x: torch.Tensor, y: torch.Tensor,
     ``(vals (K, *B), gx (K, m, *B), gy (K, m, *B))`` with g the gradient of
     the summed costs. The weight derivative is the one-hot pair
     difference (floor carries no gradient), and the border mask passes
-    gradient ON the border and blocks it strictly outside."""
+    gradient ON the border and blocks it strictly outside. With
+    per-scenario levels (B, Hf, Wf), *B is the one axis B."""
     m = x.shape[1]
     xp = (x + 1.0) * (0.5 * (width - 1))
     yp = (y + 1.0) * (0.5 * (height - 1))
@@ -163,15 +202,15 @@ def edge_vg_pyramid_xy(pyramid, x: torch.Tensor, y: torch.Tensor,
     gy_tot = 0.0
     norm = 1.0 / (m * len(pyramid))
     for level, s in zip(pyramid, scales):
-        hf, wf = level.shape
+        hf, wf = level.shape[-2:]
         xl_raw = (xp - (s - 1) / 2.0) / s
         yl_raw = (yp - (s - 1) / 2.0) / s
         xl = _clip_coord(xl_raw, float(wf - 1))
         yl = _clip_coord(yl_raw, float(hf - 1))
         wx, dwx = _w_dw(xl, wf)                       # (..., wf)
         wy, dwy = _w_dw(yl, hf)                       # (..., hf)
-        t2 = wy @ level                               # (..., wf)
-        t1 = wx @ level.transpose(0, 1)               # (..., hf)
+        t2 = _rows_times_level(wy, level)             # (..., wf)
+        t1 = _rows_times_level(wx, level.transpose(-1, -2))   # (..., hf)
         e = (wy * t1).sum(-1)                         # == wy . L . wx
         total = total + (1.0 - e * (1.0 / 255.0))
         mx = ((xl_raw >= 0.0) & (xl_raw <= float(wf - 1))).to(x.dtype)

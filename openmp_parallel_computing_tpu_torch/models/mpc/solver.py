@@ -35,7 +35,10 @@ the dense analytic sampler (``costs.edge_vg_pyramid_xy``,
 ``edge_sampler="analytic"``) or the gather sampler kernel
 (``sampler.edge_vg_lanes``, ``edge_sampler="pallas"``), taken once per
 ADMM iteration (``edge_refresh="admm"``), once per solve at the warm-start
-trajectory (``"solve"``) or before every sweep (``"ilqr"``).
+trajectory (``"solve"``) or before every sweep (``"ilqr"``). A pyramid
+per scenario (levels (B, Hf, Wf): ``solve_batch_multi``,
+``control_step_multi``, the serving micro-batch) always takes the dense
+sampler, whatever ``edge_sampler`` says, as in the JAX package.
 
 The nominal rollouts are a Python loop of ``sweep._dyn_step`` up to
 ``ROLLOUT_SCAN_MAX_BP`` scenarios, and the zero-gain ``forward_sweep``
@@ -215,10 +218,17 @@ class _SweepLanes:
 
     # -- edge term ----------------------------------------------------------
 
+    def gather(self) -> bool:
+        """True when the edge term goes through the gather sampler kernel:
+        ``edge_sampler="pallas"`` on a shared pyramid (a per-scenario
+        pyramid takes the dense sampler, as in the JAX package)."""
+        return (self.cfg.edge_sampler == "pallas"
+                and not costs.pyramid_batched(self.pyramid))
+
     def edge_vals(self, ps_l: torch.Tensor) -> torch.Tensor:
         """Pyramid edge cost along a lanes trajectory -> (h+1, B)."""
         m = self.m
-        if self.cfg.edge_sampler == "pallas":
+        if self.gather():
             return sampler.edge_vals_lanes(self.pyramid, ps_l[:, :m],
                                            ps_l[:, m:], *self.shape)
         return costs.edge_cost_pyramid_xy(self.pyramid, ps_l[:, :m],
@@ -231,7 +241,7 @@ class _SweepLanes:
         if not self.qe:
             return torch.zeros_like(ps_l)
         m = self.m
-        if self.cfg.edge_sampler == "pallas":
+        if self.gather():
             _, g = sampler.sample(self.pyramid, ps_l[:, :m], ps_l[:, m:],
                                   *self.shape, grads=True)
             return g * (1.0 / (m * len(self.pyramid)))
@@ -378,7 +388,8 @@ def _solve_batch_fused(pyramid, shape, scen: Scenario,
     ``backward_batched`` launch, three ``riccati.forward`` candidates and
     the strict ``J < j0`` pick; the ADMM loop with the shared adaptive
     gate; the feasible rollout of z and its cost. ``edge_sampler`` is not
-    used: the edge term is the analytic dense sampler's."""
+    used: the edge term is the analytic dense sampler's, on a shared or a
+    per-scenario pyramid (``costs.edge_vg_batch``)."""
     B, h = scen.us0.shape[0], cfg.horizon
     n, c = scen.p0.shape[-1], CONTROL_DIM
     p0, target, depth = scen.p0, scen.target, scen.depth
@@ -514,8 +525,19 @@ class VisualServoMPC:
         pyramid = costs.build_cost_pyramid(edge_map)
         return self._solve_pyramid(pyramid, edge_map.shape, scen)
 
+    @torch.no_grad()
+    def solve_batch_multi(self, edge_maps: torch.Tensor,
+                          scen: Scenario) -> Solution:
+        """edge_maps (B, H, W) f32: scenario b solves against map b (the
+        JAX package's ``solve_batch_multi``). The pyramid levels carry a
+        leading batch axis, sampled per scenario."""
+        self._check(edge_maps, *scen)
+        pyramid = costs.build_cost_pyramid(edge_maps)
+        return self._solve_pyramid(pyramid, edge_maps.shape[1:], scen)
+
     def _solve_pyramid(self, pyramid, shape, scen: Scenario) -> Solution:
-        """Backend dispatch over a prebuilt cost pyramid."""
+        """Backend dispatch over a prebuilt cost pyramid (shared, or with a
+        leading per-scenario batch axis)."""
         if self.cfg.backend == "fused":
             return _solve_batch_fused(pyramid, shape, scen, self.cfg)
         return _solve_batch_sweep(pyramid, shape, scen, self.cfg)
@@ -527,6 +549,22 @@ class VisualServoMPC:
         self._check(frame, *scen)
         pyramid = costs.build_cost_pyramid_from_frame(frame)
         sol = self._solve_pyramid(pyramid, frame.shape[1:], scen)
+        return sol.us[:, 0], sol
+
+    @torch.no_grad()
+    def control_step_multi(self, frames: torch.Tensor, scen: Scenario):
+        """Frames (B, C, H, W) u8, one a scenario -> (u0 (B, 6), Solution):
+        the perception kernel on each frame (B launches; B is the serving
+        micro-batch), the levels pooled per frame, one batched solve with
+        a pyramid per scenario (the JAX package's ``control_step_multi``)."""
+        from openmp_parallel_computing_tpu_torch.ops.pipeline import (
+            edge_pyramid_base)
+
+        self._check(frames, *scen)
+        base = torch.stack([edge_pyramid_base(f, s=costs.PYRAMID_SCALES[0])
+                            for f in frames])
+        pyramid = costs.pyramid_from_base(base)
+        sol = self._solve_pyramid(pyramid, frames.shape[2:], scen)
         return sol.us[:, 0], sol
 
     def _seed_duals(self, scen: Scenario) -> Scenario:

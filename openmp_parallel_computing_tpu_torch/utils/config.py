@@ -1,7 +1,15 @@
-"""Solver configuration for the PyTorch port.
+"""Configuration of the PyTorch port (port of
+``openmp_parallel_computing_tpu.utils.config``): the solver (``MPCConfig``),
+the serving tier (``ServeConfig``), and ``load``, which builds a ``Config``
+of both from the defaults, ``OMPC_<SECTION>_<FIELD>`` environment keys and
+``--section.field=value`` overrides, as the JAX package's ``load`` does.
+The JAX package's ``kernel``, ``mesh`` and ``dispatch`` sections are not
+here: ``KernelConfig.strip`` is the Pallas row strip, which the port has
+no use for, and the other two come with the distributed and dispatch
+tiers; an override that names one of them raises.
 
-Same fields and defaults as ``openmp_parallel_computing_tpu.utils.config.
-MPCConfig`` (the JAX package documents the history behind each default).
+``MPCConfig`` has the same fields and defaults as the JAX package's (which
+documents the history behind each default).
 The port implements part of the JAX solver — the ``"sweep"`` backend with
 the multi-sweep kernel (``edge_refresh`` "admm"/"solve"), the per-sweep
 kernels (``"ilqr"``) or the one-launch solve (``full_solve=True`` with
@@ -15,6 +23,8 @@ the sweep backend solves.
 from __future__ import annotations
 
 import dataclasses
+import os
+from typing import Any
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,3 +78,74 @@ class MPCConfig:
             raise ValueError("ilqr_iters and admm_iters must be >= 1")
         if self.admm_iters_extra < 0:
             raise ValueError("admm_iters_extra must be >= 0")
+
+
+@dataclasses.dataclass
+class ServeConfig:
+    """The serving tier's settings: the JAX package's fields and defaults
+    (its ``ServeConfig`` documents each)."""
+
+    host: str = "0.0.0.0"
+    port: int = 5000
+    # /control micro-batching: requests within batch_window_ms of the
+    # first pending one coalesce into one solve of up to max_batch.
+    batch_window_ms: float = 5.0
+    max_batch: int = 8
+    # Bound on concurrent device computations.
+    max_inflight: int = 2
+    # The default staleness budget of a /control request: past it the
+    # request is shed with a 503; 0 disables shedding.
+    control_deadline_ms: float = 1000.0
+    # Bound on distinct image shapes accepted per process.
+    max_shapes: int = 16
+    # Bodies declaring more are answered 413 before they are read.
+    max_body_mb: int = 64
+    # /control sessions held (LRU past the cap) and their idle expiry.
+    max_sessions: int = 256
+    session_idle_s: float = 300.0
+
+
+@dataclasses.dataclass
+class Config:
+    mpc: MPCConfig = dataclasses.field(default_factory=MPCConfig)
+    serve: ServeConfig = dataclasses.field(default_factory=ServeConfig)
+
+
+def _coerce(value: str, ref: Any) -> Any:
+    if isinstance(ref, bool):
+        return value.lower() in ("1", "true", "yes")
+    if isinstance(ref, int):
+        return int(value)
+    if isinstance(ref, float):
+        return float(value)
+    return value
+
+
+def load(env: dict[str, str] | None = None,
+         overrides: list[str] | None = None) -> Config:
+    """A Config from the defaults, then ``OMPC_<SECTION>_<FIELD>`` keys of
+    ``env`` (the process environment when None), then
+    ``--section.field=value`` overrides; each value is read as the type of
+    the value it replaces. An override naming a section or field that is
+    not here raises ``AttributeError``, and ``MPCConfig``'s checks run on
+    the loaded values."""
+    cfg = Config()
+    env = dict(os.environ if env is None else env)
+    values = {f.name: {} for f in dataclasses.fields(cfg)}
+
+    def current(section: str, name: str):
+        default = getattr(getattr(cfg, section), name)
+        return values[section].get(name, default)
+
+    for section, fields in values.items():
+        for f in dataclasses.fields(getattr(cfg, section)):
+            key = f"OMPC_{section.upper()}_{f.name.upper()}"
+            if key in env:
+                fields[f.name] = _coerce(env[key], current(section, f.name))
+    for item in overrides or []:
+        path, _, value = item.lstrip("-").partition("=")
+        section, _, name = path.partition(".")
+        values[section][name] = _coerce(value, current(section, name))
+    return Config(**{section: dataclasses.replace(getattr(cfg, section),
+                                                  **fields)
+                     for section, fields in values.items()})

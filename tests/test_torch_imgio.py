@@ -1,5 +1,6 @@
 """The PyTorch port's PNG decoder against the JAX package's image I/O."""
 
+import inspect
 import struct
 import zlib
 
@@ -107,9 +108,16 @@ def test_rejects_unsupported_png(tmp_path):
 
 
 def test_planar_fixture_tensor():
-    f = data.load_frame_planar()
+    f = data.load_frame_planar("cpu")
     assert f.dtype == torch.uint8 and tuple(f.shape) == (3, 1080, 1920)
-    assert f.is_contiguous()
+    assert f.is_contiguous() and f.device.type == "cpu"
+
+
+def test_planar_fixture_defaults_to_the_card():
+    # JAX's load_frame_planar returns the frame on its default device;
+    # the port's default is the card (no card here: read the signature).
+    default = inspect.signature(data.load_frame_planar).parameters["device"]
+    assert default.default == "cuda"
 
 
 # -- every kind of file, every decoder ------------------------------------------

@@ -115,7 +115,7 @@ def test_pool_scale_check_halves_the_strip_of_wide_frames_as_jax(w):
 
 
 def test_pyramid_from_1080p_fixture_equals_staged_reference():
-    frame = data.load_frame_planar()
+    frame = data.load_frame_planar("cpu")
     edge = jax_ref.edge_pipeline(jnp.asarray(frame.numpy()))[0]
     ref = jax_costs.build_cost_pyramid(edge.astype(jnp.float32))
     got = costs.build_cost_pyramid_from_frame(frame)

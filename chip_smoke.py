@@ -167,6 +167,30 @@ Any failure raises and the script exits non-zero.
    at SERVE_BENCH, their rows printed with the card's name and power
    limit.
 
+12. The distributed tier, on meshes of logical shards of cuda:0 (a
+   device repeated: the shards run one after another on one card). The
+   four row-sharded stencils (``parallel.sharded_*``) at 1080p on a 1 x
+   DIST_SHARDS mesh at DIST_PASSES and on a DIST_CROP-row crop padded to
+   the shards, each pixel-equal to the unsharded kernel, rows 3-6
+   launched DIST_SHARDS times a pass. ``DistributedMPC`` at BASELINE
+   config 5 (POD: H=50, m=8, B=4096 on a (4, 2) mesh, the 1080p frame),
+   at the main path's H on (8, 1) (DIST_MAIN) and on the fused backend
+   (DIST_FUSED): the launches of rows 1, 2, 5 and 14 against the shards'
+   gate decisions, the sharded level 0 bit-equal to
+   ``edge_pyramid_base`` on every shard, u0 within DIST_U0_TOL and the
+   mean cost and max residual within DIST_DIAG_RTOL of ``solve_batch``
+   run shard by shard on the card (the same gate decisions); the pod
+   step's collective footprint by axis (the band psum 32,640 B, the data
+   axis at most 64 B); the step at DIST_CPU on the card against the CPU,
+   u0 within DIST_U0_TOL; ``bench.scaling.measure_scaling`` at its
+   defaults on the attached card, then on SCALING_SHARDS logical shards
+   of SCALING_SCEN scenarios on the 1080p frame, its rows printed with
+   the card's name and power limit; two processes joined by gloo, each
+   a DIST_PROCS local mesh on cuda:0, reporting the same mean cost,
+   within DIST_PROC_RTOL of the single-process solve of the same batch,
+   and the bytes staged through the host. Its lines start
+   ``[distributed]``.
+
 The last three lines of standard output are the card's name and power
 limit, a JSON object describing each kernel, and
 ``{"ok": true, "device": {...}}``.
@@ -393,6 +417,28 @@ SESSION_FRAMES = 3
 SPLIT_REQUESTS = 5
 SERVE_BENCH = dict(batch_buckets=(1, 2, 4, 8, 16), batch_runs=3,
                    latency_buckets=(1, 4, 8), latency_runs=5)
+# The distributed tier (phase 12), on logical shards of cuda:0: the
+# row-sharded stencils on a 1 x DIST_SHARDS mesh at DIST_PASSES, and on a
+# DIST_CROP-row crop padded to the shards; DistributedMPC at BASELINE
+# config 5 (POD: H=50, m=8, B=4096 over a (4, 2) mesh), the main path's
+# horizon on an (8, 1) mesh (DIST_MAIN), the fused backend (DIST_FUSED),
+# card vs CPU at DIST_CPU; the scaling bench at its defaults, then on
+# SCALING_SHARDS logical shards of SCALING_SCEN scenarios each on the
+# 1080p frame; two processes joined by gloo, each a (2, 1) mesh
+# (DIST_PROCS).
+DIST_SHARDS = 8
+DIST_PASSES = (1, 10)
+DIST_CROP = 1077
+POD = dict(horizon=50, batch=4096, mesh=(4, 2))
+DIST_MAIN = dict(horizon=H, batch=4096, mesh=(8, 1))
+DIST_FUSED = dict(horizon=H, batch=512, mesh=(4, 2))
+DIST_CPU = dict(horizon=H, batch=64, mesh=(2, 2))
+DIST_U0_TOL = 1e-4               # u0 against shard-by-shard solves, CPU
+DIST_DIAG_RTOL = 1e-5            # mean cost and max residual, relative
+DIST_PROC_RTOL = 1e-6            # two processes vs one, mean cost
+DIST_PROCS = dict(batch=512, local_mesh=(2, 1))
+SCALING_SHARDS = (1, 2, 4, 8)
+SCALING_SCEN = 512
 # The headline bench (phase 7), cut in depth: bench.py's batches, fewer
 # steps and trials.
 HEADLINE_RUN = dict(scenarios=4096, steps=10, scenarios_small=256,
@@ -3166,6 +3212,340 @@ def phase_serve(frames, rows: dict) -> None:
             f"{time.perf_counter() - t0:.1f} s")
 
 
+# -- phase 12: the distributed tier ------------------------------------------------
+
+def logical_mesh(data: int, model: int, device="cuda"):
+    """A (data, model) mesh of logical shards, all on ``device``."""
+    import torch
+
+    from openmp_parallel_computing_tpu_torch import parallel
+
+    return parallel.make_mesh(data=data, model=model,
+                              devices=[torch.device(device)] * (data * model))
+
+
+def dist_stencils(frame, rows: dict) -> None:
+    """The four row-sharded stencils on a 1 x DIST_SHARDS mesh of logical
+    shards at DIST_PASSES, and at the last pass count on a DIST_CROP-row
+    crop padded to the shards (``pad_rows``, ``orig_h``): each pixel-equal
+    to the unsharded kernel, and the shards' launches counted."""
+    import torch
+
+    from openmp_parallel_computing_tpu_torch import ops, parallel
+    from openmp_parallel_computing_tpu_torch.ops.runner import pad_rows
+
+    mesh = logical_mesh(1, DIST_SHARDS)
+    gray = ops.grayscale(frame)[0].contiguous()
+    cases = {   # name -> (sharded, unsharded pass, wrapper, row, input)
+        "grayscale": (parallel.sharded_grayscale, ops.grayscale,
+                      ops.grayscale, "grayscale", frame),
+        "sobel": (parallel.sharded_sobel, ops.sobel, ops.sobel, "sobel",
+                  gray),
+        "edge_pipeline": (parallel.sharded_edge_pipeline, ops.edge_pipeline,
+                          ops.edge_pipeline, "edge", frame),
+        "gaussian_blur": (parallel.sharded_gaussian_blur, ops.gaussian_blur,
+                          ops.conv3x3, "conv3x3", frame)}
+    for name, (sharded, single, wrapper, row, img) in cases.items():
+        crop = img[..., :DIST_CROP, :].contiguous()
+        padded, orig_h = pad_rows(crop[None] if crop.dim() == 2 else crop,
+                                  DIST_SHARDS)
+        padded = padded[0] if crop.dim() == 2 else padded
+        runs = [(passes, img, None) for passes in DIST_PASSES]
+        runs.append((DIST_PASSES[-1], padded, orig_h))
+        rows[row]["launches_distributed"] = 0
+        sharded(img, mesh)                  # warm-up, not counted or timed
+        for passes, x, oh in runs:
+            torch.cuda.synchronize()
+            wrapper.launches = 0
+            t0 = time.perf_counter()
+            out = x
+            for _ in range(passes):
+                out = sharded(out, mesh, orig_h=oh)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = wrapper.launches
+            if got != passes * DIST_SHARDS:
+                raise AssertionError(f"sharded_{name} passes={passes}: {got} "
+                                     f"launches of {row}")
+            rows[row]["launches_distributed"] += got
+            ref = crop if oh is not None else img
+            want = ref
+            for _ in range(passes):
+                want = single(want)
+            if oh is not None:
+                out = out[..., :oh, :]
+            if not torch.equal(out, want):
+                raise AssertionError(f"sharded_{name} passes={passes} "
+                                     f"rows={ref.shape[-2]}: differs from "
+                                     f"the unsharded kernel")
+            log(f"[distributed] sharded_{name} {tuple(x.shape)} on 1 x "
+                f"{DIST_SHARDS} logical shards, passes={passes}"
+                + (f", orig_h={oh}" if oh is not None else "")
+                + f": {got} launches of {row}, {1e3 * wall:.3f} ms, "
+                f"pixel-equal to the unsharded kernel")
+
+
+def dist_solve(cfg, frame, batch: int, mesh_shape, label: str, rows: dict,
+               reference: bool = True):
+    """One counted ``DistributedMPC.solve`` on a mesh of logical shards of
+    cuda:0: the launches of every MPC kernel and of the edge pass against
+    the shards' solves and gate decisions; with ``reference``, the
+    sharded level 0 bit-equal to ``edge_pyramid_base`` on every shard,
+    and u0, the mean cost and the max residual against ``solve_batch``
+    run shard by shard on the card (each shard's gate decision the same
+    as in the sharded run). Returns (dmpc, frame_s, scen_s, launches)."""
+    import torch
+
+    from openmp_parallel_computing_tpu_torch import ops
+    from openmp_parallel_computing_tpu_torch.models.mpc import (
+        DistributedMPC, VisualServoMPC, solver)
+
+    data, model = mesh_shape
+    n = data * model
+    dmpc = DistributedMPC(cfg, logical_mesh(data, model))
+    scen = VisualServoMPC(cfg, "cuda").random_scenarios(
+        batch, torch.Generator().manual_seed(0))
+    dmpc.solve(frame, scen)                              # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    ops.edge_pipeline.launches = 0
+    with GateLog(solver) as gates:
+        t0 = time.perf_counter()
+        u0, cost, res = dmpc.solve(frame, scen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches, edge = read_counts(), ops.edge_pipeline.launches
+    want = expected_launches(cfg, batch // n, n, sum(gates.fired))
+    if model > 1:
+        want["edge_pyramid"] = 0
+    if launches != want or edge != n * (model > 1):
+        raise AssertionError(f"{label}: launches {launches}, edge pass "
+                             f"{edge} != expected {want}, {n * (model > 1)}")
+    key = "riccati_backward" if cfg.backend == "fused" else "multi_sweep"
+    for row, k in ((key, key), ("edge_pyramid", "edge_pyramid")):
+        rows[row]["launches_distributed"] = (
+            rows[row].get("launches_distributed", 0) + launches[k])
+    rows["edge"]["launches_distributed"] += edge
+    if not (torch.isfinite(u0).all() and u0.shape == (batch, 6)):
+        raise AssertionError(f"{label}: u0 {tuple(u0.shape)} not finite")
+    path = ("fused" if cfg.backend == "fused" else
+            "multi_sweep" if launches["multi_sweep"] else "other")
+    log(f"[distributed] {label}: B={batch} over a {data} x {model} mesh of "
+        f"logical shards, H={cfg.horizon}, m={cfg.num_features}: "
+        f"{1e3 * wall:.3f} ms ({batch / wall:.1f} solves/s), solver path "
+        f"{path}, gate fired on {sum(gates.fired)}/{n} shards, launches "
+        f"{ {k: c for k, c in launches.items() if c} }, edge pass {edge}; "
+        f"mean cost {cost.item():.6f}, max residual {res.item():.6f}")
+    frame_s, scen_s = dmpc._prepare(frame, scen)
+    if not reference:
+        return dmpc, frame_s, scen_s, launches
+    base = ops.edge_pyramid_base(frame, s=16)
+    levels, _ = dmpc._level0(frame_s)
+    if not all(torch.equal(lv, base) for lv in levels):
+        raise AssertionError(f"{label}: the sharded level 0 differs from "
+                             f"edge_pyramid_base")
+    edge_map = ops.edge_pipeline(frame)[0].float()
+    mpc = VisualServoMPC(cfg, "cuda")
+    with GateLog(solver) as ref_gates:
+        sols = [mpc.solve_batch(edge_map, sc) for sc in scen_s]
+    if ref_gates.fired != gates.fired:
+        raise AssertionError(f"{label}: gate decisions {gates.fired} != "
+                             f"shard by shard {ref_gates.fired}")
+    ref_u0 = torch.cat([sol.us[:, 0] for sol in sols])
+    ref_cost = torch.stack([sol.cost.mean() for sol in sols]).mean()
+    ref_res = torch.stack([sol.primal_residual.max() for sol in sols]).max()
+    err = (u0 - ref_u0).abs().max().item()
+    rel = [abs(a.item() - b.item()) / abs(b.item())
+           for a, b in ((cost, ref_cost), (res, ref_res))]
+    if (not torch.allclose(u0, ref_u0, rtol=DIST_U0_TOL, atol=DIST_U0_TOL)
+            or max(rel) > DIST_DIAG_RTOL):
+        raise AssertionError(f"{label}: against shard-by-shard solves u0 "
+                             f"max abs err {err:.3e}, rel err mean cost "
+                             f"{rel[0]:.3e}, max residual {rel[1]:.3e}")
+    log(f"[distributed] {label}: level 0 bit-equal to edge_pyramid_base on "
+        f"all {n} shards; against solve_batch shard by shard: u0 max abs "
+        f"err {err:.3e}, mean cost rel err {rel[0]:.3e}, max residual rel "
+        f"err {rel[1]:.3e}, gate decisions equal")
+    return dmpc, frame_s, scen_s, launches
+
+
+def dist_card_vs_cpu(frame, cfg) -> None:
+    """The distributed step at DIST_CPU on logical shards of the card and
+    of the CPU (the plain versions), from the same scenarios: u0 within
+    DIST_U0_TOL."""
+    import numpy as np
+    import torch
+
+    from openmp_parallel_computing_tpu_torch.models.mpc import (
+        DistributedMPC, VisualServoMPC)
+
+    data, model = DIST_CPU["mesh"]
+    scen = VisualServoMPC(cfg, "cpu").random_scenarios(
+        DIST_CPU["batch"], torch.Generator().manual_seed(3))
+    card, cpu = ([t.cpu() for t in DistributedMPC(
+        cfg, logical_mesh(data, model, dev)).solve(frame.to(dev),
+                                                   _to(scen, dev))]
+        for dev in ("cuda", "cpu"))
+    np.testing.assert_allclose(card[0].numpy(), cpu[0].numpy(),
+                               rtol=DIST_U0_TOL, atol=DIST_U0_TOL,
+                               err_msg="distributed step: card vs CPU u0")
+    log(f"[distributed] card vs CPU, B={DIST_CPU['batch']} over a {data} x "
+        f"{model} mesh, H={cfg.horizon}: u0 max abs err "
+        f"{(card[0] - cpu[0]).abs().max().item():.3e}; mean cost "
+        f"{card[1].item():.6f} / {cpu[1].item():.6f}")
+
+
+DIST_WORKER = """
+import json, sys
+sys.modules["jax"] = None
+root, pid, port = sys.argv[1], int(sys.argv[2]), sys.argv[3]
+batch, h, m, data = (int(a) for a in sys.argv[4:8])
+sys.path.insert(0, root)
+import torch
+from openmp_parallel_computing_tpu_torch import data as fixtures, parallel
+from openmp_parallel_computing_tpu_torch.models.mpc import (
+    DistributedMPC, Scenario, VisualServoMPC)
+from openmp_parallel_computing_tpu_torch.parallel import introspect
+from openmp_parallel_computing_tpu_torch.utils.config import MPCConfig
+parallel.initialize_multihost(f"localhost:{port}", 2, pid, backend="gloo")
+cfg = MPCConfig(horizon=h, num_features=m)
+scen = VisualServoMPC(cfg, "cpu").random_scenarios(
+    batch, torch.Generator().manual_seed(5))
+local = batch // 2
+scen = Scenario(*(a[pid * local:(pid + 1) * local].cuda() for a in scen[:4]))
+mesh = parallel.make_mesh(data=data, model=1,
+                          devices=[torch.device("cuda", 0)] * (data // 2))
+dmpc = DistributedMPC(cfg, mesh)
+frame = fixtures.load_frame_planar("cuda")
+dmpc.solve(frame, scen)
+with introspect.recording() as rec:
+    u0, cost, res = dmpc.solve(frame, scen)
+    torch.cuda.synchronize()
+print("RESULT " + json.dumps({
+    "pid": pid, "cost": cost.item(), "res": res.item(),
+    "u0_shape": list(u0.shape), "u0_sum": u0.double().sum().item(),
+    "staged_bytes": rec.staged_bytes,
+    "collectives": [[c.primitive, list(c.axes), list(c.shape), c.count]
+                    for c in rec.collectives()]}), flush=True)
+torch.distributed.destroy_process_group()
+"""
+
+
+def dist_two_processes(frame) -> None:
+    """Two processes joined by gloo (chosen explicitly), each driving a
+    DIST_PROCS local mesh of logical shards on cuda:0: both report the
+    same mean cost, within DIST_PROC_RTOL of the single-process solve of
+    the same global batch over the whole mesh."""
+    import socket
+    import tempfile
+
+    import torch
+
+    from openmp_parallel_computing_tpu_torch.models.mpc import (
+        DistributedMPC, VisualServoMPC)
+    from openmp_parallel_computing_tpu_torch.utils.config import MPCConfig
+
+    t0 = time.perf_counter()
+    batch = DIST_PROCS["batch"]
+    data = 2 * DIST_PROCS["local_mesh"][0]
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        script = Path(tmp) / "worker.py"
+        script.write_text(DIST_WORKER)
+        procs = [subprocess.Popen(
+            [sys.executable, str(script), str(ROOT), str(pid), str(port),
+             str(batch), str(H), str(M), str(data)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for pid in range(2)]
+        try:
+            outs = [p.communicate(timeout=240)[0] for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+    results = []
+    for pid, (p, out) in enumerate(zip(procs, outs)):
+        lines = [ln for ln in out.splitlines() if ln.startswith("RESULT ")]
+        if p.returncode != 0 or not lines:
+            raise AssertionError(f"process {pid} failed (rc {p.returncode}):"
+                                 f"\n{out[-3000:]}")
+        results.append(json.loads(lines[0][len("RESULT "):]))
+    cfg = MPCConfig(horizon=H, num_features=M)
+    scen = VisualServoMPC(cfg, "cpu").random_scenarios(
+        batch, torch.Generator().manual_seed(5))
+    u0, cost, res = DistributedMPC(cfg, logical_mesh(data, 1)).solve(
+        frame, _to(scen, "cuda"))
+    one = cost.item()
+    rel = abs(results[0]["cost"] - one) / abs(one)
+    if (results[0]["cost"] != results[1]["cost"]
+            or results[0]["u0_sum"] != results[1]["u0_sum"]
+            or results[0]["u0_shape"] != [batch, 6]
+            or rel > DIST_PROC_RTOL):
+        raise AssertionError(f"two processes: {results} against one process "
+                             f"mean cost {one}")
+    log(f"[distributed] two processes (gloo), each a "
+        f"{DIST_PROCS['local_mesh']} mesh on cuda:0, B={batch}: mean cost "
+        f"{results[0]['cost']!r} on both, one process "
+        f"{one!r} (rel err {rel:.3e}); u0 gathered {results[0]['u0_shape']} "
+        f"on both; bytes staged through the host a solve "
+        f"{[r['staged_bytes'] for r in results]}; collectives "
+        f"{results[0]['collectives']}; {time.perf_counter() - t0:.1f} s")
+
+
+def phase_distributed(frames, rows: dict) -> None:
+    """The distributed tier on logical shards of the card (docstring item
+    12)."""
+    import numpy as np
+    import torch
+
+    from openmp_parallel_computing_tpu_torch.bench import scaling
+    from openmp_parallel_computing_tpu_torch.parallel import introspect
+    from openmp_parallel_computing_tpu_torch.utils.config import MPCConfig
+
+    smi = nvidia_smi_line()
+    frame = frames[0]
+    t0 = time.perf_counter()
+    dist_stencils(frame, rows)
+    pod_cfg = MPCConfig(horizon=POD["horizon"], num_features=M)
+    dmpc, frame_s, scen_s, _ = dist_solve(pod_cfg, frame, POD["batch"],
+                                          POD["mesh"], "pod (BASELINE config "
+                                          "5)", rows)
+    cols = introspect.collective_footprint(dmpc._step, frame_s, scen_s)
+    summary = introspect.footprint_summary(cols)
+    band = [c for c in cols if c.primitive == "psum" and c.axes == ("model",)]
+    if (summary["per_axis"].get("data", 0) > 64 or len(band) != 1
+            or band[0].bytes != 68 * 120 * 4):
+        raise AssertionError(f"pod footprint: {summary}")
+    log(f"[distributed] pod footprint per shard and step: per axis "
+        f"{summary['per_axis']} B; ops {summary['ops']}")
+    main_cfg = MPCConfig(horizon=DIST_MAIN["horizon"], num_features=M)
+    dist_solve(main_cfg, frame, DIST_MAIN["batch"], DIST_MAIN["mesh"],
+               "main path", rows)
+    fused_cfg = MPCConfig(horizon=DIST_FUSED["horizon"], num_features=M,
+                          backend="fused")
+    dist_solve(fused_cfg, frame, DIST_FUSED["batch"], DIST_FUSED["mesh"],
+               "fused backend", rows)
+    dist_card_vs_cpu(frame, MPCConfig(horizon=DIST_CPU["horizon"],
+                                      num_features=M))
+    out_dir = ROOT / "chiprun_out" / "distributed"
+    for label, kw in (
+            ("defaults, attached card", {}),
+            ("logical shards, 1080p", dict(
+                device_counts=list(SCALING_SHARDS),
+                scen_per_device=SCALING_SCEN,
+                frame_shape=tuple(frame.shape),
+                devices=[torch.device("cuda", 0)] * max(SCALING_SHARDS)))):
+        rows_sc = scaling.measure_scaling(out_dir=out_dir, **kw)
+        for r in rows_sc:
+            if not np.isfinite(r["solves_per_s"]) or r["solves_per_s"] <= 0:
+                raise AssertionError(f"scaling ({label}): {r}")
+            log(f"[distributed] scaling ({label}) {json.dumps(r)} ({smi})")
+    dist_two_processes(frame)
+    log(f"[distributed] phase {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not (PKG / "__init__.py").is_file():
         raise SystemExit(f"chip_smoke: the port package is missing beside "
@@ -3209,7 +3589,8 @@ def main() -> int:
             ("headline", phase_headline),
             ("runtime", lambda: phase_runtime(frames, rows)),
             ("bench surfaces", lambda: phase_bench_surfaces(frames, rows)),
-            ("serve", lambda: phase_serve(frames, rows))):
+            ("serve", lambda: phase_serve(frames, rows)),
+            ("distributed", lambda: phase_distributed(frames, rows))):
         t0 = time.perf_counter()
         run()
         log(f"[time] phase {name}: {time.perf_counter() - t0:.1f} s")

@@ -12,8 +12,8 @@ The contract of ``monolithic/scripts/bench_and_plot_monolithic.sh`` (C8):
 
 The OpenMP thread count becomes the card count: worker counts above the
 attached cards are dropped (a CPU run counts as one device), and a count
-above 1 that remains raises ``make_runner``'s ``NotImplementedError``
-(sharding a kernel over cards is ROADMAP.md, Queue 1 item 9). ``passes``
+above 1 splits the frame's rows over that many cards (``make_runner``,
+the rows zero-padded to a multiple of the count first). ``passes``
 repeats the kernel (the reference program's passes loop,
 ``monolithic/src/main.c:33-35``), each run timed apart from I/O up to
 ``utils.timing.sync``, as ``main.c:31-39`` times its compute region.
@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 from openmp_parallel_computing_tpu_torch import imgio
-from openmp_parallel_computing_tpu_torch.ops.runner import make_runner
+from openmp_parallel_computing_tpu_torch.ops.runner import make_runner, pad_rows
 from openmp_parallel_computing_tpu_torch.utils.timing import sync
 
 CSV_HEADER = ["threads", "avg_real_sec", "std_real_sec", "avg_cpu_pct",
@@ -80,14 +80,15 @@ def bench_kernel(image: str | Path | np.ndarray, workers=(1,), runs: int = 3,
 
     rows: list[SweepRow] = []
     for w in usable:
-        run = make_runner(kernel, passes, w)
-        sync(run(chw))      # warm-up: the kernels' build at first use
+        img, orig_h = pad_rows(chw, w)
+        run = make_runner(kernel, passes, w, orig_h=orig_h)
+        sync(run(img))      # warm-up: the kernels' build at first use
 
         values = []
         cpu0 = time.process_time()
         for _ in range(runs):
             t0 = time.perf_counter()
-            sync(run(chw))
+            sync(run(img))
             values.append(time.perf_counter() - t0)
         cpu_pct = 100.0 * (time.process_time() - cpu0) / max(sum(values),
                                                             1e-9)

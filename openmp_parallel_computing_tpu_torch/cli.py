@@ -9,10 +9,12 @@ before encode), and the same one-line report.
         [--kernel grayscale|edge|blur] [--devices N]
 
 The command line always runs on a CUDA card through the registry's
-kernels, and raises when there is none. ``--devices`` is clamped to the
-attached cards, and raises only when more than one remains
-(``make_runner``). One warm-up run precedes the timed one; it also pays
-the kernels' nvcc build at first use.
+kernels, and raises when there is none. ``--devices`` (the
+OMP_NUM_THREADS analogue) is clamped to the attached cards; with more than
+one left the frame's rows are zero-padded to a multiple of it and split
+over that many cards (``make_runner``), and the output is cropped to the
+image. One warm-up run precedes the timed one; it also pays the kernels'
+nvcc build at first use.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from openmp_parallel_computing_tpu_torch import imgio
 from openmp_parallel_computing_tpu_torch.ops.runner import (
     kernel_names,
     make_runner,
+    pad_rows,
 )
 
 _LABELS = {
@@ -57,7 +60,7 @@ def main(argv: list[str] | None = None, device: str = "cuda") -> int:
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the image kernels run on a GPU")
-    run = make_runner(args.kernel, passes, args.devices)
+    devices = max(1, min(args.devices, torch.cuda.device_count()))
 
     try:
         hwc = imgio.load(args.input)
@@ -67,7 +70,9 @@ def main(argv: list[str] | None = None, device: str = "cuda") -> int:
 
     # A writable copy: the decoder's array may be read-only, and a grey
     # frame's transpose is already contiguous (a view of it).
-    chw = torch.from_numpy(np.transpose(hwc, (2, 0, 1)).copy()).to(dev)
+    chw, orig_h = pad_rows(
+        torch.from_numpy(np.transpose(hwc, (2, 0, 1)).copy()).to(dev), devices)
+    run = make_runner(args.kernel, passes, devices, orig_h=orig_h)
     try:
         run(chw)    # warm-up (and the kernels' build at first use)
     except (ValueError, TypeError) as exc:    # an input the kernel refuses
@@ -82,7 +87,7 @@ def main(argv: list[str] | None = None, device: str = "cuda") -> int:
     label = _LABELS.get(args.kernel, f"Compute kernel ({args.kernel})")
     print(f"{label} ×{passes}: {secs:.4f} s")
 
-    out_hwc = np.transpose(out.cpu().numpy(), (1, 2, 0))
+    out_hwc = np.transpose(out[:, :orig_h].cpu().numpy(), (1, 2, 0))
     try:
         imgio.save_png(args.output, out_hwc)
     except (OSError, ValueError) as exc:

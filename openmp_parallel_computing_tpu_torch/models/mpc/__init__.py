@@ -1,5 +1,5 @@
-"""Visual-servo MPC engine of the PyTorch port: the solver, its runtime
-and the online depth learner."""
+"""Visual-servo MPC engine of the PyTorch port: the solver, its runtime,
+the online depth learner and the mesh-sharded solve."""
 
 from openmp_parallel_computing_tpu_torch.models.mpc.solver import (
     Scenario,
@@ -11,6 +11,9 @@ from openmp_parallel_computing_tpu_torch.models.mpc.sysid import DepthEstimator
 from openmp_parallel_computing_tpu_torch.models.mpc.adaptive import (
     AdaptiveRuntime,
 )
+from openmp_parallel_computing_tpu_torch.models.mpc.distributed import (
+    DistributedMPC,
+)
 
-__all__ = ["AdaptiveRuntime", "DepthEstimator", "MPCRuntime", "Scenario",
-           "Solution", "VisualServoMPC"]
+__all__ = ["AdaptiveRuntime", "DepthEstimator", "DistributedMPC",
+           "MPCRuntime", "Scenario", "Solution", "VisualServoMPC"]

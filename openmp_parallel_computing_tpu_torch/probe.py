@@ -2,9 +2,10 @@
 
 Port of ``openmp_parallel_computing_tpu.probe``, the twin of the
 reference's OpenMP support probe (``monolithic/src/test_openmp.c``):
-reports the torch and CUDA versions, the cards, and whether the kernel
-path works, found by building and launching the grayscale kernel on a
-(3, 8, 128) zero frame on the card. A failing path is reported ("NOT
+reports the torch and CUDA versions, the cards, the processes of the
+multi-host tier (the process group's world size, or 1), and whether the
+kernel path works, found by building and launching the grayscale kernel
+on a (3, 8, 128) zero frame on the card. A failing path is reported ("NOT
 supported: ..."), not raised: reporting it is the probe's purpose.
 
     python -m openmp_parallel_computing_tpu_torch.probe
@@ -14,6 +15,8 @@ from __future__ import annotations
 
 import torch
 
+from openmp_parallel_computing_tpu_torch.parallel.mesh import process_count
+
 
 def probe() -> dict:
     count = torch.cuda.device_count()
@@ -22,6 +25,7 @@ def probe() -> dict:
         "cuda": torch.version.cuda,
         "device_count": count,
         "devices": [torch.cuda.get_device_name(i) for i in range(count)],
+        "process_count": process_count(),
     }
     try:
         from openmp_parallel_computing_tpu_torch import ops
@@ -41,6 +45,7 @@ def main() -> None:
     info = probe()
     if info["kernels"] == "supported":
         print(f"CUDA compute path supported: devices={info['device_count']} "
+              f"processes={info['process_count']} "
               f"torch={info['torch']} cuda={info['cuda']}")
     else:
         print(f"CUDA compute path NOT supported ({info['kernels']}); "

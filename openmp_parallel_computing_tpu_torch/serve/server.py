@@ -57,6 +57,7 @@ from openmp_parallel_computing_tpu_torch.models.mpc import (
 from openmp_parallel_computing_tpu_torch.ops.runner import (
     kernel_names,
     make_runner,
+    pad_rows,
 )
 from openmp_parallel_computing_tpu_torch.utils.config import (
     MPCConfig,
@@ -245,20 +246,24 @@ def process_image(data_hwc: np.ndarray, kernel: str, passes: int,
                   devices: int, warm: bool = True
                   ) -> tuple[np.ndarray, float]:
     """Run the kernel pipeline on the server's device; returns (result
-    HWC u8, compute seconds). The frame is on the device before the span
-    starts; the span ends with the result on the host. Raises
-    ``ValueError`` for a frame the kernel refuses."""
-    chw = torch.from_numpy(np.ascontiguousarray(
-        np.transpose(data_hwc, (2, 0, 1)))).to(_device)
-    key = (kernel, tuple(chw.shape), passes, devices, str(_device))
-    run = make_runner(kernel, passes, devices)
+    HWC u8, compute seconds). With ``devices > 1`` the rows are padded to
+    a multiple of it, split over that many cards, and the result cropped
+    to the image. The frame is on the device before the span starts; the
+    span ends with the result on the host. Raises ``ValueError`` for a
+    frame the kernel refuses."""
+    chw, orig_h = pad_rows(torch.from_numpy(np.ascontiguousarray(
+        np.transpose(data_hwc, (2, 0, 1)))).to(_device), devices)
+    # orig_h is part of the key: the sharded border mask depends on it, so
+    # two images padding to the same shape warm separately.
+    key = (kernel, tuple(chw.shape), passes, devices, orig_h, str(_device))
+    run = make_runner(kernel, passes, devices, orig_h=orig_h)
     if warm:
         _ensure_warm(key, lambda: run(chw).cpu())
     with _device_slots:
         t0 = time.perf_counter()
         out = run(chw).cpu().numpy()
         compute_s = time.perf_counter() - t0
-    return np.transpose(out, (1, 2, 0)), compute_s
+    return np.transpose(out[:, :orig_h], (1, 2, 0)), compute_s
 
 
 def _parse_multipart(content_type: str, body: bytes):

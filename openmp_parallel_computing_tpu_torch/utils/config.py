@@ -1,12 +1,13 @@
 """Configuration of the PyTorch port (port of
-``openmp_parallel_computing_tpu.utils.config``): the solver (``MPCConfig``),
-the serving tier (``ServeConfig``), and ``load``, which builds a ``Config``
-of both from the defaults, ``OMPC_<SECTION>_<FIELD>`` environment keys and
+``openmp_parallel_computing_tpu.utils.config``): the device mesh
+(``MeshConfig``), the solver (``MPCConfig``), the serving tier
+(``ServeConfig``), and ``load``, which builds a ``Config`` of them from the
+defaults, ``OMPC_<SECTION>_<FIELD>`` environment keys and
 ``--section.field=value`` overrides, as the JAX package's ``load`` does.
-The JAX package's ``kernel``, ``mesh`` and ``dispatch`` sections are not
-here: ``KernelConfig.strip`` is the Pallas row strip, which the port has
-no use for, and the other two come with the distributed and dispatch
-tiers; an override that names one of them raises.
+The JAX package's ``kernel`` and ``dispatch`` sections are not here:
+``KernelConfig.strip`` is the Pallas row strip, which the port has no use
+for, and ``dispatch`` comes with the dispatch tier; an override that names
+either raises.
 
 ``MPCConfig`` has the same fields and defaults as the JAX package's (which
 documents the history behind each default).
@@ -25,6 +26,12 @@ from __future__ import annotations
 import dataclasses
 import os
 from typing import Any
+
+
+@dataclasses.dataclass
+class MeshConfig:
+    data: int = -1                    # devices along the data axis (-1: rest)
+    model: int = 1                    # devices along the model axis
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,6 +114,7 @@ class ServeConfig:
 
 @dataclasses.dataclass
 class Config:
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
     mpc: MPCConfig = dataclasses.field(default_factory=MPCConfig)
     serve: ServeConfig = dataclasses.field(default_factory=ServeConfig)
 

@@ -12,10 +12,13 @@ from PIL import Image
 
 from openmp_parallel_computing_tpu import cli as jax_cli
 from openmp_parallel_computing_tpu import imgio as jax_imgio
+from openmp_parallel_computing_tpu.ops import runner as jax_runner
 from openmp_parallel_computing_tpu.models.vision import (
     EdgeBatchRunner as JaxEdgeBatchRunner,
 )
-from openmp_parallel_computing_tpu_torch import cli, imgio, ops
+from openmp_parallel_computing_tpu_torch import cli, imgio, ops, parallel
+from openmp_parallel_computing_tpu_torch.ops import runner
+from openmp_parallel_computing_tpu_torch.parallel import introspect, spatial
 from openmp_parallel_computing_tpu_torch.models.vision import EdgeBatchRunner
 
 torch.set_num_threads(2)
@@ -85,11 +88,32 @@ def test_make_runner_clamps_devices_to_the_attached_cards():
                        ops.make_runner("edge", passes=2, devices=1)(img))
 
 
-def test_make_runner_refuses_several_devices(monkeypatch):
+def _two_cpu_cards(monkeypatch):
+    """Two attached cards as the runner sees them, the mesh's default
+    devices two CPU shards."""
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        ops.make_runner("edge", devices=2)
-    assert ops.make_runner("edge", devices=1) is not None
+    monkeypatch.setattr(parallel.mesh, "default_devices",
+                        lambda: [torch.device("cpu")] * 2)
+
+
+@pytest.mark.parametrize("kernel", BUILTINS)
+def test_make_runner_shards_over_two_devices_like_jax(monkeypatch, kernel):
+    _two_cpu_cards(monkeypatch)
+    img = np.random.default_rng(3).integers(0, 256, (3, 31, 40),
+                                            dtype=np.uint8)
+    padded, orig_h = runner.pad_rows(torch.from_numpy(img), 2)
+    jpadded, jorig_h = jax_runner.pad_rows(img, 2)
+    assert orig_h == jorig_h == 31 and padded.shape[1] == 32
+    run = ops.make_runner(kernel, passes=2, devices=2, orig_h=orig_h)
+    cols = introspect.collective_footprint(run, padded)
+    if kernel != "grayscale":    # the halo exchange: the sharded path ran
+        assert {c.primitive for c in cols} == {"ppermute"}, cols
+    want = np.asarray(jax_runner.make_runner(kernel, 2, 2, orig_h=31)(
+        jpadded))
+    np.testing.assert_array_equal(run(padded).numpy(), want)
+    np.testing.assert_array_equal(
+        run(padded).numpy()[:, :31],
+        ops.make_runner(kernel, passes=2)(torch.from_numpy(img)).numpy())
 
 
 # -- CLI ----------------------------------------------------------------
@@ -159,13 +183,30 @@ def test_cli_several_devices_on_one_runs_like_jax(png, tmp_path, capsys):
     np.testing.assert_array_equal(imgio.load(ours), imgio.load(theirs))
 
 
-def test_cli_raises_on_several_devices(png, tmp_path, monkeypatch):
-    # With two cards attached the clamp leaves 2, which is not ported.
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    src, _ = png
-    with pytest.raises(NotImplementedError):
-        cli.main([str(src), str(tmp_path / "o.png"), "--devices", "2"],
-                 device="cpu")
+@pytest.mark.parametrize("kernel", BUILTINS)
+def test_cli_shards_over_two_devices_like_jax(tmp_path, capsys, monkeypatch,
+                                              kernel):
+    # With two cards attached the clamp leaves 2: the rows (41, padded to
+    # 42) are split over the mesh's two shards.
+    _two_cpu_cards(monkeypatch)
+    calls = []
+    name = {"grayscale": "sharded_grayscale", "edge": "sharded_edge_pipeline",
+            "blur": "sharded_gaussian_blur"}[kernel]
+    sharded = getattr(spatial, name)
+    monkeypatch.setattr(spatial, name,
+                        lambda *a, **k: calls.append(1) or sharded(*a, **k))
+    src = tmp_path / "odd.png"
+    imgio.save_png(src, np.random.default_rng(10).integers(
+        0, 256, (41, 136, 3), dtype=np.uint8))
+    ours, theirs = tmp_path / "ours.png", tmp_path / "theirs.png"
+    assert cli.main([str(src), str(ours), "3", "--kernel", kernel,
+                     "--devices", "2"], device="cpu") == 0
+    assert REPORT.match(capsys.readouterr().out.strip())
+    assert len(calls) == 2 * 3      # warm-up and timed run, 3 passes each
+    assert jax_cli.main([str(src), str(theirs), "3", "--kernel", kernel,
+                         "--devices", "2"]) == 0
+    np.testing.assert_array_equal(imgio.load(ours), imgio.load(theirs))
+    assert imgio.load(ours).shape == (41, 136, 3)
 
 
 def test_cli_without_a_card_raises(png, tmp_path):

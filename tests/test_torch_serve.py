@@ -504,12 +504,14 @@ def test_config_load_matches_jax():
            "OMPC_MPC_DUAL_WARM_START": "no", "OMPC_MPC_BACKEND": "fused",
            "OMPC_SERVE_PORT": "6001", "OMPC_SERVE_MAX_BATCH": "16",
            "OMPC_SERVE_CONTROL_DEADLINE_MS": "40", "OMPC_SERVE_HOST": "::1",
-           "OMPC_KERNEL_PASSES": "3"}
+           "OMPC_KERNEL_PASSES": "3", "OMPC_MESH_MODEL": "2"}
     overrides = ["--mpc.num_features=4", "--serve.session_idle_s=1.5",
-                 "mpc.edge_refresh=solve", "--serve.port=6002"]
+                 "mpc.edge_refresh=solve", "--serve.port=6002",
+                 "--mesh.data=4"]
     ours, theirs = config.load(env, overrides), jax_config.load(env,
                                                                 overrides)
-    for section in ("mpc", "serve"):
+    assert (ours.mesh.data, ours.mesh.model) == (4, 2)
+    for section in ("mesh", "mpc", "serve"):
         mine = dataclasses.asdict(getattr(ours, section))
         ref = dataclasses.asdict(getattr(theirs, section))
         assert mine == {k: ref[k] for k in mine}, section
@@ -520,7 +522,7 @@ def test_config_load_matches_jax():
         for load in (config.load, jax_config.load):
             with pytest.raises(AttributeError):
                 load({}, bad)
-    for lacking in (["--kernel.passes=2"], ["--mesh.data=2"]):
+    for lacking in (["--kernel.passes=2"], ["--dispatch.queue=x"]):
         with pytest.raises(AttributeError):  # sections the port lacks
             config.load({}, lacking)
     with pytest.raises(ValueError):          # MPCConfig's checks run

@@ -190,6 +190,32 @@ Any failure raises and the script exits non-zero.
    within DIST_PROC_RTOL of the single-process solve of the same batch,
    and the bytes staged through the host. Its lines start
    ``[distributed]``.
+13. The dispatch tier: ``dispatch.Worker(cfg, device="cuda")`` in-process
+   over a temporary root under build/. Image jobs on the 1080p fixture PNG
+   (grayscale, edge, blur at DISPATCH_PASSES, threads [1], repeat
+   DISPATCH_REPEAT): each processed PNG pixel-equal to the plain version
+   on the CPU, (1 + DISPATCH_REPEAT) x passes launches of rows 3, 5 and 6.
+   An MPC job at H=20, m=8, B=DISPATCH_BATCH (an npz with us0, the ring's
+   1080p frame as a PNG) in chunks of DISPATCH_CHUNK, a checkpoint after
+   each: u0 and costs within DISPATCH_TOL of ``DistributedMPC.solve_full``
+   run directly on the card over the same chunks, the launches of rows 1
+   and 2 against ``expected_launches`` chunk by chunk with the gate's
+   firings, and where the job's wall time goes (store IO, PNG decode,
+   solve, checkpoint write, publish). The same job with the worker dying
+   after DISPATCH_DIE_AFTER chunks: the redelivered job resumes from the
+   checkpoint, launches kernels for the chunks left only, and writes the
+   uninterrupted job's result bytes. A devices=2 job on two logical shards
+   of cuda:0 against the direct solve on the same mesh; a job with NaN
+   depths acked with an error completion and no checkpoint left. The
+   sharded ``DepthEstimator`` step (SYSID_SHARDED) on logical shards of
+   cuda:0 against the unsharded step on the card and the step on the
+   CPU: depths and loss within SYSID_RTOL, each Adam moment within
+   SYSID_RTOL of its largest element. Then ``python -m
+   openmp_parallel_computing_tpu_torch.dispatch.stack --workers 1
+   --broker-port P`` as a process on the card: one ``POST /mpc`` and one
+   image ``POST /`` over HTTP, polled on ``/status`` to completion, the
+   MPC result against the in-process job's, the stack terminated. Its
+   lines start ``[dispatch]``.
 
 The last three lines of standard output are the card's name and power
 limit, a JSON object describing each kernel, and
@@ -439,6 +465,23 @@ DIST_PROC_RTOL = 1e-6            # two processes vs one, mean cost
 DIST_PROCS = dict(batch=512, local_mesh=(2, 1))
 SCALING_SHARDS = (1, 2, 4, 8)
 SCALING_SCEN = 512
+# The dispatch tier (phase 13), its worker in-process on cuda:0 over a
+# root under build/: image jobs on the 1080p fixture at DISPATCH_PASSES
+# (one untimed and DISPATCH_REPEAT timed calls a job); an MPC job at the
+# main path's width (H, M, DISPATCH_BATCH scenarios in chunks of
+# DISPATCH_CHUNK) against direct solves, within DISPATCH_TOL; the same job
+# with the worker dying after DISPATCH_DIE_AFTER chunks, resumed; a
+# devices=2 job on two logical shards; a poisoned job; the sharded
+# DepthEstimator step (SYSID_SHARDED) within SYSID_RTOL; the stack as a
+# process, waited for up to STACK_TIMEOUT_S.
+DISPATCH_PASSES = (1, 10)
+DISPATCH_REPEAT = 3
+DISPATCH_BATCH, DISPATCH_CHUNK = 4096, 1024
+DISPATCH_DIE_AFTER = 2
+DISPATCH_TOL = 1e-4              # u0 and costs, rtol = atol
+SYSID_SHARDED = dict(batch=4096, window=10, shards=8)
+SYSID_RTOL = 1e-5                # depths, loss; the moments: of their max
+STACK_TIMEOUT_S = 240
 # The headline bench (phase 7), cut in depth: bench.py's batches, fewer
 # steps and trials.
 HEADLINE_RUN = dict(scenarios=4096, steps=10, scenarios_small=256,
@@ -3546,6 +3589,574 @@ def phase_distributed(frames, rows: dict) -> None:
     log(f"[distributed] phase {time.perf_counter() - t0:.1f} s")
 
 
+# -- phase 13: the dispatch tier ------------------------------------------------
+
+class Spans:
+    """Seconds spent in wrapped callables, by name (observation only):
+    ``wrap(owner, attr, name)`` times ``owner.attr`` until the block ends.
+    A span's seconds exclude those of the spans it calls, so the names
+    split a run without counting any second twice. ``sync`` waits for
+    the card before the span closes."""
+
+    def __init__(self):
+        self.seconds: dict = {}
+        self._undo = []
+        self._inner = []        # the open spans' seconds in called spans
+
+    def wrap(self, owner, attr: str, name: str, sync: bool = False) -> None:
+        import torch
+
+        orig = getattr(owner, attr)
+
+        def timed(*args, **kw):
+            self._inner.append(0.0)
+            t0 = time.perf_counter()
+            try:
+                out = orig(*args, **kw)
+                if sync:
+                    torch.cuda.synchronize()
+                return out
+            finally:
+                took = time.perf_counter() - t0
+                own = took - self._inner.pop()
+                self.seconds[name] = self.seconds.get(name, 0.0) + own
+                if self._inner:
+                    self._inner[-1] += took
+
+        self._undo.append((owner, attr, owner.__dict__.get(attr)))
+        setattr(owner, attr, timed)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, orig in reversed(self._undo):
+            if orig is None:
+                delattr(owner, attr)
+            else:
+                setattr(owner, attr, orig)
+
+
+class ChunkLog:
+    """Records each ``DistributedMPC.solve_full`` call of a worker's job:
+    the MPC kernels' launches and the gate decisions it made, and its
+    scenario count. With ``die_at``, that call raises instead (a worker
+    that dies mid-job)."""
+
+    def __init__(self, gates, die_at: int | None = None):
+        from openmp_parallel_computing_tpu_torch.models.mpc import distributed
+
+        self.cls = distributed.DistributedMPC
+        self.gates, self.die_at, self.chunks = gates, die_at, []
+
+    def __enter__(self):
+        orig = self.orig = self.cls.solve_full
+
+        def logged(dmpc, frame, scen):
+            if self.die_at is not None and len(self.chunks) + 1 == self.die_at:
+                raise RuntimeError("simulated worker death")
+            before, n_fired = read_counts(), len(self.gates.fired)
+            out = orig(dmpc, frame, scen)
+            after = read_counts()
+            self.chunks.append(({k: after[k] - before[k] for k in after},
+                                self.gates.fired[n_fired:],
+                                scen.p0.shape[0]))
+            return out
+
+        self.cls.solve_full = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.solve_full = self.orig
+
+    def check(self, cfg, label: str, shards: int = 1) -> dict:
+        """Each chunk's launches against ``expected_launches`` for its
+        shards' gate decisions; returns the summed launches."""
+        total = dict.fromkeys(self.chunks[0][0], 0) if self.chunks else {}
+        for i, (got, fired, batch) in enumerate(self.chunks):
+            want = expected_launches(cfg, batch // shards, shards, sum(fired))
+            if got != want:
+                raise AssertionError(f"{label} chunk {i + 1}: launches {got} "
+                                     f"!= expected {want} (gate {fired})")
+            for k, n in got.items():
+                total[k] += n
+        return total
+
+
+def dispatch_scenarios(batch: int, seed: int = 0, nan_depth: bool = False):
+    """A seeded scenario batch at the main path's width: (npz bytes,
+    arrays), us0 included."""
+    import io
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    arrays = dict(p0=rng.uniform(-0.6, 0.6, (batch, 2 * M)),
+                  target=rng.uniform(-0.5, 0.5, (batch, 2 * M)),
+                  depth=rng.uniform(1.0, 5.0, (batch, M)),
+                  us0=rng.uniform(-0.1, 0.1, (batch, H, 6)))
+    arrays = {k: v.astype(np.float32) for k, v in arrays.items()}
+    if nan_depth:
+        arrays["depth"][::97] = np.nan
+    out = io.BytesIO()
+    np.savez(out, **arrays)
+    return out.getvalue(), arrays
+
+
+def run_job(w, body: dict) -> float:
+    """Publish ``body`` and drain the worker's queue: the seconds from the
+    publish to the completion's ack."""
+    t0 = time.perf_counter()
+    w.jobs.publish(body)
+    w.run(stop_when_empty=True)
+    return time.perf_counter() - t0
+
+
+def job_result(w, key: str) -> dict:
+    """The completion and the result arrays of the MPC job of ``key``."""
+    import io
+
+    import numpy as np
+
+    body = json.loads(w.store.get(f"status/{Path(key).name}.json"))
+    if "error" in body:
+        raise AssertionError(f"job {key}: {body['error']}")
+    return body, dict(np.load(io.BytesIO(w.store.get(body["u0_key"]))))
+
+
+def dispatch_images(w, tmp, rows: dict, smi: str) -> None:
+    """Image jobs on the 1080p fixture: pixel-equal to the plain version
+    on the CPU, (1 + DISPATCH_REPEAT) x passes launches each."""
+    import numpy as np
+    import torch
+
+    from openmp_parallel_computing_tpu_torch import data, imgio, ops
+
+    png = data.frame_path().read_bytes()
+    cpu = torch.from_numpy(np.ascontiguousarray(
+        np.transpose(imgio.load(data.frame_path()), (2, 0, 1))))
+    wrappers = {"grayscale": ("grayscale", ops.grayscale),
+                "edge": ("edge", ops.edge_pipeline),
+                "blur": ("conv3x3", ops.conv3x3)}
+    for kernel, (row, wrapper) in wrappers.items():
+        rows[row]["launches_dispatch"] = 0
+        for passes in DISPATCH_PASSES:
+            key = w.store.put(f"uploads/{kernel}_p{passes}_frame_1080p.png",
+                              png)
+            torch.cuda.synchronize()
+            wrapper.launches = 0
+            wall = run_job(w, {"image_key": key, "threads": [1],
+                               "repeat": DISPATCH_REPEAT, "passes": passes,
+                               "kernel": kernel})
+            got = wrapper.launches
+            if got != (1 + DISPATCH_REPEAT) * passes:
+                raise AssertionError(f"image job {kernel} passes={passes}: "
+                                     f"{got} launches of {row}")
+            rows[row]["launches_dispatch"] += got
+            body = json.loads(w.store.get(f"status/{Path(key).name}.json"))
+            out = Path(tmp) / "processed.png"
+            out.write_bytes(w.store.get(body["processed_key"]))
+            want = ops.make_runner(kernel, passes)(cpu).numpy()
+            if not np.array_equal(imgio.load(out),
+                                  np.transpose(want, (1, 2, 0))):
+                raise AssertionError(f"image job {kernel} passes={passes}: "
+                                     f"differs from the plain version")
+            log(f"[dispatch] image job {kernel} 1080p passes={passes}: times "
+                f"{body['times']} s (mean of {DISPATCH_REPEAT} timed calls, "
+                f"result on the host), publish to completion {wall:.4f} s; "
+                f"{got} launches of {row}; pixel-equal to the plain version "
+                f"on the CPU ({smi})")
+
+
+def dispatch_mpc(w, frame, rows: dict, smi: str):
+    """The full-width MPC job (counted, its wall time split), the direct
+    solves over the same chunks, and the job again with a worker death and
+    a resume. Returns the job's result arrays."""
+    import numpy as np
+    import torch
+
+    from openmp_parallel_computing_tpu_torch import imgio
+    from openmp_parallel_computing_tpu_torch.dispatch import worker as wmod
+    from openmp_parallel_computing_tpu_torch.models.mpc import (
+        DistributedMPC, Scenario, solver)
+    from openmp_parallel_computing_tpu_torch.utils.config import MPCConfig
+
+    cfg = MPCConfig(horizon=H, num_features=M)
+    npz, arrays = dispatch_scenarios(DISPATCH_BATCH)
+    frame_key = w.store.put("uploads/ring0_frame.png",
+                            png_bytes(frame, w.cfg.root))
+    job = {"type": "mpc", "frame_key": frame_key, "devices": 1,
+           "chunk": DISPATCH_CHUNK,
+           "config": {"horizon": H, "num_features": M}}
+    n_chunks = DISPATCH_BATCH // DISPATCH_CHUNK
+
+    # the uninterrupted job, counted and its wall time split
+    key = w.store.put("uploads/whole_scen.npz", npz)
+    torch.cuda.synchronize()
+    reset_counts()
+    with GateLog(solver) as gates, ChunkLog(gates) as chunks, Spans() as sp:
+        sp.wrap(w, "process_mpc", "other")
+        sp.wrap(w, "_load_scenario", "npz parse")
+        sp.wrap(w, "_fetch", "store IO")
+        sp.wrap(w.store, "get", "store IO")
+        sp.wrap(imgio, "load", "PNG decode")
+        sp.wrap(DistributedMPC, "solve_full", "solve", sync=True)
+        sp.wrap(wmod.checkpoint, "save", "checkpoint write")
+        sp.wrap(w.store, "put", "publish")
+        sp.wrap(w.done, "publish", "publish")
+        wall = run_job(w, {**job, "scenario_key": key})
+    launches = chunks.check(cfg, "full-width job")
+    if len(chunks.chunks) != n_chunks:
+        raise AssertionError(f"full-width job: {len(chunks.chunks)} solves")
+    for k in ("edge_pyramid", "multi_sweep"):
+        rows[k]["launches_dispatch"] = launches[k]
+    body, got = job_result(w, key)
+    split = {**sp.seconds, "job": sum(sp.seconds.values())}
+    log(f"[dispatch] MPC job B={DISPATCH_BATCH}, H={H}, m={M}, chunks of "
+        f"{DISPATCH_CHUNK}: times {body['times']} s, publish to completion "
+        f"{wall:.4f} s, gate fired on {sum(sum(c[1]) for c in chunks.chunks)}"
+        f"/{n_chunks} chunks, launches "
+        f"{ {k: n for k, n in launches.items() if n} } ({smi})")
+    log(f"[dispatch] MPC job wall time split (s; 'other' is the worker's "
+        f"own code between the spans): {json.dumps(split)} ({smi})")
+
+    # the direct solves over the same chunks
+    dmpc = DistributedMPC(cfg, logical_mesh(1, 1))
+    scen = Scenario(*(torch.from_numpy(arrays[k]).cuda()
+                      for k in ("p0", "target", "depth", "us0")))
+    parts = [dmpc.solve_full(frame, Scenario(*(a[i:i + DISPATCH_CHUNK]
+                                               for a in scen[:4])))
+             for i in range(0, DISPATCH_BATCH, DISPATCH_CHUNK)]
+    ref_u0, ref_cost = (torch.cat([p[j] for p in parts]).cpu().numpy()
+                        for j in (0, 1))
+    for what, a, b in (("u0", got["u0"], ref_u0),
+                       ("costs", got["costs"], ref_cost)):
+        np.testing.assert_allclose(a, b, rtol=DISPATCH_TOL, atol=DISPATCH_TOL,
+                                   err_msg=f"MPC job {what} vs direct solves")
+    log(f"[dispatch] MPC job against solve_full over the same chunks: u0 max "
+        f"abs err {np.abs(got['u0'] - ref_u0).max():.3e}, costs "
+        f"{np.abs(got['costs'] - ref_cost).max():.3e}")
+
+    # a worker that dies after DISPATCH_DIE_AFTER chunks, then the resume
+    key2 = w.store.put("uploads/resumed_scen.npz", npz)
+    ckpt = Path(w.cfg.root) / "checkpoints" / "mpc_resumed_scen.npz.npz"
+    with GateLog(solver) as gates, ChunkLog(
+            gates, die_at=DISPATCH_DIE_AFTER + 1):
+        try:
+            run_job(w, {**job, "scenario_key": key2})
+        except RuntimeError as exc:
+            if "simulated" not in str(exc):
+                raise
+        else:
+            raise AssertionError("the dying worker did not die")
+    from openmp_parallel_computing_tpu_torch.utils import checkpoint
+
+    state = checkpoint.restore(ckpt)
+    if int(state["done"]) != DISPATCH_DIE_AFTER or w.jobs.depth() != 1:
+        raise AssertionError(f"after the death: done {state['done']}, "
+                             f"queue depth {w.jobs.depth()}")
+    reset_counts()
+    with GateLog(solver) as gates, ChunkLog(gates) as chunks:
+        w.run(stop_when_empty=True)
+    resumed = chunks.check(cfg, "resumed job")
+    left = n_chunks - DISPATCH_DIE_AFTER
+    if len(chunks.chunks) != left or resumed["edge_pyramid"] != left:
+        raise AssertionError(f"resumed job: {len(chunks.chunks)} solves, "
+                             f"launches {resumed}")
+    whole = w.store.get(body["u0_key"])
+    again = w.store.get("processed/resumed_scen.npz_result.npz")
+    if whole != again or ckpt.exists():
+        raise AssertionError("the resumed job's result differs from the "
+                             "uninterrupted job's, or its checkpoint stayed")
+    log(f"[dispatch] worker died after chunk {DISPATCH_DIE_AFTER}: the "
+        f"redelivered job resumed from the checkpoint, {left} chunks "
+        f"solved, launches { {k: n for k, n in resumed.items() if n} }; "
+        f"result npz bytes equal to the uninterrupted job's")
+    return got, npz
+
+
+def dispatch_two_shards(w, frame, npz: bytes, smi: str) -> None:
+    """A devices=2 job on two logical shards of cuda:0 against the direct
+    solve on the same mesh."""
+    import io
+
+    import numpy as np
+    import torch
+
+    from openmp_parallel_computing_tpu_torch.models.mpc import (
+        DistributedMPC, Scenario)
+    from openmp_parallel_computing_tpu_torch.parallel import mesh as mesh_mod
+    from openmp_parallel_computing_tpu_torch.utils.config import MPCConfig
+
+    cfg = MPCConfig(horizon=H, num_features=M)
+    key = w.store.put("uploads/two_scen.npz", npz)
+    frame_key = "uploads/ring0_frame.png"
+    orig = mesh_mod.default_devices
+    mesh_mod.default_devices = lambda: [torch.device("cuda", 0)] * 2
+    try:
+        wall = run_job(w, {"type": "mpc", "scenario_key": key,
+                           "frame_key": frame_key, "devices": 2,
+                           "config": {"horizon": H, "num_features": M}})
+    finally:
+        mesh_mod.default_devices = orig
+    body, got = job_result(w, key)
+    arrays = np.load(io.BytesIO(npz))
+    scen = Scenario(*(torch.from_numpy(arrays[k]).cuda()
+                      for k in ("p0", "target", "depth", "us0")))
+    ref = DistributedMPC(cfg, logical_mesh(2, 1)).solve_full(frame, scen)
+    for what, a, b in (("u0", got["u0"], ref[0]),
+                       ("costs", got["costs"], ref[1])):
+        np.testing.assert_allclose(a, b.cpu().numpy(), rtol=DISPATCH_TOL,
+                                   atol=DISPATCH_TOL,
+                                   err_msg=f"devices=2 job {what}")
+    if list(body["times"]) != ["2"]:
+        raise AssertionError(f"devices=2 job: {body['times']}")
+    log(f"[dispatch] devices=2 job on two logical shards of cuda:0, "
+        f"B={DISPATCH_BATCH}: times {body['times']} s, publish to completion "
+        f"{wall:.4f} s; u0 max abs err against the direct solve "
+        f"{np.abs(got['u0'] - ref[0].cpu().numpy()).max():.3e} ({smi})")
+
+
+def dispatch_poisoned(w) -> None:
+    """NaN depths: an error completion, the message acked, no
+    checkpoint."""
+    npz, _ = dispatch_scenarios(DISPATCH_BATCH, seed=1, nan_depth=True)
+    key = w.store.put("uploads/poisoned_scen.npz", npz)
+    run_job(w, {"type": "mpc", "scenario_key": key, "devices": 1,
+                "chunk": DISPATCH_CHUNK,
+                "config": {"horizon": H, "num_features": M}})
+    body = json.loads(w.store.get("status/poisoned_scen.npz.json"))
+    ckpt = Path(w.cfg.root) / "checkpoints" / "mpc_poisoned_scen.npz.npz"
+    if ("non-finite" not in body.get("error", "") or ckpt.exists()
+            or w.jobs.depth() or list(w.jobs.inflight.glob("*.json"))):
+        raise AssertionError(f"poisoned job: {body}, checkpoint "
+                             f"{ckpt.exists()}, depth {w.jobs.depth()}")
+    log(f"[dispatch] poisoned job (NaN depths): acked with {body['error']!r}, "
+        f"no checkpoint left")
+
+
+def sysid_close(what: str, got, want, loss, want_loss) -> str:
+    """``got`` against ``want`` (SysIdStates) and the losses: the depths
+    and the loss within SYSID_RTOL, each Adam moment within SYSID_RTOL of
+    its largest element (an element whose gradient is near zero, a sum of
+    terms of both signs, has no relative precision: the port's Adam tests
+    hold the first moment so), the step count equal. Returns a summary
+    with the moments' largest element-wise relative difference."""
+    import numpy as np
+
+    from openmp_parallel_computing_tpu_torch.models.mpc.sysid import (
+        state_leaves)
+
+    g = [t.cpu().numpy() for t in state_leaves(got)]
+    r = [t.cpu().numpy() for t in state_leaves(want)]
+    if g[1] != r[1]:
+        raise AssertionError(f"sysid {what}: step counts {g[1]} != {r[1]}")
+    np.testing.assert_allclose(np.exp(-g[0]), np.exp(-r[0]), rtol=SYSID_RTOL,
+                               err_msg=f"sysid {what}: depths")
+    elementwise = []
+    for i, name in ((2, "first"), (3, "second")):
+        np.testing.assert_allclose(g[i], r[i], rtol=0,
+                                   atol=SYSID_RTOL * np.abs(r[i]).max(),
+                                   err_msg=f"sysid {what}: {name} moment")
+        rel = np.abs(g[i] - r[i]) / np.maximum(np.abs(r[i]), 1e-30)
+        elementwise.append(f"{name} {rel.max():.3e} "
+                           f"({int((rel > SYSID_RTOL).sum())} of {rel.size} "
+                           f"past {SYSID_RTOL:g})")
+    rel = abs(loss.item() - want_loss.item()) / abs(want_loss.item())
+    if rel > SYSID_RTOL:
+        raise AssertionError(f"sysid {what}: loss rel err {rel:.3e}")
+    depth_err = np.abs(np.exp(-g[0]) / np.exp(-r[0]) - 1).max()
+    return (f"loss rel err {rel:.3e}, depths max rel err {depth_err:.3e}, "
+            f"moments element-wise max rel err {', '.join(elementwise)}")
+
+
+def dispatch_sysid(smi: str) -> None:
+    """The sharded DepthEstimator step on logical shards of cuda:0 against
+    the unsharded step on the card and on the CPU."""
+    import torch
+
+    from openmp_parallel_computing_tpu_torch import parallel
+    from openmp_parallel_computing_tpu_torch.models.mpc import dynamics, sysid
+    from openmp_parallel_computing_tpu_torch.utils.config import MPCConfig
+
+    b, t, n = (SYSID_SHARDED[k] for k in ("batch", "window", "shards"))
+    dt = MPCConfig().dt
+    g = torch.Generator().manual_seed(13)
+    p = torch.rand((b, t, 2 * M), generator=g) - 0.5
+    u = 2 * torch.rand((b, t, 6), generator=g) - 1
+    z = 0.5 + 3.5 * torch.rand((b, M), generator=g)
+    p_next = dynamics.step(p, u, z[:, None], dt)
+    card = sysid.DepthEstimator(M, dt, lr=0.1, device="cuda")
+    state = card.init(b)
+    win = [x.cuda() for x in (p, u, p_next)]
+    flat, flat_loss = card.train_step(state, *win)
+    mesh = logical_mesh(n, 1)
+    parts = [parallel.device_put(x, parallel.data_sharding(mesh))
+             for x in win]
+    states = sysid.shard_state(state, mesh)
+    card.train_step_sharded(states, *parts, mesh)            # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    new, loss = card.train_step_sharded(states, *parts, mesh)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    got = sysid.gather_state(new)
+    vs_card = sysid_close("sharded vs the card's step", got, flat, loss[0],
+                          flat_loss)
+    cpu = sysid.DepthEstimator(M, dt, lr=0.1, device="cpu")
+    cflat, closs = cpu.train_step(cpu.init(b), p, u, p_next)
+    vs_cpu = sysid_close("sharded vs the CPU's step", got, cflat, loss[0],
+                         closs)
+    log(f"[dispatch] sharded DepthEstimator step, B={b}, m={M}, T={t} on {n} "
+        f"logical shards of cuda:0: {ms:.3f} ms; against the unsharded card "
+        f"step {vs_card}; against the CPU step {vs_cpu} ({smi})")
+
+
+STACK_CODE = """
+import sys
+sys.modules["jax"] = None
+from openmp_parallel_computing_tpu_torch.dispatch import stack
+sys.exit(stack.main(sys.argv[1:]))
+"""
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def start_stack(root: Path):
+    """``dispatch.stack`` as a process on the card (frontend, one worker,
+    a broker): (process, frontend URL, log path)."""
+    port, broker_port = free_port(), free_port()
+    log_path = root.parent / "stack.log"
+    proc = subprocess.Popen(
+        [sys.executable, "-c", STACK_CODE, "--workers", "1", "--broker-port",
+         str(broker_port), "--root", str(root), "--port", str(port)],
+        cwd=str(ROOT), stdout=open(log_path, "w"), stderr=subprocess.STDOUT)
+    return proc, f"http://127.0.0.1:{port}", log_path
+
+
+def drive_stack(url: str, proc, log_path: Path, npz: bytes, frame_png: bytes,
+                want: dict, smi: str) -> None:
+    """One POST /mpc and one image POST / through the stack's frontend,
+    polled on /status to completion; the MPC result against the
+    in-process job's."""
+    import io
+    import urllib.parse
+    import urllib.request
+
+    import numpy as np
+
+    from openmp_parallel_computing_tpu_torch import data
+    from openmp_parallel_computing_tpu_torch.serve import client
+
+    def get(path: str) -> bytes:
+        with urllib.request.urlopen(url + path, timeout=60) as r:
+            return r.read()
+
+    t0 = time.perf_counter()
+    deadline = t0 + STACK_TIMEOUT_S
+    while True:
+        try:
+            get("/")
+            break
+        except OSError:
+            if proc.poll() is not None or time.perf_counter() > deadline:
+                raise AssertionError(f"the stack did not come up:\n"
+                                     f"{log_path.read_text()[-3000:]}")
+            time.sleep(0.2)
+    up = time.perf_counter() - t0
+    posted = {}
+    status, _, out = client.post(
+        url + "/mpc", {"horizon": str(H), "num_features": str(M),
+                       "devices": "1", "chunk": str(DISPATCH_CHUNK)},
+        {"scenarios": ("scen.npz", npz), "frame": ("ring0.png", frame_png)})
+    if status != 200:
+        raise AssertionError(f"POST /mpc: {status} {out[:300]!r}")
+    posted["mpc"] = (json.loads(out)["key"], time.perf_counter())
+    status, _, page = client.post(
+        url + "/", {"kernel": "edge", "repeat": str(DISPATCH_REPEAT),
+                    "passes": "1", "threads": "1"},
+        {"image": ("frame_1080p.png", data.frame_path().read_bytes())})
+    if status != 200:
+        raise AssertionError(f"POST /: {status} {page[:300]!r}")
+    key = json.loads(page.decode().split("const key = ")[1].split(";")[0])
+    posted["image"] = (key, time.perf_counter())
+    done = {}
+    while len(done) < len(posted):
+        for name, (key, t_post) in posted.items():
+            if name in done:
+                continue
+            s = json.loads(get("/status?" + urllib.parse.urlencode(
+                {"key": key})))
+            if s["processed"]:
+                done[name] = (s, time.perf_counter() - t_post)
+        if proc.poll() is not None or time.perf_counter() > deadline:
+            raise AssertionError(f"stack jobs {posted} not done ({done}):\n"
+                                 f"{log_path.read_text()[-3000:]}")
+        time.sleep(0.05)
+    s, wall = done["mpc"]
+    if "error" in s:
+        raise AssertionError(f"stack MPC job: {s['error']}")
+    got = np.load(io.BytesIO(get("/image/" + urllib.parse.quote(
+        s["u0_key"]))))
+    err = max(np.abs(got[k] - want[k]).max() for k in ("u0", "costs"))
+    if err > DISPATCH_TOL:
+        raise AssertionError(f"stack MPC job against the in-process job: "
+                             f"max abs err {err:.3e}")
+    si, wall_i = done["image"]
+    png = get("/image/" + urllib.parse.quote(si["processed_key"]))
+    if png[:4] != b"\x89PNG":
+        raise AssertionError("stack image job: no PNG")
+    log(f"[dispatch] stack (python -m ...dispatch.stack --workers 1 "
+        f"--broker-port): up in {up:.1f} s; MPC job B={DISPATCH_BATCH} via "
+        f"POST /mpc: times {s['times']} s, post to completion {wall:.3f} s, "
+        f"max abs err against the in-process job {err:.3e}; image job edge "
+        f"1080p via POST /: times {si['times']} s, post to completion "
+        f"{wall_i:.3f} s ({smi})")
+
+
+def phase_dispatch(frames, rows: dict) -> None:
+    """The dispatch tier on the card (docstring item 13)."""
+    import shutil
+    import signal
+    import tempfile
+
+    from openmp_parallel_computing_tpu_torch.dispatch import Worker
+    from openmp_parallel_computing_tpu_torch.utils.config import (
+        DispatchConfig)
+
+    smi = nvidia_smi_line()
+    t0 = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="dispatch_", dir=ROOT / "build"))
+    proc, url, log_path = start_stack(tmp / "stack_root")
+    try:
+        w = Worker(DispatchConfig(root=str(tmp / "root")), device="cuda")
+        dispatch_images(w, tmp, rows, smi)
+        want, npz = dispatch_mpc(w, frames[0], rows, smi)
+        dispatch_two_shards(w, frames[0], npz, smi)
+        dispatch_poisoned(w)
+        dispatch_sysid(smi)
+        drive_stack(url, proc, log_path, npz,
+                    w.store.get("uploads/ring0_frame.png"), want, smi)
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=60)
+        if rc != 0:
+            raise AssertionError(f"the stack exited {rc}:\n"
+                                 f"{log_path.read_text()[-3000:]}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[dispatch] phase {time.perf_counter() - t0:.1f} s ({smi})")
+
+
 def main() -> int:
     if not (PKG / "__init__.py").is_file():
         raise SystemExit(f"chip_smoke: the port package is missing beside "
@@ -3590,7 +4201,8 @@ def main() -> int:
             ("runtime", lambda: phase_runtime(frames, rows)),
             ("bench surfaces", lambda: phase_bench_surfaces(frames, rows)),
             ("serve", lambda: phase_serve(frames, rows)),
-            ("distributed", lambda: phase_distributed(frames, rows))):
+            ("distributed", lambda: phase_distributed(frames, rows)),
+            ("dispatch", lambda: phase_dispatch(frames, rows))):
         t0 = time.perf_counter()
         run()
         log(f"[time] phase {name}: {time.perf_counter() - t0:.1f} s")

@@ -8,8 +8,10 @@ kernel registry over ``csrc/grayscale.cu``, ``csrc/stencil.cu`` and
 ``csrc/conv3x3.cu``), with the reductions (``csrc/reductions.cu``), the
 capability probe, the headline MPC bench and the bench surfaces, the
 controller runtime with its checkpoints and the online depth learner,
-the batched-pyramid solve (a frame per scenario) and the HTTP serving
-tier with its micro-batched ``/control`` endpoint.
+the batched-pyramid solve (a frame per scenario), the HTTP serving
+tier with its micro-batched ``/control`` endpoint, the mesh-sharded solve
+and the asynchronous dispatch tier (queue, store, broker, worker,
+frontend).
 Kernels are compiled with
 nvcc at first use (``_build``); on CPU tensors every kernel wrapper runs
 its plain PyTorch version instead. This package imports neither JAX nor
@@ -25,8 +27,11 @@ Layout:
                            control_session
     serve/                 server (image endpoints, /control micro-batcher,
                            sessions), client
-    utils/                 config (MPCConfig, ServeConfig, load), timing,
-                           checkpoint, metrics, httpguard
+    dispatch/              queue, store, validate, broker, worker,
+                           frontend, stack (the async batch tier)
+    parallel/              mesh, collectives, introspect, spatial
+    utils/                 config (MPCConfig, ServeConfig, DispatchConfig,
+                           load), timing, checkpoint, metrics, httpguard
     data/                  fixture paths (the JAX package's PNG files)
     imgio.py               image load (native codec, Pillow, own PNG
                            decoder), save_png, save_jpeg
@@ -38,7 +43,7 @@ Layout:
     models/vision/         EdgeBatchRunner
     models/mpc/            dynamics, costs, riccati_lanes, sweep (kernel 2),
                            solver (VisualServoMPC), runtime (MPCRuntime),
-                           sysid (DepthEstimator), adaptive
+                           sysid (DepthEstimator), adaptive, distributed
     convert.py             JAX-package state -> port state
 """
 

@@ -13,6 +13,16 @@ formula, ``lr * m_hat / (sqrt(v_hat) + eps)``, rounded in another order.
 Parametrization: theta = log(1/Z) per feature (keeps Z positive and the
 step well-scaled across depth magnitudes).
 
+The sharded step (``train_step_sharded``) is what the JAX package gets
+from GSPMD when the observation batch and the parameters are sharded over
+the mesh's data axis (``tests/test_sysid.py``'s sharded training step).
+The parameters are per scenario, so a shard's gradient depends on its own
+rows alone and needs no all-reduce. What crosses the shards is the loss,
+a mean over the whole (B, T, 2m) batch: each shard backpropagates its sum
+of squared errors divided by the global element count, and the loss is
+the ``psum`` of those parts. (A per-shard mean followed by a mean of the
+gradients would scale them wrongly wherever the shards differ in size.)
+
 The state is a value, as in JAX: ``train_step`` returns a new
 ``SysIdState`` and leaves the one it was given untouched. Its leaves, in
 order, are those of the JAX package's state (``jax.tree.leaves`` of a
@@ -31,6 +41,14 @@ import numpy as np
 import torch
 
 from openmp_parallel_computing_tpu_torch.models.mpc import dynamics
+from openmp_parallel_computing_tpu_torch.parallel import collectives
+from openmp_parallel_computing_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    MODEL_AXIS,
+    Mesh,
+    data_sharding,
+    device_put,
+)
 
 BETAS = (0.9, 0.999)
 EPS = 1e-8
@@ -95,12 +113,16 @@ class DepthEstimator:
         """Mean squared one-step prediction error over batch, window and
         features. p/u/p_next: (B, T, 2m) / (B, T, 6) / (B, T, 2m)
         observation windows."""
+        return self._sq_err_sum(log_iz, p, u, p_next) / p_next.numel()
+
+    def _sq_err_sum(self, log_iz, p, u, p_next) -> torch.Tensor:
+        """The sum of ``_loss``'s squared errors: a shard's part of it."""
         depth = torch.exp(-log_iz)[:, None]             # (B, 1, m)
         pred = dynamics.step(p, u, depth, self.dt)
-        return torch.mean((pred - p_next) ** 2)
+        return torch.sum((pred - p_next) ** 2)
 
-    def train_step(self, state: SysIdState, p, u, p_next):
-        """One Adam step on the window's loss; returns (new_state, loss).
+    def _adam_step(self, state: SysIdState, loss_of):
+        """One Adam step on ``loss_of(theta)``; returns (new_state, loss).
         Gradients are on here whatever the caller's mode (the solver's
         entry points run under ``torch.no_grad``)."""
         count, mu, nu = state.opt_state
@@ -112,12 +134,40 @@ class DepthEstimator:
                 "step": torch.tensor(float(count.item())),
                 "exp_avg": mu.detach().clone(),
                 "exp_avg_sq": nu.detach().clone()}
-            loss = self._loss(theta, p.detach(), u.detach(), p_next.detach())
+            loss = loss_of(theta)
             loss.backward()
             opt.step()
         st = opt.state[theta]
         return SysIdState(theta.detach(), AdamState(
             count + 1, st["exp_avg"], st["exp_avg_sq"])), loss.detach()
+
+    def train_step(self, state: SysIdState, p, u, p_next):
+        """One Adam step on the window's loss; returns (new_state, loss)."""
+        return self._adam_step(state, lambda theta: self._loss(
+            theta, p.detach(), u.detach(), p_next.detach()))
+
+    def train_step_sharded(self, states: list[SysIdState], ps, us, p_nexts,
+                           mesh: Mesh):
+        """One Adam step with the batch sharded over the data axis of
+        ``mesh`` (model axis 1): per-shard lists in ``mesh.flat`` order, as
+        ``shard_state`` and ``parallel.device_put`` make them. Returns
+        (per-shard new states, per-shard copies of the global loss). The
+        shards may differ in size."""
+        if mesh.local_shape[MODEL_AXIS] != 1:
+            raise ValueError("the sharded DepthEstimator step shards the "
+                             "data axis only (model axis 1)")
+        numel = collectives.psum(
+            [torch.tensor(float(x.numel()), dtype=torch.float64,
+                          device=x.device) for x in p_nexts],
+            DATA_AXIS, mesh)
+        new, parts = [], []
+        for st, p, u, p_next, n in zip(states, ps, us, p_nexts, numel):
+            n = n.item()
+            st, part = self._adam_step(st, lambda theta: self._sq_err_sum(
+                theta, p.detach(), u.detach(), p_next.detach()) / n)
+            new.append(st)
+            parts.append(part)
+        return new, collectives.psum(parts, DATA_AXIS, mesh)
 
     def fit(self, p, u, p_next, steps: int = 200,
             state: SysIdState | None = None):
@@ -128,3 +178,30 @@ class DepthEstimator:
             state, loss = self.train_step(state, p, u, p_next)
             losses.append(loss)
         return state, torch.stack(losses)
+
+
+def shard_state(state: SysIdState, mesh: Mesh) -> list[SysIdState]:
+    """``state`` split over the data axis of ``mesh``: the per-scenario
+    leaves (log_inv_depth, mu, nu) by rows onto each shard's device, the
+    Adam count a copy on each shard (kept on the CPU, as everywhere)."""
+    split = data_sharding(mesh)
+    log_iz, mu, nu = (device_put(x, split) for x in
+                      (state.log_inv_depth, state.opt_state.mu,
+                       state.opt_state.nu))
+    count = state.opt_state.count
+    return [SysIdState(a, AdamState(count.clone(), b, c))
+            for a, b, c in zip(log_iz, mu, nu)]
+
+
+def gather_state(states: list[SysIdState]) -> SysIdState:
+    """The per-shard states joined in shard order on the first shard's
+    device (the replicated count from the first shard)."""
+    dev = states[0].log_inv_depth.device
+
+    def cat(xs):
+        return torch.cat([x.to(dev) for x in xs])
+
+    return SysIdState(cat([s.log_inv_depth for s in states]), AdamState(
+        states[0].opt_state.count.clone(),
+        cat([s.opt_state.mu for s in states]),
+        cat([s.opt_state.nu for s in states])))

@@ -245,17 +245,26 @@ def _device_count(device: torch.device) -> int:
 def process_image(data_hwc: np.ndarray, kernel: str, passes: int,
                   devices: int, warm: bool = True
                   ) -> tuple[np.ndarray, float]:
-    """Run the kernel pipeline on the server's device; returns (result
-    HWC u8, compute seconds). With ``devices > 1`` the rows are padded to
-    a multiple of it, split over that many cards, and the result cropped
-    to the image. The frame is on the device before the span starts; the
-    span ends with the result on the host. Raises ``ValueError`` for a
-    frame the kernel refuses."""
+    """``process_image_on`` the server's device."""
+    return process_image_on(_device, data_hwc, kernel, passes, devices, warm)
+
+
+def process_image_on(device, data_hwc: np.ndarray, kernel: str, passes: int,
+                     devices: int, warm: bool = True
+                     ) -> tuple[np.ndarray, float]:
+    """Run the kernel pipeline on ``device``; returns (result HWC u8,
+    compute seconds). With ``devices > 1`` the rows are padded to a
+    multiple of it, split over that many cards, and the result cropped to
+    the image (callers clamp ``devices`` to the cards first). The frame
+    is on the device before the span starts; the span ends with the
+    result on the host. Raises ``ValueError`` for a frame the kernel
+    refuses."""
+    device = torch.device(device)
     chw, orig_h = pad_rows(torch.from_numpy(np.ascontiguousarray(
-        np.transpose(data_hwc, (2, 0, 1)))).to(_device), devices)
+        np.transpose(data_hwc, (2, 0, 1)))).to(device), devices)
     # orig_h is part of the key: the sharded border mask depends on it, so
     # two images padding to the same shape warm separately.
-    key = (kernel, tuple(chw.shape), passes, devices, orig_h, str(_device))
+    key = (kernel, tuple(chw.shape), passes, devices, orig_h, str(device))
     run = make_runner(kernel, passes, devices, orig_h=orig_h)
     if warm:
         _ensure_warm(key, lambda: run(chw).cpu())
@@ -266,9 +275,11 @@ def process_image(data_hwc: np.ndarray, kernel: str, passes: int,
     return np.transpose(out[:, :orig_h], (1, 2, 0)), compute_s
 
 
-def _parse_multipart(content_type: str, body: bytes):
+def _parse_multipart(content_type: str, body: bytes,
+                     filenames: dict | None = None):
     """Parse a multipart/form-data body into {field: bytes_or_str}: text
-    parts decoded to str, file parts kept as bytes."""
+    parts decoded to str, file parts kept as bytes. Where ``filenames``
+    is given, each file part's client file name is put in it by field."""
     parser = email.parser.BytesParser(policy=email.policy.HTTP)
     msg = parser.parsebytes(
         b"Content-Type: " + content_type.encode() + b"\r\n\r\n" + body)
@@ -278,10 +289,13 @@ def _parse_multipart(content_type: str, body: bytes):
         if name is None:
             continue
         payload = part.get_payload(decode=True)
-        if part.get_filename() is None and payload is not None:
+        filename = part.get_filename()
+        if filename is None and payload is not None:
             fields[name] = payload.decode(errors="replace").strip()
         else:
             fields[name] = payload or b""
+            if filename and filenames is not None:
+                filenames[name] = filename
     return fields
 
 

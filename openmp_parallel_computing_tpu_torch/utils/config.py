@@ -1,13 +1,12 @@
 """Configuration of the PyTorch port (port of
 ``openmp_parallel_computing_tpu.utils.config``): the device mesh
 (``MeshConfig``), the solver (``MPCConfig``), the serving tier
-(``ServeConfig``), and ``load``, which builds a ``Config`` of them from the
-defaults, ``OMPC_<SECTION>_<FIELD>`` environment keys and
-``--section.field=value`` overrides, as the JAX package's ``load`` does.
-The JAX package's ``kernel`` and ``dispatch`` sections are not here:
-``KernelConfig.strip`` is the Pallas row strip, which the port has no use
-for, and ``dispatch`` comes with the dispatch tier; an override that names
-either raises.
+(``ServeConfig``), the dispatch tier (``DispatchConfig``), and ``load``,
+which builds a ``Config`` of them from the defaults,
+``OMPC_<SECTION>_<FIELD>`` environment keys and ``--section.field=value``
+overrides, as the JAX package's ``load`` does. The JAX package's
+``kernel`` section is not here: ``KernelConfig.strip`` is the Pallas row
+strip, which the port has no use for; an override that names it raises.
 
 ``MPCConfig`` has the same fields and defaults as the JAX package's (which
 documents the history behind each default).
@@ -113,10 +112,29 @@ class ServeConfig:
 
 
 @dataclasses.dataclass
+class DispatchConfig:
+    """The dispatch tier's settings: the JAX package's fields and defaults
+    (its ``DispatchConfig`` documents each)."""
+
+    # A directory (the filesystem backend) or the http://host:port URL of
+    # a dispatch.broker process (the network backend).
+    root: str = "/tmp/ompc_dispatch"
+    queue: str = "grayscale"
+    visibility_timeout_s: float = 60.0
+    # Bodies declaring more are answered 413 before they are read.
+    max_body_mb: int = 64
+    # Shared secret of the broker's mutating routes (X-Auth-Token); empty
+    # disables the check.
+    auth_token: str = ""
+
+
+@dataclasses.dataclass
 class Config:
     mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
     mpc: MPCConfig = dataclasses.field(default_factory=MPCConfig)
     serve: ServeConfig = dataclasses.field(default_factory=ServeConfig)
+    dispatch: DispatchConfig = dataclasses.field(
+        default_factory=DispatchConfig)
 
 
 def _coerce(value: str, ref: Any) -> Any:

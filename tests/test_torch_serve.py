@@ -504,27 +504,34 @@ def test_config_load_matches_jax():
            "OMPC_MPC_DUAL_WARM_START": "no", "OMPC_MPC_BACKEND": "fused",
            "OMPC_SERVE_PORT": "6001", "OMPC_SERVE_MAX_BATCH": "16",
            "OMPC_SERVE_CONTROL_DEADLINE_MS": "40", "OMPC_SERVE_HOST": "::1",
-           "OMPC_KERNEL_PASSES": "3", "OMPC_MESH_MODEL": "2"}
+           "OMPC_KERNEL_PASSES": "3", "OMPC_MESH_MODEL": "2",
+           "OMPC_DISPATCH_VISIBILITY_TIMEOUT_S": "7.5",
+           "OMPC_DISPATCH_AUTH_TOKEN": "12"}
     overrides = ["--mpc.num_features=4", "--serve.session_idle_s=1.5",
                  "mpc.edge_refresh=solve", "--serve.port=6002",
-                 "--mesh.data=4"]
+                 "--mesh.data=4", "--dispatch.queue=x",
+                 "--dispatch.root=http://127.0.0.1:9800",
+                 "--dispatch.max_body_mb=3"]
     ours, theirs = config.load(env, overrides), jax_config.load(env,
                                                                 overrides)
     assert (ours.mesh.data, ours.mesh.model) == (4, 2)
-    for section in ("mesh", "mpc", "serve"):
+    for section in ("mesh", "mpc", "serve", "dispatch"):
         mine = dataclasses.asdict(getattr(ours, section))
         ref = dataclasses.asdict(getattr(theirs, section))
         assert mine == {k: ref[k] for k in mine}, section
-    assert set(dataclasses.asdict(ours.serve)) == set(
-        dataclasses.asdict(theirs.serve))
+    for section in ("serve", "dispatch"):
+        assert set(dataclasses.asdict(getattr(ours, section))) == set(
+            dataclasses.asdict(getattr(theirs, section))), section
+    assert (ours.dispatch.queue, ours.dispatch.auth_token,
+            ours.dispatch.visibility_timeout_s) == ("x", "12", 7.5)
     assert config.load({}) == config.Config()
-    for bad in (["--nope.x=1"], ["--serve.nope=1"], ["--mpc.nope=1"]):
+    for bad in (["--nope.x=1"], ["--serve.nope=1"], ["--mpc.nope=1"],
+                ["--dispatch.nope=1"]):
         for load in (config.load, jax_config.load):
             with pytest.raises(AttributeError):
                 load({}, bad)
-    for lacking in (["--kernel.passes=2"], ["--dispatch.queue=x"]):
-        with pytest.raises(AttributeError):  # sections the port lacks
-            config.load({}, lacking)
+    with pytest.raises(AttributeError):      # the section the port lacks
+        config.load({}, ["--kernel.passes=2"])
     with pytest.raises(ValueError):          # MPCConfig's checks run
         config.load({"OMPC_MPC_BACKEND": "assoc"})
 

@@ -206,7 +206,10 @@ Any failure raises and the script exits non-zero.
    checkpoint, launches kernels for the chunks left only, and writes the
    uninterrupted job's result bytes. A devices=2 job on two logical shards
    of cuda:0 against the direct solve on the same mesh; a job with NaN
-   depths acked with an error completion and no checkpoint left. The
+   depths acked with an error completion and no checkpoint left; a grey +
+   alpha (C = 2) PNG as an image job and as an MPC job's frame, each acked
+   with an error completion, the jobs queued behind them completed and
+   nothing dead-lettered. The
    sharded ``DepthEstimator`` step (SYSID_SHARDED) on logical shards of
    cuda:0 against the unsharded step on the card and the step on the
    CPU: depths and loss within SYSID_RTOL, each Adam moment within
@@ -216,6 +219,21 @@ Any failure raises and the script exits non-zero.
    image ``POST /`` over HTTP, polled on ``/status`` to completion, the
    MPC result against the in-process job's, the stack terminated. Its
    lines start ``[dispatch]``.
+14. The audit solver paths, on the 1080p frame at B=AUDIT_BATCH, H=20,
+   m=8, ilqr_iters=1: ``control_step`` on the reference and assoc
+   backends and on the sweep backend with ``edge_sampler="xla"`` and with
+   ``sampler_dtype="bfloat16"`` (analytic and xla), each against the
+   card's default sweep backend and against the same backend on the
+   CPU, scenario by scenario (every cost within JAX's cross-backend
+   bound, the controls of AUDIT_SHARE of the scenarios within JAX's
+   cross-backend bounds; the share within STEP_TOL printed), with its
+   launches (row 1 on every path, row
+   2 on the sweep paths; counted into ``launches_audit``) and its ms a
+   solve; ``receding_horizon_frames`` for AUDIT_STEPS steps on the
+   reference backend (row 1 a step and nothing else); ``DistributedMPC``
+   on the reference backend over a (2, 1) mesh of logical shards of
+   cuda:0, u0 within AUDIT_SHARD_TOL of ``_solve_single`` shard by shard
+   and no gate. Its lines start ``[audit]``.
 
 The last three lines of standard output are the card's name and power
 limit, a JSON object describing each kernel, and
@@ -482,6 +500,38 @@ DISPATCH_TOL = 1e-4              # u0 and costs, rtol = atol
 SYSID_SHARDED = dict(batch=4096, window=10, shards=8)
 SYSID_RTOL = 1e-5                # depths, loss; the moments: of their max
 STACK_TIMEOUT_S = 240
+# The audit paths (phase 14) on the 1080p frame at the main path's width
+# (H, M) and AUDIT_BATCH cold scenarios, ilqr_iters=1, timed over
+# AUDIT_REPEAT solves. Each solve is held to the card's sweep backend and
+# to the same backend on the CPU scenario by scenario: every scenario's
+# cost within JAX's cross-backend cost bound (AUDIT_CROSS_COST), and the
+# controls of at least AUDIT_SHARE of the scenarios within JAX's
+# cross-backend control bounds (AUDIT_CROSS_US); the share within
+# STEP_TOL is printed. At this size a float32 order flips the line
+# search's near ties in a few scenarios, whose controls then part while
+# their costs stay within 1e-3 (measured on an H100 at 700 W: "xla" on
+# the card against the CPU 2 of 256 scenarios, up to 0.28 on a control,
+# 8.6e-4 relative on the cost; bfloat16 against float32 11 scenarios
+# beyond the control bounds, costs within 1.1e-4; "xla" with bfloat16
+# card against CPU 24 scenarios beyond STEP_TOL: its autodiff rounds cotangents to bfloat16,
+# as JAX's does, so float32 order shows at bfloat16 steps). The reference
+# loop runs AUDIT_STEPS steps; DistributedMPC on the reference backend on
+# a (2, 1) mesh of logical shards is held within AUDIT_SHARD_TOL of
+# _solve_single shard by shard.
+AUDIT_BATCH = 256
+AUDIT_STEPS = 3
+AUDIT_REPEAT = 3
+AUDIT_CROSS_US = dict(rtol=2e-2, atol=5e-3)     # tests/test_mpc.py:462-465
+AUDIT_CROSS_COST = dict(rtol=1e-3, atol=1e-3)
+AUDIT_SHARE = 0.9
+AUDIT_SHARD_TOL = 1e-5
+AUDIT_PATHS = {   # label -> MPCConfig fields
+    "reference": dict(backend="reference"),
+    "assoc": dict(backend="assoc"),
+    "sweep/xla": dict(edge_sampler="xla"),
+    "sweep/bf16": dict(sampler_dtype="bfloat16"),
+    "sweep/xla/bf16": dict(edge_sampler="xla", sampler_dtype="bfloat16"),
+}
 # The headline bench (phase 7), cut in depth: bench.py's batches, fewer
 # steps and trials.
 HEADLINE_RUN = dict(scenarios=4096, steps=10, scenarios_small=256,
@@ -1576,9 +1626,10 @@ def read_counts() -> dict:
 def expected_launches(cfg, batch: int, steps: int, fired: int,
                       unified: bool = True) -> dict:
     """Launches of a receding-horizon run: one perception launch a step;
-    the fused backend: ilqr_iters batched Riccati launches per ADMM
-    iteration and nothing else; the sweep backend: one full_solve launch a
-    step (full_solve with edge_refresh "solve"), else per ADMM iteration
+    the reference backends: nothing else; the fused backend: ilqr_iters
+    batched Riccati launches per ADMM iteration and nothing else; the
+    sweep backend: one full_solve launch a step (full_solve with
+    edge_refresh "solve"), else per ADMM iteration
     one multi_sweep launch (edge_refresh admm/solve) or ilqr_iters
     per-sweep launches; the gather sampler once per linearization and once
     a step for the final cost; and a zero-gain forward sweep for each
@@ -1593,6 +1644,8 @@ def expected_launches(cfg, batch: int, steps: int, fired: int,
                          0)
     want["edge_pyramid"] = steps
     full = cfg.full_solve and cfg.edge_refresh == "solve"
+    if cfg.backend in ("reference", "assoc"):
+        return want                     # plain PyTorch after perception
     if cfg.backend == "fused":
         want["riccati_backward"] = cfg.ilqr_iters * admm
         return want
@@ -3935,6 +3988,58 @@ def dispatch_poisoned(w) -> None:
         f"no checkpoint left")
 
 
+def dispatch_grey_alpha(w, frame, smi: str) -> None:
+    """A grey + alpha (C = 2) PNG, the 1080p frame's first two planes, as
+    an image job and as an MPC job's frame: each answered with an error
+    completion and acked, nothing dead-lettered, and the job queued
+    behind each completes."""
+    import numpy as np
+
+    from openmp_parallel_computing_tpu_torch import data
+
+    t0 = time.perf_counter()
+    la = png_bytes(frame[:2], Path(w.cfg.root))
+    w.store.put("uploads/la_frame.png", la)
+    w.store.put("uploads/rgb_after_la.png", data.frame_path().read_bytes())
+    npz, _ = dispatch_scenarios(AUDIT_BATCH, seed=3)
+    w.store.put("uploads/la_scen.npz", npz)
+    w.store.put("uploads/after_la_scen.npz", npz)
+    w.store.put("uploads/rgb_frame.png", png_bytes(frame, Path(w.cfg.root)))
+    mpc = {"type": "mpc", "devices": 1, "chunk": AUDIT_BATCH,
+           "config": {"horizon": H, "num_features": M}}
+    for body in ({"image_key": "uploads/la_frame.png", "threads": [1],
+                  "repeat": 1, "kernel": "grayscale"},
+                 {"image_key": "uploads/rgb_after_la.png", "threads": [1],
+                  "repeat": 1, "kernel": "grayscale"},
+                 dict(mpc, scenario_key="uploads/la_scen.npz",
+                      frame_key="uploads/la_frame.png"),
+                 dict(mpc, scenario_key="uploads/after_la_scen.npz",
+                      frame_key="uploads/rgb_frame.png")):
+        w.jobs.publish(body)
+    w.run(stop_when_empty=True)
+    status = {name: json.loads(w.store.get(f"status/{name}.json"))
+              for name in ("la_frame.png", "rgb_after_la.png",
+                           "la_scen.npz", "after_la_scen.npz")}
+    image_err = status["la_frame.png"].get("error", "")
+    mpc_err = status["la_scen.npz"].get("error", "")
+    if ("C in (1, 3, 4)" not in image_err or "frame refused" not in mpc_err
+            or "processed_key" not in status["rgb_after_la.png"]
+            or "error" in status["after_la_scen.npz"]
+            or w.jobs.depth() or list(w.jobs.inflight.glob("*.json"))
+            or list(w.jobs.dead.iterdir())):
+        raise AssertionError(f"grey + alpha jobs: {status}, depth "
+                             f"{w.jobs.depth()}, dead "
+                             f"{list(w.jobs.dead.iterdir())}")
+    _, arrays = job_result(w, "uploads/after_la_scen.npz")
+    if not np.all(np.isfinite(arrays["costs"])):
+        raise AssertionError("the MPC job after the grey + alpha one: "
+                             "non-finite costs")
+    log(f"[dispatch] grey + alpha 1080p PNG: the image job acked with "
+        f"{image_err!r}, the MPC job with {mpc_err!r}; the jobs behind "
+        f"them completed, none dead-lettered, "
+        f"{time.perf_counter() - t0:.1f} s ({smi})")
+
+
 def sysid_close(what: str, got, want, loss, want_loss) -> str:
     """``got`` against ``want`` (SysIdStates) and the losses: the depths
     and the loss within SYSID_RTOL, each Adam moment within SYSID_RTOL of
@@ -4141,6 +4246,7 @@ def phase_dispatch(frames, rows: dict) -> None:
         want, npz = dispatch_mpc(w, frames[0], rows, smi)
         dispatch_two_shards(w, frames[0], npz, smi)
         dispatch_poisoned(w)
+        dispatch_grey_alpha(w, frames[0], smi)
         dispatch_sysid(smi)
         drive_stack(url, proc, log_path, npz,
                     w.store.get("uploads/ring0_frame.png"), want, smi)
@@ -4155,6 +4261,132 @@ def phase_dispatch(frames, rows: dict) -> None:
             proc.wait()
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"[dispatch] phase {time.perf_counter() - t0:.1f} s ({smi})")
+
+
+def audit_close(label: str, what: str, got, want) -> str:
+    """(us, cost) ``got`` against ``want`` scenario by scenario: every
+    cost within AUDIT_CROSS_COST, and the controls of at least AUDIT_SHARE
+    of the scenarios within AUDIT_CROSS_US. The agreement as text."""
+    import torch
+
+    (us, cost), (us_w, cost_w) = ((a.cpu(), b.cpu()) for a, b in (got,
+                                                                   want))
+
+    def agree(tol):
+        return torch.isclose(us, us_w, **tol).flatten(1).all(1)
+
+    ok_us = agree(AUDIT_CROSS_US)
+    ok_cost = torch.isclose(cost, cost_w, **AUDIT_CROSS_COST)
+    text = (f"controls of {ok_us.sum().item()} of {len(ok_us)} scenarios "
+            f"within the cross-backend bounds, "
+            f"{agree(dict(rtol=STEP_TOL, atol=STEP_TOL)).sum().item()} "
+            f"within {STEP_TOL} (max abs err "
+            f"{(us - us_w).abs().max().item():.3e}), cost max rel err "
+            f"{((cost - cost_w).abs() / cost_w.abs()).max().item():.3e}")
+    if not ok_cost.all() or ok_us.float().mean().item() < AUDIT_SHARE:
+        raise AssertionError(f"[audit] {label} {what}: {text}")
+    return text
+
+
+def phase_audit(frames, rows: dict) -> None:
+    """The audit solver paths on the card (docstring item 14)."""
+    import torch
+
+    from openmp_parallel_computing_tpu_torch.models.mpc import (
+        DistributedMPC, VisualServoMPC, costs, solver)
+    from openmp_parallel_computing_tpu_torch.ops import edge_pyramid_base
+    from openmp_parallel_computing_tpu_torch.utils.config import MPCConfig
+
+    smi = nvidia_smi_line()
+    t_phase = time.perf_counter()
+    frame = frames[0]
+    base_cfg = MPCConfig(horizon=H, num_features=M, ilqr_iters=1)
+    scen = VisualServoMPC(base_cfg, "cuda").random_scenarios(
+        AUDIT_BATCH, torch.Generator().manual_seed(14))
+    scen_cpu = _to(scen, "cpu")
+
+    def solve(cfg, device):
+        with GateLog(solver) as gates:
+            _, sol = VisualServoMPC(cfg, device).control_step(
+                frame.to(device), scen if device == "cuda" else scen_cpu)
+        return (sol.us, sol.cost), sum(gates.fired)
+
+    sweep, _ = solve(base_cfg, "cuda")
+    times = {"sweep": cuda_time_ms(lambda: solve(base_cfg, "cuda"),
+                                   AUDIT_REPEAT)}
+    rows["edge_pyramid"]["launches_audit"] = 0
+    rows["multi_sweep"]["launches_audit"] = 0
+    for label, fields in AUDIT_PATHS.items():
+        cfg = MPCConfig(horizon=H, num_features=M, ilqr_iters=1, **fields)
+        torch.cuda.synchronize()
+        reset_counts()
+        card, fired = solve(cfg, "cuda")
+        torch.cuda.synchronize()
+        launches = read_counts()
+        want = expected_launches(cfg, AUDIT_BATCH, 1, fired)
+        if launches != want:
+            raise AssertionError(f"[audit] {label}: launches {launches} != "
+                                 f"expected {want}")
+        rows["edge_pyramid"]["launches_audit"] += launches["edge_pyramid"]
+        rows["multi_sweep"]["launches_audit"] += launches["multi_sweep"]
+        if not all(torch.isfinite(t).all() for t in card):
+            raise AssertionError(f"[audit] {label}: non-finite solution")
+        vs_sweep = audit_close(label, "vs the card's sweep backend", card,
+                               sweep)
+        cpu, cpu_fired = solve(cfg, "cpu")
+        if cpu_fired != fired:
+            raise AssertionError(f"[audit] {label}: gate {fired} on the "
+                                 f"card, {cpu_fired} on the CPU")
+        vs_cpu = audit_close(label, "vs the CPU", card, cpu)
+        times[label] = cuda_time_ms(lambda: solve(cfg, "cuda"), AUDIT_REPEAT)
+        log(f"[audit] {label}: control_step B={AUDIT_BATCH} H={H} m={M} on "
+            f"the 1080p frame: {times[label]:.3f} ms a solve; against the "
+            f"card's sweep backend: {vs_sweep}; against the CPU: {vs_cpu}; "
+            f"gate fired {fired}; launches "
+            f"{ {k: n for k, n in launches.items() if n} }")
+
+    # The reference loop: row 1 on its path, nothing else launched.
+    cfg = MPCConfig(horizon=H, num_features=M, ilqr_iters=1,
+                    backend="reference")
+    mpc = VisualServoMPC(cfg, "cuda")
+    u0s, cost_seq, _, launches, fired, wall = drive(mpc, frames, scen,
+                                                    AUDIT_STEPS)
+    want = expected_launches(cfg, AUDIT_BATCH, AUDIT_STEPS, fired)
+    if launches != want or not launches["edge_pyramid"]:
+        raise AssertionError(f"[audit] reference loop: launches {launches} "
+                             f"!= expected {want}")
+    if not (torch.isfinite(u0s).all() and torch.isfinite(cost_seq).all()):
+        raise AssertionError("[audit] reference loop: non-finite output")
+    rows["edge_pyramid"]["launches_audit"] += launches["edge_pyramid"]
+    rate = AUDIT_BATCH * AUDIT_STEPS / wall
+    log(f"[audit] reference receding_horizon_frames: {AUDIT_STEPS} steps "
+        f"B={AUDIT_BATCH} in {wall:.4f} s ({rate:.1f} solves/s); launches "
+        f"{ {k: n for k, n in launches.items() if n} }; gate fired on "
+        f"{fired}/{AUDIT_STEPS} steps; mean cost "
+        f"{cost_seq[-1].mean().item():.6f}")
+
+    # DistributedMPC's reference path: _solve_single on each shard.
+    dmpc = DistributedMPC(cfg, logical_mesh(2, 1))
+    with GateLog(solver) as gates:
+        u0 = dmpc.solve_full(frame, scen)[0]
+    pyramid = costs.pyramid_from_base(edge_pyramid_base(frame, s=16))
+    ref = torch.cat([solver._solve_single(pyramid, frame.shape[1:], part,
+                                          cfg).us[:, 0]
+                     for part in dmpc.shard_scenarios(scen)])
+    err = (u0 - ref).abs().max().item()
+    if gates.fired or not torch.allclose(u0, ref, rtol=AUDIT_SHARD_TOL,
+                                         atol=AUDIT_SHARD_TOL):
+        raise AssertionError(f"[audit] DistributedMPC reference: gate "
+                             f"{gates.fired}, u0 max abs err {err:.3e}")
+    log(f"[audit] DistributedMPC reference on a (2, 1) mesh of logical "
+        f"shards: u0 against _solve_single shard by shard max abs err "
+        f"{err:.3e}, no gate")
+    log(f"[audit] ms a solve (control_step, B={AUDIT_BATCH}, H={H}, m={M}, "
+        f"1080p, mean of {AUDIT_REPEAT}, CUDA events): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
+        + f" ({smi}); phase {time.perf_counter() - t_phase:.1f} s; "
+        f"launches_audit edge_pyramid {rows['edge_pyramid']['launches_audit']}"
+        f", multi_sweep {rows['multi_sweep']['launches_audit']}")
 
 
 def main() -> int:
@@ -4202,7 +4434,8 @@ def main() -> int:
             ("bench surfaces", lambda: phase_bench_surfaces(frames, rows)),
             ("serve", lambda: phase_serve(frames, rows)),
             ("distributed", lambda: phase_distributed(frames, rows)),
-            ("dispatch", lambda: phase_dispatch(frames, rows))):
+            ("dispatch", lambda: phase_dispatch(frames, rows)),
+            ("audit", lambda: phase_audit(frames, rows))):
         t0 = time.perf_counter()
         run()
         log(f"[time] phase {name}: {time.perf_counter() - t0:.1f} s")

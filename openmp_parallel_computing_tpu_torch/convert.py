@@ -31,7 +31,9 @@ def scenario(scen, device="cpu") -> Scenario:
 
 def config(cfg) -> MPCConfig:
     """A JAX ``MPCConfig`` -> the port's, field by field by name. Raises
-    where the JAX config selects a path the port does not implement."""
+    where the JAX config holds a value the port refuses (a
+    ``sampler_dtype`` that is neither float32 nor bfloat16, which JAX
+    reads as float32; an unknown path name)."""
     names = {f.name for f in dataclasses.fields(MPCConfig)}
     return MPCConfig(**{k: v for k, v in dataclasses.asdict(cfg).items()
                         if k in names})

@@ -31,6 +31,11 @@ results land in the store as ``processed/<basename>_result.npz`` (u0 /
 costs / primal_residual) and the completion message carries
 ``{costs, u0_key, times}``.
 
+A frame the frame ops refuse (grey + alpha, C = 2) fails its job
+deterministically: an image job writes ``status/<base>.json`` and
+publishes ``{image_key, error}``, an MPC job goes through ``_fail_mpc``;
+both ack. The JAX worker computes such a frame (ROADMAP quirk 3).
+
 Every computation runs on the worker's device: the card unless the caller
 asks for the CPU. A worker on ``"cuda"`` without a card raises.
 """
@@ -62,6 +67,7 @@ from openmp_parallel_computing_tpu_torch.models.mpc import (
     DistributedMPC,
     Scenario,
 )
+from openmp_parallel_computing_tpu_torch.ops._wrap import FrameChannelsError
 from openmp_parallel_computing_tpu_torch.parallel import mesh as _mesh
 from openmp_parallel_computing_tpu_torch.serve.server import (
     _device_count,
@@ -130,6 +136,8 @@ class Worker:
         kernel = body.get("kernel", "grayscale")
 
         with tempfile.TemporaryDirectory() as td:
+            # An upload that does not decode raises here and the job is
+            # redelivered, as in the JAX package (its worker dies on it).
             decoded = imgio.load(self._fetch(image_key, td))
             times: dict[str, float] = {}
             out_hwc = None
@@ -142,7 +150,14 @@ class Worker:
                     process_image_on, self.device, decoded, kernel, passes,
                     max(1, min(int(d), _device_count(self.device))),
                     warm=False)
-                run()
+                try:
+                    run()
+                except FrameChannelsError as exc:
+                    # The frame ops refuse a grey + alpha frame: no
+                    # redelivery can change that (the server's 400).
+                    return self._fail(
+                        {"image_key": image_key, "error": str(exc)},
+                        Path(image_key).name, "worker.image_failed")
                 total = 0.0
                 for _ in range(repeat):
                     t0 = time.perf_counter()
@@ -297,8 +312,11 @@ class Worker:
             part = Scenario(*(None if a is None else torch.from_numpy(a[idx])
                               for a in scen))
             t0 = time.perf_counter()
-            for _ in range(repeat):
-                sol = dmpc.solve_full(frame, part)
+            try:
+                for _ in range(repeat):
+                    sol = dmpc.solve_full(frame, part)
+            except FrameChannelsError as exc:
+                raise JobFailed(f"frame refused: {exc}") from exc
             # The results are on the mesh's first device: copy them to
             # the host (inside the span, so it holds the device's work).
             cu0, ccost, cres = (t.cpu().numpy() for t in sol)
@@ -351,24 +369,37 @@ class Worker:
         ckpt = Path(self.cfg.root) / "checkpoints" / f"mpc_{base}.npz"
         if ckpt.is_file():
             ckpt.unlink()
-        completion = {
-            "scenario_key": scenario_key,
-            "image_key": scenario_key,   # status-poll contract key
-            "error": reason,
-        }
+        return self._fail({"scenario_key": scenario_key,
+                           "image_key": scenario_key,  # status-poll key
+                           "error": reason}, base, "worker.mpc_failed")
+
+    def _fail(self, completion: dict, base: str, metric: str) -> dict:
+        """Write the error completion to ``status/<base>.json`` and publish
+        it; the message then acks."""
         self.store.put(f"status/{base}.json", json.dumps(completion).encode())
         self.done.publish(completion)
-        metrics.inc("worker.mpc_failed")
+        metrics.inc(metric)
         return completion
 
     def run(self, stop_when_empty: bool = False) -> None:
         self.jobs.consume(self.process, stop_when_empty=stop_when_empty)
 
 
-def main(device="cuda") -> None:
-    """A worker on the card (``OMPC_DISPATCH_*`` keys configure it)."""
+def main(argv: list[str] | None = None, device="cuda") -> None:
+    """A worker on the card. It takes no options: ``OMPC_DISPATCH_*`` keys
+    configure it, ``--help`` describes it, and any other argument is
+    ignored (the JAX package's worker reads none)."""
+    import argparse
+
     from openmp_parallel_computing_tpu_torch.utils.config import load
 
+    argparse.ArgumentParser(
+        allow_abbrev=False,
+        description="A dispatch worker on the card: consumes image and MPC "
+                    "jobs from the dispatch root. OMPC_DISPATCH_* "
+                    "environment keys configure it (e.g. "
+                    "OMPC_DISPATCH_ROOT).",
+    ).parse_known_args(argv)
     Worker(load().dispatch, device=device).run()
 
 

@@ -26,7 +26,9 @@ shard's device:
   communication. Its adaptive-budget gate reads the shard's own residual,
   as the JAX solve inside ``shard_map`` does, so a sharded solve can run
   more ADMM iterations on some shards than the unsharded solve of the
-  same batch;
+  same batch. The reference backends run ``solver._solve_single``, as the
+  JAX package does: ``admm_iters`` with no adaptive continuation, and the
+  sequential Riccati backward for ``"assoc"`` too;
 - the diagnostics (``pmean`` of the mean cost, ``pmax`` of the max primal
   residual over (data, model)) are the only mesh-wide reduction.
 
@@ -108,8 +110,13 @@ class DistributedMPC:
         lists of (u0, cost, primal residual) with ``full``, else of (u0,
         the mesh-wide mean cost, the mesh-wide max residual)."""
         cfg, mesh = self.cfg, self.mesh
-        solve_local = (_solver._solve_batch_fused if cfg.backend == "fused"
-                       else _solver._solve_batch_sweep)
+        # The reference backends take JAX's path here: the fixed-budget
+        # _solve_single with the sequential backward, "assoc" too, and no
+        # adaptive gate (ROADMAP quirk 8, copied).
+        solve_local = {"fused": _solver._solve_batch_fused,
+                       "reference": _solver._solve_single,
+                       "assoc": _solver._solve_single,
+                       }.get(cfg.backend, _solver._solve_batch_sweep)
         level0, shape = self._level0(frame_s)
         sols = [solve_local(costs.pyramid_from_base(base), shape, scen, cfg)
                 for base, scen in zip(level0, scen_s)]

@@ -49,12 +49,27 @@ def step(p: torch.Tensor, u: torch.Tensor, depth: torch.Tensor,
                        STATE_LIMIT)
 
 
+def linearize(p: torch.Tensor, u: torch.Tensor, depth: torch.Tensor,
+              dt: float):
+    """Jacobians (fx (..., 2m, 2m), fu (..., 2m, 6)) of ``step_unclamped``
+    at (p, u): fx by autodiff (``torch.func.jacrev``; leading batch dims
+    of p, u and depth, which must agree, are vmapped), fu from the
+    interaction matrix. The smooth dynamics, as ``linearize_analytic``'s
+    (which is held to this)."""
+    jac = torch.func.jacrev(
+        lambda q, v, d: step_unclamped(q, v, d, dt), argnums=0)
+    for _ in range(p.dim() - 1):
+        jac = torch.func.vmap(jac)
+    return jac(p, u, depth), dt * interaction_matrix(p, depth)
+
+
 def linearize_analytic(p: torch.Tensor, u: torch.Tensor, depth: torch.Tensor,
                        dt: float):
     """Closed-form Jacobians (fx (..., 2m, 2m), fu (..., 2m, 6)) of
-    ``step_unclamped`` at (p, u): the smooth dynamics, without the trust
-    region's clip (where the clip binds its Jacobian rows are zero, which
-    would zero the gains exactly where the solver needs them). fx is
+    ``step_unclamped`` at (p, u), ``linearize``'s without autodiff: the
+    smooth dynamics, without the trust region's clip (where the clip binds
+    its Jacobian rows are zero, which would zero the gains exactly where
+    the solver needs them). fx is
     I + dt * blockdiag of one 2x2 block per feature:
 
         [[vz/Z + y wx - 2x wy,  x wx + wz          ],

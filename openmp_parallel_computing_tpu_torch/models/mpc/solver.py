@@ -1,5 +1,6 @@
-"""The visual-servo MPC engine, sweep and fused backends (PyTorch port of
-``openmp_parallel_computing_tpu.models.mpc.solver``).
+"""The visual-servo MPC engine (PyTorch port of
+``openmp_parallel_computing_tpu.models.mpc.solver``): the sweep, fused,
+reference and assoc backends, numerically equivalent.
 
 Sweep backend (the default), per scenario batch:
 
@@ -30,15 +31,31 @@ dense linearization and cost expansion; the forward tries alpha =
 receding-horizon loops of this backend are a Python loop over whole
 solves.
 
+Reference backends (``backend="reference"``, and ``"assoc"`` with the
+associative-scan Riccati backward; ``_solve_batch_ref``): the audit paths,
+built from other parts than the kernels. Per iLQR sweep the rollout, the
+analytic linearization, the cost expansion of the cost closures
+(``costs.make_expansions``, the edge gradient by autodiff), the ADMM
+penalty's expansion, ``riccati.backward`` (an unrolled Cholesky a step)
+or ``riccati.backward_assoc``, three ``riccati.forward`` candidates scored
+on the closures and the strict ``J < j0`` pick. The JAX package vmaps a
+per-scenario solve; here every op takes the scenario axis leading. The
+adaptive gate stays batch-global.
+
 The edge linearization is the value + gradient of the pyramid edge cost:
 the dense analytic sampler (``costs.edge_vg_pyramid_xy``,
-``edge_sampler="analytic"``) or the gather sampler kernel
-(``sampler.edge_vg_lanes``, ``edge_sampler="pallas"``), taken once per
-ADMM iteration (``edge_refresh="admm"``), once per solve at the warm-start
-trajectory (``"solve"``) or before every sweep (``"ilqr"``). A pyramid
+``edge_sampler="analytic"``), the same dense sampler's value with its
+gradient by ``torch.autograd`` (``edge_sampler="xla"``) or the gather
+sampler kernel (``sampler.edge_vg_lanes``, ``edge_sampler="pallas"``),
+taken once per ADMM iteration (``edge_refresh="admm"``), once per solve
+at the warm-start trajectory (``"solve"``) or before every sweep
+(``"ilqr"``). With ``sampler_dtype="bfloat16"`` the sweep backend's dense
+samplers store their weights and the mean-centred levels in bfloat16 and
+accumulate in float32. A pyramid
 per scenario (levels (B, Hf, Wf): ``solve_batch_multi``,
 ``control_step_multi``, the serving micro-batch) always takes the dense
-sampler, whatever ``edge_sampler`` says, as in the JAX package.
+analytic sampler in float32, whatever ``edge_sampler`` and
+``sampler_dtype`` say, as in the JAX package.
 
 The nominal rollouts are a Python loop of ``sweep._dyn_step`` up to
 ``ROLLOUT_SCAN_MAX_BP`` scenarios, and the zero-gain ``forward_sweep``
@@ -76,8 +93,8 @@ from openmp_parallel_computing_tpu_torch.utils.config import MPCConfig
 # JAX package's value, kept until the port's own rollout A/B decides it.
 ROLLOUT_SCAN_MAX_BP = 8192
 
-# The fused backend's line-search candidates (the reference backends'; the
-# sweep kernels use sweep.ALPHAS = (0, 1, 0.5, 0.25)).
+# The fused and reference backends' line-search candidates (the sweep
+# kernels use sweep.ALPHAS = (0, 1, 0.5, 0.25)).
 _ALPHAS = (1.0, 0.5, 0.25)
 
 
@@ -183,6 +200,11 @@ class _SweepLanes:
         self.qe = cfg.q_edge
         self.kw = dict(m=self.m, q=cfg.q_track, r=cfg.r_ctrl, rho=cfg.rho,
                        qe=self.qe, dt=cfg.dt)
+        # Storage type of the dense samplers' weights on a shared pyramid;
+        # a per-scenario pyramid samples in float32 (the JAX package's).
+        self.batched = pyramid is not None and costs.pyramid_batched(pyramid)
+        self.sampler_dt = (torch.bfloat16 if cfg.sampler_dtype == "bfloat16"
+                           and not self.batched else None)
         dev = pyramid[0].device if pyramid else torch.device("cpu")
         self.use_multi = (cfg.edge_refresh in ("admm", "solve")
                           and sweep.group_sweep_fits(
@@ -222,8 +244,7 @@ class _SweepLanes:
         """True when the edge term goes through the gather sampler kernel:
         ``edge_sampler="pallas"`` on a shared pyramid (a per-scenario
         pyramid takes the dense sampler, as in the JAX package)."""
-        return (self.cfg.edge_sampler == "pallas"
-                and not costs.pyramid_batched(self.pyramid))
+        return self.cfg.edge_sampler == "pallas" and not self.batched
 
     def edge_vals(self, ps_l: torch.Tensor) -> torch.Tensor:
         """Pyramid edge cost along a lanes trajectory -> (h+1, B)."""
@@ -232,12 +253,16 @@ class _SweepLanes:
             return sampler.edge_vals_lanes(self.pyramid, ps_l[:, :m],
                                            ps_l[:, m:], *self.shape)
         return costs.edge_cost_pyramid_xy(self.pyramid, ps_l[:, :m],
-                                          ps_l[:, m:], *self.shape)
+                                          ps_l[:, m:], *self.shape,
+                                          dtype=self.sampler_dt)
 
     def edge_grads(self, ps_l: torch.Tensor) -> torch.Tensor:
         """Gradient of the summed edge cost along a lanes trajectory,
-        (h+1, n, B), by the gather sampler kernel (one launch) or the
-        dense analytic sampler."""
+        (h+1, n, B), by the gather sampler kernel (one launch), by
+        ``torch.autograd`` of ``edge_vals`` (``edge_sampler="xla"``: the
+        solves run under ``torch.no_grad()``, so the graph is built on a
+        copy inside ``torch.enable_grad()``) or by the dense analytic
+        sampler."""
         if not self.qe:
             return torch.zeros_like(ps_l)
         m = self.m
@@ -245,8 +270,14 @@ class _SweepLanes:
             _, g = sampler.sample(self.pyramid, ps_l[:, :m], ps_l[:, m:],
                                   *self.shape, grads=True)
             return g * (1.0 / (m * len(self.pyramid)))
+        if self.cfg.edge_sampler == "xla" and not self.batched:
+            with torch.enable_grad():
+                p = ps_l.detach().requires_grad_()
+                (g,) = torch.autograd.grad(self.edge_vals(p).sum(), p)
+            return g
         _, gx, gy = costs.edge_vg_pyramid_xy(self.pyramid, ps_l[:, :m],
-                                             ps_l[:, m:], *self.shape)
+                                             ps_l[:, m:], *self.shape,
+                                             dtype=self.sampler_dt)
         return torch.cat([gx, gy], dim=1)
 
     # -- solve ---------------------------------------------------------------
@@ -475,6 +506,131 @@ def _solve_batch_fused(pyramid, shape, scen: Scenario,
                     dual=y if scen.y0 is not None else None)
 
 
+def _single_admm(pyramid, shape, scen: Scenario, cfg: MPCConfig,
+                 backward_fn=None):
+    """The reference backends' ADMM machinery as ``(init, run,
+    finalize)`` closures over a scenario batch (leading axis B; the JAX
+    package's per-scenario closures, vmapped there):
+    ``init() -> (us, z, y)`` builds the ADMM carry, ``run(carry, n)``
+    advances it ``n`` iterations and ``finalize(carry) -> Solution`` rolls
+    out z and costs it. Split so that the adaptive budget can gate a
+    continuation on the batch-max residual (``_solve_batch_ref``).
+
+    ``backward_fn``: ``riccati.backward`` (None) or
+    ``riccati.backward_assoc``. The pyramid is shared, or per scenario
+    (levels (B, Hf, Wf))."""
+    backward_fn = backward_fn or riccati.backward
+    p0, target, depth, us0 = scen.p0, scen.target, scen.depth, scen.us0
+    q, r, qe, rho, dt = (cfg.q_track, cfg.r_ctrl, cfg.q_edge, cfg.rho,
+                         cfg.dt)
+    h_img, w_img = shape
+    eye_c = torch.eye(CONTROL_DIM, dtype=torch.float32, device=p0.device)
+
+    def step_fn(p, u):
+        return dynamics.step(p, u, depth, dt)
+
+    def rollout(us):
+        return dynamics.rollout(p0, us, depth, dt)
+
+    stage = costs.make_stage_cost(pyramid, shape, target, q, r, qe)
+    terminal = costs.make_terminal_cost(pyramid, shape, target, q, qe)
+    # Quadratic-only twins: the line search scores the edge term on its
+    # linearization and never samples the pyramid.
+    stage_q = costs.make_stage_cost(pyramid, shape, target, q, r, 0.0)
+    terminal_q = costs.make_terminal_cost(pyramid, shape, target, q, 0.0)
+    expand = costs.make_expansions(pyramid, shape, target, q, r, qe)
+
+    def sample_edge(us):
+        """Edge value and gradient (autodiff) along the rollout of us:
+        ((B, H+1), (B, H+1, n))."""
+        ps_s = rollout(us)
+        if qe:
+            return costs.edge_value_grad(pyramid, ps_s, h_img, w_img)
+        return ps_s.new_zeros(ps_s.shape[:-1]), torch.zeros_like(ps_s)
+
+    def ilqr_once(us, z, y, eg):
+        ps = rollout(us)
+        fx, fu = dynamics.linearize_analytic(ps[:, :-1], us, depth[:, None],
+                                             dt)
+        e_ref, g_ref = eg if eg is not None else sample_edge(us)
+        lx, lu, lxx, luu, lux, vx, vxx = expand(ps, us, edge_grads=g_ref)
+        # the ADMM penalty 0.5 rho |u - z + y|^2
+        lu = lu + rho * (us - z + y)
+        luu = luu + rho * eye_c
+        gains = backward_fn(fx, fu, lx, lu, lxx, luu, lux, vx, vxx)
+
+        def aug_cost_lin(ps_c, us_c):
+            quad = riccati.trajectory_cost(stage_q, terminal_q, ps_c, us_c)
+            edge = qe * (e_ref + (g_ref * (ps_c - ps)).sum(-1)).sum(-1)
+            admm = 0.5 * rho * ((us_c - z + y) ** 2).sum(dim=(-2, -1))
+            return quad + edge + admm
+
+        us_c, J_c = [], []
+        for alpha in _ALPHAS:
+            ps_a, us_a = riccati.forward(step_fn, p0, ps, us, gains, alpha)
+            us_c.append(us_a)
+            J_c.append(aug_cost_lin(ps_a, us_a))
+        J_c = torch.stack(J_c)                                  # (A, B)
+        best = torch.argmin(J_c, dim=0)
+        us_best = torch.stack(us_c)[best, torch.arange(us.shape[0],
+                                                       device=us.device)]
+        # JAX's argmin takes a NaN; its J[best] < j0 then keeps us, and so
+        # does the NaN that min propagates here
+        improved = J_c.min(dim=0).values < aug_cost_lin(ps, us)
+        return torch.where(improved[:, None, None], us_best, us)
+
+    # edge_refresh="solve": one linearization at the warm start
+    eg_solve = sample_edge(us0) if cfg.edge_refresh == "solve" else None
+
+    def init():
+        z0 = torch.clamp(us0, -cfg.u_limit, cfg.u_limit)
+        y0 = scen.y0 if scen.y0 is not None else torch.zeros_like(us0)
+        return us0, z0, y0
+
+    def run(carry, iters: int):
+        us, z, y = carry
+        for _ in range(iters):
+            eg = sample_edge(us) if cfg.edge_refresh == "admm" else eg_solve
+            for _ in range(cfg.ilqr_iters):
+                us = ilqr_once(us, z, y, eg)
+            z, y = sweep.admm_update(us, z, y, cfg.admm_relax, cfg.u_limit)
+        return us, z, y
+
+    def finalize(carry) -> Solution:
+        us, z, y = carry
+        ps = rollout(z)
+        return Solution(us=z, ps=ps,
+                        cost=riccati.trajectory_cost(stage, terminal, ps, z),
+                        primal_residual=(us - z).abs().amax(dim=(1, 2)),
+                        dual=y if scen.y0 is not None else None)
+
+    return init, run, finalize
+
+
+def _solve_single(pyramid, shape, scen: Scenario, cfg: MPCConfig,
+                  backward_fn=None) -> Solution:
+    """The reference solve with a fixed budget of ``admm_iters`` and no
+    adaptive gate (``DistributedMPC``'s reference path, as in JAX)."""
+    init, run, finalize = _single_admm(pyramid, shape, scen, cfg,
+                                       backward_fn)
+    return finalize(run(init(), cfg.admm_iters))
+
+
+def _solve_batch_ref(pyramid, shape, scen: Scenario, cfg: MPCConfig,
+                     backward_fn=None) -> Solution:
+    """The reference backends' batched solve: ``admm_iters`` iterations,
+    then the adaptive continuation gated on the batch-max residual
+    (``_adaptive_extra``, the gate every backend shares)."""
+    init, run, finalize = _single_admm(pyramid, shape, scen, cfg,
+                                       backward_fn)
+    carry = run(init(), cfg.admm_iters)
+    if cfg.admm_iters_extra:
+        us, z, _ = carry
+        carry = _adaptive_extra(carry, us, z, cfg,
+                                lambda c: run(c, cfg.admm_iters_extra))
+    return finalize(carry)
+
+
 class VisualServoMPC:
     """Batched visual-servo MPC over Sobel edge-feature maps.
 
@@ -540,6 +696,10 @@ class VisualServoMPC:
         leading per-scenario batch axis)."""
         if self.cfg.backend == "fused":
             return _solve_batch_fused(pyramid, shape, scen, self.cfg)
+        if self.cfg.backend in ("reference", "assoc"):
+            bwd = (riccati.backward_assoc if self.cfg.backend == "assoc"
+                   else riccati.backward)
+            return _solve_batch_ref(pyramid, shape, scen, self.cfg, bwd)
         return _solve_batch_sweep(pyramid, shape, scen, self.cfg)
 
     @torch.no_grad()
@@ -590,7 +750,7 @@ class VisualServoMPC:
     def _receding(self, pyramid_at, shape, scen: Scenario, n_steps: int):
         """Receding-horizon loop; ``pyramid_at(step)`` gives each step's
         cost pyramid. The sweep backend keeps its state in lanes layout
-        (``_receding_lanes``); the fused backend loops over whole solves.
+        (``_receding_lanes``); the other backends loop over whole solves.
         Returns ``(u0s (T, B, c), costs (T, B), scen')``."""
         if self.cfg.backend == "sweep":
             return self._receding_lanes(pyramid_at, shape, scen, n_steps)

@@ -15,6 +15,12 @@ import torch
 FRAME_CHANNELS = (1, 3, 4)
 
 
+class FrameChannelsError(ValueError):
+    """A frame op's refusal of a frame's channel count (a grey + alpha
+    frame): deterministic, so the dispatch worker answers it with an error
+    completion, as the server answers it with a 400."""
+
+
 def on_card(t: torch.Tensor) -> bool:
     """True for a CUDA tensor (the kernel runs), False for a CPU tensor
     (the plain version runs); raises for any other device, and for a
@@ -34,9 +40,10 @@ def check_image(img: torch.Tensor, dims: int, channels=None,
     an (H, W) plane for 2), C in ``channels`` when given, a dtype in
     ``dtypes`` and no empty plane."""
     if img.dim() != dims or (channels and img.shape[0] not in channels):
-        raise ValueError(f"expected {dims} dims"
-                         + (f", C in {channels}" if channels else "")
-                         + f"; got shape {tuple(img.shape)}")
+        error = (ValueError if img.dim() != dims else FrameChannelsError)
+        raise error(f"expected {dims} dims"
+                    + (f", C in {channels}" if channels else "")
+                    + f"; got shape {tuple(img.shape)}")
     if img.dtype not in dtypes:
         raise TypeError(f"expected one of {dtypes}, got {img.dtype}")
     if img.shape[-1] < 1 or img.shape[-2] < 1:

@@ -13,6 +13,8 @@ supported: ..."), not raised: reporting it is the probe's purpose.
 
 from __future__ import annotations
 
+import argparse
+
 import torch
 
 from openmp_parallel_computing_tpu_torch.parallel.mesh import process_count
@@ -41,7 +43,15 @@ def probe() -> dict:
     return info
 
 
-def main() -> None:
+def main(argv: list[str] | None = None) -> None:
+    """Print the probe's report. It takes no options: ``--help`` describes
+    it, and any other argument is ignored (the JAX package's probe reads
+    none)."""
+    argparse.ArgumentParser(
+        allow_abbrev=False,
+        description="Report the torch and CUDA versions, the cards and "
+                    "whether the kernel path runs on the card.",
+    ).parse_known_args(argv)
     info = probe()
     if info["kernels"] == "supported":
         print(f"CUDA compute path supported: devices={info['device_count']} "

@@ -803,9 +803,20 @@ def serve(cfg: ServeConfig | None = None,
     return ThreadingHTTPServer((cfg.host, cfg.port), Handler)
 
 
-def main() -> None:
+def main(argv: list[str] | None = None) -> None:
+    """Serve on the card. It takes no options: ``OMPC_SERVE_*`` keys
+    configure it, ``--help`` describes it, and any other argument is
+    ignored (the JAX package's server reads none)."""
+    import argparse
+
     from openmp_parallel_computing_tpu_torch.utils.config import load
 
+    argparse.ArgumentParser(
+        allow_abbrev=False,
+        description="The HTTP serving tier on the card: POST /grayscale, "
+                    "/edge, /blur and /control, GET /healthz. OMPC_SERVE_* "
+                    "environment keys configure it (e.g. OMPC_SERVE_PORT).",
+    ).parse_known_args(argv)
     cfg = load().serve
     httpd = serve(cfg)
     print(f"serving on {cfg.host}:{cfg.port}")

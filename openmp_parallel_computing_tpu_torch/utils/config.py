@@ -9,13 +9,11 @@ overrides, as the JAX package's ``load`` does. The JAX package's
 strip, which the port has no use for; an override that names it raises.
 
 ``MPCConfig`` has the same fields and defaults as the JAX package's (which
-documents the history behind each default).
-The port implements part of the JAX solver — the ``"sweep"`` backend with
-the multi-sweep kernel (``edge_refresh`` "admm"/"solve"), the per-sweep
-kernels (``"ilqr"``) or the one-launch solve (``full_solve=True`` with
-``"solve"``), the ``"fused"`` backend, the analytic or the gather edge
-sampler, and float32 storage — so any other value of a field that selects
-a code path raises at construction instead of being ignored. As in JAX,
+documents the history behind each default), and takes every value of the
+JAX solver's path fields: the four backends, the three edge refreshes,
+the three edge samplers and the two sampler storage types. Any other
+value raises at construction; JAX takes a ``sampler_dtype`` that is
+neither as float32 (ROADMAP quirk 7, not copied). As in JAX,
 ``full_solve`` with ``admm_iters_extra > 0`` constructs and raises when
 the sweep backend solves.
 """
@@ -46,15 +44,23 @@ class MPCConfig:
     r_ctrl: float = 1e-2              # control effort weight
     q_edge: float = 0.1               # edge-map attraction weight
     # "sweep": the sweep kernels; "fused": the batched Riccati backward
-    # kernel (csrc/riccati.cu) with eager PyTorch around it.
+    # kernel (csrc/riccati.cu) with eager PyTorch around it; "reference"
+    # and "assoc": the audit paths in plain PyTorch (autodiff edge
+    # gradient, an unrolled Cholesky, the sequential or the associative
+    # scan Riccati backward).
     backend: str = "sweep"
     # "admm": edge term linearized once per ADMM iteration; "solve": once
     # per solve at the warm-start trajectory; "ilqr": before every sweep.
     edge_refresh: str = "admm"
-    # "analytic": dense separable sampler (torch matmuls); "pallas" keeps
+    # "analytic": dense separable sampler (torch matmuls) with its
+    # gradient in closed form; "xla" keeps the JAX package's name: the
+    # same dense sampler, its gradient by torch.autograd; "pallas" keeps
     # the JAX package's name and selects the CUDA gather sampler
     # (models/mpc/sampler.py, csrc/sampler.cu).
     edge_sampler: str = "analytic"
+    # "float32" or "bfloat16": the storage type of the dense samplers'
+    # weights and mean-centred levels on the sweep backend (accumulation
+    # stays float32); other paths compute in float32, as in JAX.
     sampler_dtype: str = "float32"
     # Sweep backend with edge_refresh="solve": the whole ADMM loop and the
     # final rollout in one kernel launch (csrc/full_solve.cu).
@@ -69,17 +75,18 @@ class MPCConfig:
     dual_decay: float = 0.5           # damping on the carried duals
 
     def __post_init__(self):
-        unsupported = {
-            "backend": (self.backend, ("sweep", "fused")),
+        paths = {
+            "backend": (self.backend, ("sweep", "fused", "reference",
+                                       "assoc")),
             "edge_refresh": (self.edge_refresh, ("admm", "solve", "ilqr")),
-            "edge_sampler": (self.edge_sampler, ("analytic", "pallas")),
-            "sampler_dtype": (self.sampler_dtype, ("float32",)),
+            "edge_sampler": (self.edge_sampler, ("analytic", "xla",
+                                                 "pallas")),
+            "sampler_dtype": (self.sampler_dtype, ("float32", "bfloat16")),
         }
-        for name, (value, allowed) in unsupported.items():
+        for name, (value, allowed) in paths.items():
             if value not in allowed:
-                raise ValueError(
-                    f"MPCConfig.{name}={value!r} is not implemented by the "
-                    f"PyTorch port (supported: {allowed})")
+                raise ValueError(f"MPCConfig.{name}={value!r} is not one of "
+                                 f"{allowed}")
         if self.ilqr_iters < 1 or self.admm_iters < 1:
             raise ValueError("ilqr_iters and admm_iters must be >= 1")
         if self.admm_iters_extra < 0:

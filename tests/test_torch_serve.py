@@ -533,7 +533,8 @@ def test_config_load_matches_jax():
     with pytest.raises(AttributeError):      # the section the port lacks
         config.load({}, ["--kernel.passes=2"])
     with pytest.raises(ValueError):          # MPCConfig's checks run
-        config.load({"OMPC_MPC_BACKEND": "assoc"})
+        config.load({"OMPC_MPC_SAMPLER_DTYPE": "bf16"})
+    assert config.load({"OMPC_MPC_BACKEND": "assoc"}).mpc.backend == "assoc"
 
 
 def test_metrics_match_jax():

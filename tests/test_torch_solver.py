@@ -236,14 +236,23 @@ def test_layout_helpers_match_jax():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("backend", "reference"), ("backend", "assoc"),
-    ("sampler_dtype", "bfloat16"), ("edge_sampler", "xla"),
-    ("edge_refresh", "never")])
+    ("edge_refresh", "never"), ("sampler_dtype", "bf16")])
 def test_config_rejects_unimplemented_paths(field, value):
+    """A value that names no path raises, also where JAX takes it
+    (JAX reads a sampler_dtype other than "bfloat16" as float32)."""
     with pytest.raises(ValueError, match=field):
         MPCConfig(**{field: value})
     with pytest.raises(ValueError, match=field):
         convert.config(JaxConfig(**{field: value}))
+
+
+@pytest.mark.parametrize("field,value", [
+    ("backend", "reference"), ("backend", "assoc"),
+    ("sampler_dtype", "bfloat16"), ("edge_sampler", "xla")])
+def test_config_accepts_audit_paths(field, value):
+    ours = convert.config(JaxConfig(**{field: value}))
+    assert ours == MPCConfig(**{field: value})
+    assert getattr(ours, field) == value
 
 
 def test_config_defaults_match_jax():

@@ -234,6 +234,21 @@ Any failure raises and the script exits non-zero.
    on the reference backend over a (2, 1) mesh of logical shards of
    cuda:0, u0 within AUDIT_SHARD_TOL of ``_solve_single`` shard by shard
    and no gate. Its lines start ``[audit]``.
+15. The bench studies (``bench.ceiling_probe``, ``trace_study``,
+   ``full_solve_study``, ``sampler_study``, ``sampler_kernel_study``,
+   ``dual_budget_study``, ``sampler_dtype_study``, ``pod_anchor``,
+   ``pod_model``, ``relax_study``, ``adaptive_budget_study``,
+   ``sampler_dtype_quality``), cut in depth: each timing study once at H=20,
+   m=8, 1080p, B=STUDY_BATCH (the ceiling probe also at 256), 8 steps a
+   window, STUDY_TRIALS trial, its rows printed with the card's name and
+   power limit; the trace study's tables must give the multi_sweep kernel
+   device time in every window, edge_pyramid in the per-step perception
+   window and the zero-gain forward sweep in the STUDY_BIG window; the pod model's footprint by axis as phase 12's
+   (the band psum's bytes on the model axis, at most 64 B on the data
+   axis). The quality studies at QUALITY_RUN on the card against the
+   CPU (``quality_close``). The studies' launches of rows 1, 2, 5, 9, 10
+   and 13 (``launches_studies``), each at least one. Every row goes to
+   chiprun_out/studies.json. Its lines start ``[studies]``.
 
 The last three lines of standard output are the card's name and power
 limit, a JSON object describing each kernel, and
@@ -242,7 +257,9 @@ limit, a JSON object describing each kernel, and
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import io
 import json
 import re
 import subprocess
@@ -532,6 +549,24 @@ AUDIT_PATHS = {   # label -> MPCConfig fields
     "sweep/bf16": dict(sampler_dtype="bfloat16"),
     "sweep/xla/bf16": dict(edge_sampler="xla", sampler_dtype="bfloat16"),
 }
+# The bench studies (phase 15), cut in depth: each timing study once at
+# the main path's width (H, M, 1080p) at STUDY_BATCH, 8 steps a window
+# (the studies' floor), STUDY_TRIALS trial; the ceiling probe also at 256;
+# the trace study's windows STUDY_TRACE_STEPS long, its big window at
+# STUDY_BIG (the zero-gain forward sweep's regime); the pod anchor at 1
+# and 2 logical shards of cuda:0, STUDY_BATCH / 2 a shard; the pod
+# model's footprint at POD's mesh. The quality studies at QUALITY_RUN on
+# the card and on the CPU, every cost and error within AUDIT_CROSS_COST
+# (a percentage of a cost within its 1e-3 in percent), the gate's
+# decisions equal.
+STUDY_BATCH = 4096
+STUDY_TRIALS = 1
+STUDY_BIG = 16384
+STUDY_TRACE_STEPS = (10, 3)          # (B=256 windows, the big window)
+QUALITY_RUN = dict(scenarios=8, frames=5)
+STUDY_POD_SCENARIOS = 512           # the JAX pod model's traced batch
+QUALITY_GATES = ("frames_fired", "trip_rate", "last_fired_frame",
+                 "final_resid_gt_tol_frames")
 # The headline bench (phase 7), cut in depth: bench.py's batches, fewer
 # steps and trials.
 HEADLINE_RUN = dict(scenarios=4096, steps=10, scenarios_small=256,
@@ -4389,6 +4424,160 @@ def phase_audit(frames, rows: dict) -> None:
         f", multi_sweep {rows['multi_sweep']['launches_audit']}")
 
 
+# -- phase 15: the bench studies ---------------------------------------------
+
+def quality_close(label: str, card, cpu, path: str = "") -> None:
+    """The quality study's output on the card against the CPU's: numbers
+    within AUDIT_CROSS_COST (``*_pct`` fields within 0.1, the same bound
+    in percent), the gate's decisions and everything else equal."""
+    if isinstance(cpu, dict):
+        for k, v in cpu.items():
+            if k == "methodology":
+                continue
+            if k in QUALITY_GATES and card[k] != v:
+                raise AssertionError(f"[studies] {label}{path}.{k}: card "
+                                     f"{card[k]} != CPU {v}")
+            quality_close(label, card[k], v, f"{path}.{k}")
+    elif isinstance(cpu, list):
+        for i, (a, b) in enumerate(zip(card, cpu, strict=True)):
+            quality_close(label, a, b, f"{path}[{i}]")
+    elif isinstance(cpu, float):
+        tol = (dict(rtol=0.0, atol=100 * AUDIT_CROSS_COST["rtol"])
+               if path.endswith("_pct") else AUDIT_CROSS_COST)
+        if abs(card - cpu) > tol["atol"] + tol["rtol"] * abs(cpu):
+            raise AssertionError(f"[studies] {label}{path}: card {card} "
+                                 f"!= CPU {cpu}")
+    elif card != cpu:
+        raise AssertionError(f"[studies] {label}{path}: card {card} != CPU "
+                             f"{cpu}")
+
+
+def study_quality(out: dict) -> None:
+    """The three quality studies at QUALITY_RUN on the card and on the
+    CPU, held to each other (``quality_close``)."""
+    from openmp_parallel_computing_tpu_torch.bench import (
+        adaptive_budget_study, relax_study, sampler_dtype_quality)
+
+    n, f = QUALITY_RUN["scenarios"], QUALITY_RUN["frames"]
+    studies = {
+        "relax_study.run": lambda d: relax_study.run(
+            n, "solve", (1.0, 1.6), [(1, 2)], baseline_iters=(1, 3),
+            device=d),
+        "relax_study.run_loop": lambda d: relax_study.run_loop(
+            n, f, "solve", [(1, 2, 1.3, True)], horizon=H, device=d),
+        "adaptive_budget_study": lambda d: adaptive_budget_study.run_loop(
+            n, f, H, (0.1,), device=d),
+        "sampler_dtype_quality": lambda d: sampler_dtype_quality.run_loop(
+            n, f, H, device=d),
+    }
+    for label, fn in studies.items():
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):   # rows logged later
+            card = fn("cuda")
+            t_card = time.perf_counter() - t0
+            cpu = fn("cpu")
+        quality_close(label, card, cpu)
+        out[label] = card
+        log(f"[studies] {label} ({n} scenarios, {f} frames, H={H}): card "
+            f"{t_card:.1f} s, the CPU {time.perf_counter() - t0 - t_card:.1f}"
+            f" s; card within the audit bounds of the CPU, the gate's "
+            f"decisions equal")
+
+
+def phase_studies(rows: dict) -> None:
+    """The bench studies on the card (docstring item 15)."""
+    import torch
+
+    from openmp_parallel_computing_tpu_torch import ops
+    from openmp_parallel_computing_tpu_torch.bench import (
+        ceiling_probe, dual_budget_study, full_solve_study, pod_anchor,
+        pod_model, sampler_dtype_study, sampler_kernel_study, sampler_study,
+        trace_study)
+
+    smi = nvidia_smi_line()
+    t_phase = time.perf_counter()
+    out_path = ROOT / "chiprun_out" / "studies.json"
+    out_path.parent.mkdir(parents=True, exist_ok=True)
+    B, T = STUDY_BATCH, STUDY_TRIALS
+    out = {"device": smi}
+    reset_counts()
+    ops.edge_pipeline.launches = 0
+    timing = {
+        "ceiling_probe": lambda: ceiling_probe.run([B, 256], 0, H, T,
+                                                   device="cuda"),
+        "trace_study": lambda: trace_study.run_study(
+            STUDY_BIG, *STUDY_TRACE_STEPS, device="cuda"),
+        "full_solve_study": lambda: full_solve_study.run(
+            [B], 0, T, "xla", device="cuda"),
+        "sampler_study": lambda: sampler_study.run(
+            [B], [], 0, T, ("analytic", "xla", "pallas"), device="cuda"),
+        "sampler_kernel_study": lambda: sampler_kernel_study.run(
+            [(H + 1, M, B)], 10, T, device="cuda"),
+        "dual_budget_study": lambda: dual_budget_study.run(
+            [B], [dual_budget_study.parse_arm(a)
+                  for a in ("5:cold", "5", "3", "3:2:0.1")], 8, T,
+            device="cuda"),
+        "sampler_dtype_study": lambda: sampler_dtype_study.run(
+            [B], [H], ["float32", "bfloat16"], 8, T, device="cuda"),
+        "pod_anchor": lambda: pod_anchor.run([1, 2], B // 2, H, T,
+                                             device="cuda"),
+        "pod_model": lambda: pod_model.trace_footprint(
+            *POD["mesh"], STUDY_POD_SCENARIOS, POD["horizon"],
+            device="cuda")[0],
+    }
+    for label, fn in timing.items():
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):   # rows logged below
+            out[label] = fn()
+        log(f"[studies] {label}: {time.perf_counter() - t0:.1f} s ({smi})")
+    study_quality(out)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    launches["edge"] = ops.edge_pipeline.launches
+    out["launches"] = launches
+    out_path.write_text(json.dumps(out, indent=1))
+
+    traced = out["trace_study"]
+    # The fixed-frame window launches edge_pyramid once, and in this
+    # process (the first of a call) the profiler can miss a window's first
+    # edge_pyramid event; the frames window launches it every step.
+    for name, kernels in (
+            ("headline_fixed_frame_256", ("multi_sweep_kernel",)),
+            ("headline_frames_256", ("multi_sweep_kernel",
+                                     "edge_pyramid_kernel")),
+            (f"big_batch_{STUDY_BIG}", ("multi_sweep_kernel",
+                                        "forward_sweep_kernel"))):
+        got = {r["op"]: r["total_us"] for r in traced[name]["ops"]}
+        if not all(got.get(k, 0) > 0 for k in kernels):
+            raise AssertionError(f"[studies] trace {name}: {got} lacks device "
+                                 f"time of {kernels}")
+    footprint = out["pod_model"]["per_axis"]
+    if footprint.get("model") != 44168 or footprint.get("data", 0) > 64:
+        raise AssertionError(f"[studies] the pod footprint by axis "
+                             f"{footprint}")
+    counts = {"edge_pyramid": launches["edge_pyramid"],
+              "multi_sweep": launches["multi_sweep"],
+              "edge": launches["edge"],
+              "sampler": launches["sampler_vg"] + launches["sampler_vals"],
+              "forward_sweep": launches["forward_sweep"],
+              "full_solve": launches["full_solve"]}
+    for name, n in counts.items():
+        if not n:
+            raise AssertionError(f"[studies] kernel {name} was not launched "
+                                 f"by the studies: {launches}")
+        rows[name]["launches_studies"] = n
+    for name, value in out.items():
+        if name not in ("trace_study", "launches", "device"):
+            log(f"[studies] {name}: {json.dumps(value)[:1500]}")
+    for name, tbl in traced.items():
+        log(f"[studies] trace {name}: busy {tbl['device_total_us']} us of "
+            f"{tbl['wall_us']} us wall ({tbl['busy_share']}), "
+            + ", ".join(f"{r['op']} {r['total_us']} us x{r['count']} "
+                        f"({r['share']})" for r in tbl["ops"]))
+    log(f"[studies] launches_studies {counts}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s; rows in {out_path} ({smi})")
+
+
 def main() -> int:
     if not (PKG / "__init__.py").is_file():
         raise SystemExit(f"chip_smoke: the port package is missing beside "
@@ -4435,7 +4624,8 @@ def main() -> int:
             ("serve", lambda: phase_serve(frames, rows)),
             ("distributed", lambda: phase_distributed(frames, rows)),
             ("dispatch", lambda: phase_dispatch(frames, rows)),
-            ("audit", lambda: phase_audit(frames, rows))):
+            ("audit", lambda: phase_audit(frames, rows)),
+            ("studies", lambda: phase_studies(rows))):
         t0 = time.perf_counter()
         run()
         log(f"[time] phase {name}: {time.perf_counter() - t0:.1f} s")

@@ -37,6 +37,34 @@ def check_finite(u0: torch.Tensor) -> None:
         raise RuntimeError("the final controls are not finite")
 
 
+def require_card(what: str) -> None:
+    """Raise unless a CUDA card is attached: the timing studies' command
+    lines measure the card and never fall back to the CPU."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"no CUDA device: {what} runs on a GPU")
+
+
+def window_rates(window, scen, batch: int, steps: int,
+                 trials: int) -> list[float]:
+    """Solves/s of ``trials`` windows of ``steps`` closed-loop steps at
+    ``batch``, after two warm windows: the first adds the dual carry to
+    the scenario. ``window(scen)`` runs one window and returns
+    ``(u0s, costs, scen')``; each window ends in ``fetch`` of its last
+    controls, which depend on every step before them, and the final
+    controls go through ``check_finite``."""
+    for _ in range(2):
+        u0s, _, scen = window(scen)
+        fetch(u0s[-1])
+    vals = []
+    for _ in range(trials):
+        t0 = time.perf_counter()
+        u0s, _, scen = window(scen)
+        last = fetch(u0s[-1])
+        vals.append(batch * steps / (time.perf_counter() - t0))
+    check_finite(last)
+    return vals
+
+
 def chain_throughput(mpc, frame, batch: int, reps: int,
                      trials: int = 1, seed: int = 0) -> list[float]:
     """Measure ``trials`` back-to-back warm-start chains of ``reps`` full

@@ -19,7 +19,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import time
 
 
 def measure(batch: int, n_frames: int, frame, trials: int,
@@ -29,8 +28,7 @@ def measure(batch: int, n_frames: int, frame, trials: int,
     adds the dual carry to the scenario)."""
     import torch
 
-    from openmp_parallel_computing_tpu_torch.bench._chain import (
-        check_finite, fetch)
+    from openmp_parallel_computing_tpu_torch.bench._chain import window_rates
     from openmp_parallel_computing_tpu_torch.models.mpc import VisualServoMPC
     from openmp_parallel_computing_tpu_torch.utils.config import MPCConfig
 
@@ -38,17 +36,8 @@ def measure(batch: int, n_frames: int, frame, trials: int,
                     edge_refresh=edge_refresh)
     mpc = VisualServoMPC(cfg, frame.device)
     scen = mpc.random_scenarios(batch, torch.Generator().manual_seed(0))
-    for _ in range(2):
-        u0s, _, scen = mpc.receding_horizon(frame, scen, n_frames)
-        fetch(u0s[-1])
-
-    vals = []
-    for _ in range(trials):
-        t0 = time.perf_counter()
-        u0s, _, scen = mpc.receding_horizon(frame, scen, n_frames)
-        last = fetch(u0s[-1])        # depends on every step of the window
-        vals.append(batch * n_frames / (time.perf_counter() - t0))
-    check_finite(last)
+    vals = window_rates(lambda s: mpc.receding_horizon(frame, s, n_frames),
+                        scen, batch, n_frames, trials)
     sps = max(vals)
     return {"batch": batch, "frames_per_window": n_frames,
             "ms_per_step": round(batch / sps * 1e3, 3),

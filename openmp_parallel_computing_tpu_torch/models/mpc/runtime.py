@@ -25,6 +25,7 @@ from openmp_parallel_computing_tpu_torch.models.mpc.solver import (
     Scenario,
     VisualServoMPC,
     _shift_tail_zero,
+    span,
 )
 from openmp_parallel_computing_tpu_torch.utils import checkpoint
 from openmp_parallel_computing_tpu_torch.utils.config import MPCConfig
@@ -81,16 +82,21 @@ class MPCRuntime:
 
     def step(self, frame: torch.Tensor) -> torch.Tensor:
         """One planar (C, H, W) u8 frame in -> the first controls (B, 6)
-        out; warm-starts the next frame with the plan shifted one step."""
+        out; warm-starts the next frame with the plan shifted one step. The
+        ``mpc.step`` span, carrying the frame index, while a profiler
+        records."""
         if self.scen is None:
             raise RuntimeError("call reset() first")
-        u0, sol = self.mpc.control_step(frame, self.scen)
-        y0 = None
-        if sol.dual is not None:
-            y0 = self.cfg.dual_decay * _shift_tail_zero(sol.dual, 1)
-        self.scen = Scenario(p0=sol.ps[:, 1].contiguous(),
-                             target=self.scen.target, depth=self.scen.depth,
-                             us0=_shift_tail_zero(sol.us, 1), y0=y0)
+        with span("mpc.step", on=frame, step=self.frame_idx):
+            u0, sol = self.mpc.control_step(frame, self.scen)
+            with span("mpc.advance", on=frame):
+                y0 = None
+                if sol.dual is not None:
+                    y0 = self.cfg.dual_decay * _shift_tail_zero(sol.dual, 1)
+                self.scen = Scenario(p0=sol.ps[:, 1].contiguous(),
+                                     target=self.scen.target,
+                                     depth=self.scen.depth,
+                                     us0=_shift_tail_zero(sol.us, 1), y0=y0)
         self.frame_idx += 1
         if self.ckpt_dir is not None:
             self.save_checkpoint()

@@ -68,7 +68,19 @@ receding-horizon loops. The batch is not padded.
 The adaptive-budget gate is a host branch on ``resid.max().item()``: exact
 (the same predicate JAX evaluates inside ``lax.cond``), and settled steps
 skip the extra iterations' launches, at the cost of one device-to-host
-sync per solve.
+sync per solve. Every backend counts its gate into the metrics registry:
+``mpc.gate_checks`` a solve that evaluates it, ``mpc.gate_fired`` a solve
+whose extra iterations run.
+
+While a ``torch.profiler`` records, the step records the spans of
+``SPANS`` (``utils.metrics.Metrics.span``: a range in the profiler's trace
+and a record with host and device times): ``mpc.step`` a receding-horizon
+step (``_receding``, ``_receding_lanes``, ``MPCRuntime.step``), and inside
+it on the sweep backend the perception, the lanes conversions, the
+rollouts, the edge linearizations, each ADMM iteration's sweep and update,
+the gate, the final cost and the state's advance. No span opens inside a
+per-time-step loop. With no profiler recording a span site costs one
+predicate.
 """
 
 from __future__ import annotations
@@ -87,6 +99,13 @@ from openmp_parallel_computing_tpu_torch.models.mpc import (
 )
 from openmp_parallel_computing_tpu_torch.models.mpc.dynamics import CONTROL_DIM
 from openmp_parallel_computing_tpu_torch.utils.config import MPCConfig
+from openmp_parallel_computing_tpu_torch.utils.metrics import registry
+
+# The spans the step records while a profiler records (module docstring).
+SPANS = ("mpc.step", "mpc.perception", "mpc.layout", "mpc.rollout",
+         "mpc.edge", "mpc.sweep", "mpc.admm_update", "mpc.gate",
+         "mpc.final_cost", "mpc.advance")
+span = registry.span
 
 # Nominal-rollout form threshold (scenarios): up to this batch the rollout
 # is a loop of _dyn_step, above it the zero-gain forward_sweep kernel. The
@@ -142,11 +161,23 @@ def _adaptive_extra(carry, us: torch.Tensor, z: torch.Tensor,
                     cfg: MPCConfig, run_extra):
     """Adaptive-budget gate: when the batch-max primal residual after the
     base iterations exceeds ``cfg.admm_tol``, return ``run_extra(carry)``,
-    else the carry unchanged. A host branch (one sync)."""
-    resid = (us - z).abs().max()
-    if resid.item() > cfg.admm_tol:
+    else the carry unchanged. A host branch (one sync), counted in
+    ``mpc.gate_checks`` and ``mpc.gate_fired``; the ``mpc.gate`` span
+    holds the residual and the wait for it."""
+    with span("mpc.gate", on=us):
+        fire = (us - z).abs().max().item() > cfg.admm_tol
+    registry.inc("mpc.gate_checks")
+    if fire:
+        registry.inc("mpc.gate_fired")
         return run_extra(carry)
     return carry
+
+
+def _perceive(frame: torch.Tensor):
+    """A step's perception: the cost pyramid of a planar u8 frame, in the
+    ``mpc.perception`` span."""
+    with span("mpc.perception", on=frame):
+        return costs.build_cost_pyramid_from_frame(frame)
 
 
 class Scenario(NamedTuple):
@@ -249,12 +280,13 @@ class _SweepLanes:
     def edge_vals(self, ps_l: torch.Tensor) -> torch.Tensor:
         """Pyramid edge cost along a lanes trajectory -> (h+1, B)."""
         m = self.m
-        if self.gather():
-            return sampler.edge_vals_lanes(self.pyramid, ps_l[:, :m],
-                                           ps_l[:, m:], *self.shape)
-        return costs.edge_cost_pyramid_xy(self.pyramid, ps_l[:, :m],
-                                          ps_l[:, m:], *self.shape,
-                                          dtype=self.sampler_dt)
+        with span("mpc.edge", on=ps_l):
+            if self.gather():
+                return sampler.edge_vals_lanes(self.pyramid, ps_l[:, :m],
+                                               ps_l[:, m:], *self.shape)
+            return costs.edge_cost_pyramid_xy(self.pyramid, ps_l[:, :m],
+                                              ps_l[:, m:], *self.shape,
+                                              dtype=self.sampler_dt)
 
     def edge_grads(self, ps_l: torch.Tensor) -> torch.Tensor:
         """Gradient of the summed edge cost along a lanes trajectory,
@@ -266,19 +298,20 @@ class _SweepLanes:
         if not self.qe:
             return torch.zeros_like(ps_l)
         m = self.m
-        if self.gather():
-            _, g = sampler.sample(self.pyramid, ps_l[:, :m], ps_l[:, m:],
-                                  *self.shape, grads=True)
-            return g * (1.0 / (m * len(self.pyramid)))
-        if self.cfg.edge_sampler == "xla" and not self.batched:
-            with torch.enable_grad():
-                p = ps_l.detach().requires_grad_()
-                (g,) = torch.autograd.grad(self.edge_vals(p).sum(), p)
-            return g
-        _, gx, gy = costs.edge_vg_pyramid_xy(self.pyramid, ps_l[:, :m],
-                                             ps_l[:, m:], *self.shape,
-                                             dtype=self.sampler_dt)
-        return torch.cat([gx, gy], dim=1)
+        with span("mpc.edge", on=ps_l):
+            if self.gather():
+                _, g = sampler.sample(self.pyramid, ps_l[:, :m], ps_l[:, m:],
+                                      *self.shape, grads=True)
+                return g * (1.0 / (m * len(self.pyramid)))
+            if self.cfg.edge_sampler == "xla" and not self.batched:
+                with torch.enable_grad():
+                    p = ps_l.detach().requires_grad_()
+                    (g,) = torch.autograd.grad(self.edge_vals(p).sum(), p)
+                return g
+            _, gx, gy = costs.edge_vg_pyramid_xy(self.pyramid, ps_l[:, :m],
+                                                 ps_l[:, m:], *self.shape,
+                                                 dtype=self.sampler_dt)
+            return torch.cat([gx, gy], dim=1)
 
     # -- solve ---------------------------------------------------------------
 
@@ -298,17 +331,19 @@ class _SweepLanes:
         ``ROLLOUT_SCAN_MAX_BP`` scenarios, else candidate 0 of a zero-gain
         ``forward_sweep`` launch (the JAX package's two forms; the ADMM
         pair only enters the discarded costs)."""
-        if us_l.shape[-1] <= ROLLOUT_SCAN_MAX_BP:
-            return self.rollout(p0_l, us_l, izd_l)
-        zeros = torch.zeros_like
-        h, c, B = us_l.shape
-        n = p0_l.shape[0]
-        ps0 = p0_l.new_zeros((h + 1, n, B))
-        K0 = p0_l.new_zeros((h, c, n, B))
-        ps_c, _, _ = sweep.forward_sweep(p0_l, ps0, us_l, K0, zeros(us_l),
-                                         z_l, y_l, zeros(ps0), target_l,
-                                         izd_l, **self.kw)
-        return ps_c[:, 0].contiguous()       # the kernels take whole arrays
+        with span("mpc.rollout", on=p0_l):
+            if us_l.shape[-1] <= ROLLOUT_SCAN_MAX_BP:
+                return self.rollout(p0_l, us_l, izd_l)
+            zeros = torch.zeros_like
+            h, c, B = us_l.shape
+            n = p0_l.shape[0]
+            ps0 = p0_l.new_zeros((h + 1, n, B))
+            K0 = p0_l.new_zeros((h, c, n, B))
+            ps_c, _, _ = sweep.forward_sweep(p0_l, ps0, us_l, K0,
+                                             zeros(us_l), z_l, y_l,
+                                             zeros(ps0), target_l, izd_l,
+                                             **self.kw)
+            return ps_c[:, 0].contiguous()   # the kernels take whole arrays
 
     def solve(self, p0_l, target_l, izd_l, us_l, y0_l=None):
         """Full ADMM + iLQR solve in lanes layout.
@@ -337,15 +372,18 @@ class _SweepLanes:
             us_l, ps_l, z_l, y_l, g_solve = carry
             g_fix = (self.edge_grads(ps_l) if cfg.edge_refresh == "admm"
                      else g_solve)
-            if self.use_multi:
-                ps_l, us_l = sweep.multi_sweep(p0_l, ps_l, us_l, z_l, y_l,
-                                               g_fix, target_l, izd_l,
-                                               sweeps=cfg.ilqr_iters, **kw)
-            else:
-                for _ in range(cfg.ilqr_iters):
-                    us_l, ps_l = ilqr_once(us_l, ps_l, z_l, y_l, g_fix)
-            z_l, y_l = sweep.admm_update(us_l, z_l, y_l, cfg.admm_relax,
-                                         cfg.u_limit)
+            with span("mpc.sweep", on=p0_l):
+                if self.use_multi:
+                    ps_l, us_l = sweep.multi_sweep(p0_l, ps_l, us_l, z_l, y_l,
+                                                   g_fix, target_l, izd_l,
+                                                   sweeps=cfg.ilqr_iters,
+                                                   **kw)
+                else:
+                    for _ in range(cfg.ilqr_iters):
+                        us_l, ps_l = ilqr_once(us_l, ps_l, z_l, y_l, g_fix)
+            with span("mpc.admm_update", on=p0_l):
+                z_l, y_l = sweep.admm_update(us_l, z_l, y_l, cfg.admm_relax,
+                                             cfg.u_limit)
             return us_l, ps_l, z_l, y_l, g_solve
 
         def run(carry, iters):
@@ -385,30 +423,35 @@ class _SweepLanes:
     def final_cost(self, z_l, ps_final_l, target_l) -> torch.Tensor:
         """Unaugmented trajectory cost per scenario -> (B,)."""
         cfg = self.cfg
-        track = cfg.q_track * ((ps_final_l - target_l[None]) ** 2).sum(dim=(0, 1))
-        ctrl = cfg.r_ctrl * (z_l ** 2).sum(dim=(0, 1))
-        if self.qe:
-            edge = self.qe * self.edge_vals(ps_final_l).sum(dim=0)
-        else:
-            edge = torch.zeros_like(track)
-        return track + ctrl + edge
+        with span("mpc.final_cost", on=z_l):
+            track = cfg.q_track * ((ps_final_l - target_l[None]) ** 2).sum(
+                dim=(0, 1))
+            ctrl = cfg.r_ctrl * (z_l ** 2).sum(dim=(0, 1))
+            if self.qe:
+                edge = self.qe * self.edge_vals(ps_final_l).sum(dim=0)
+            else:
+                edge = torch.zeros_like(track)
+            return track + ctrl + edge
 
 
 def _solve_batch_sweep(pyramid, shape, scen: Scenario,
                        cfg: MPCConfig) -> Solution:
     """Interleaved-API wrapper around :meth:`_SweepLanes.solve`."""
     sw = _SweepLanes(pyramid, shape, cfg)
-    p0_l, target_l, izd_l, us_l = sw.lanes_scenario(scen)
-    y0_l = sw.lanes(scen.y0, 3) if scen.y0 is not None else None
+    with span("mpc.layout", on=scen.p0):
+        p0_l, target_l, izd_l, us_l = sw.lanes_scenario(scen)
+        y0_l = sw.lanes(scen.y0, 3) if scen.y0 is not None else None
     z_l, ps_final_l, resid_l, y_l = sw.solve(p0_l, target_l, izd_l, us_l,
                                              y0_l)
-    return Solution(
-        us=sw.unlanes(z_l, 2),
-        ps=_from_split(sw.unlanes(ps_final_l, 2)),
-        cost=sw.final_cost(z_l, ps_final_l, target_l),
-        primal_residual=resid_l,
-        dual=sw.unlanes(y_l, 2) if y0_l is not None else None,
-    )
+    cost = sw.final_cost(z_l, ps_final_l, target_l)
+    with span("mpc.layout", on=z_l):
+        return Solution(
+            us=sw.unlanes(z_l, 2),
+            ps=_from_split(sw.unlanes(ps_final_l, 2)),
+            cost=cost,
+            primal_residual=resid_l,
+            dual=sw.unlanes(y_l, 2) if y0_l is not None else None,
+        )
 
 
 def _solve_batch_fused(pyramid, shape, scen: Scenario,
@@ -707,8 +750,7 @@ class VisualServoMPC:
         """Planar (C, H, W) u8 frame -> (u0 (B, 6), Solution): perception
         kernel, pyramid, batched solve."""
         self._check(frame, *scen)
-        pyramid = costs.build_cost_pyramid_from_frame(frame)
-        sol = self._solve_pyramid(pyramid, frame.shape[1:], scen)
+        sol = self._solve_pyramid(_perceive(frame), frame.shape[1:], scen)
         return sol.us[:, 0], sol
 
     @torch.no_grad()
@@ -741,11 +783,13 @@ class VisualServoMPC:
         """One receding-horizon step: the first control applied to the
         true dynamics, the plan shifted, the decayed duals shifted when the
         carry is on. Returns (scenario', u0)."""
-        u0 = sol.us[:, 0]
-        y0 = (self.cfg.dual_decay * _shift_tail_zero(sol.dual, 1)
-              if s.y0 is not None else None)
-        return s._replace(p0=dynamics.step(s.p0, u0, s.depth, self.cfg.dt),
-                          us0=_shift_tail_zero(sol.us, 1), y0=y0), u0
+        with span("mpc.advance", on=s.p0):
+            u0 = sol.us[:, 0]
+            y0 = (self.cfg.dual_decay * _shift_tail_zero(sol.dual, 1)
+                  if s.y0 is not None else None)
+            return s._replace(p0=dynamics.step(s.p0, u0, s.depth,
+                                               self.cfg.dt),
+                              us0=_shift_tail_zero(sol.us, 1), y0=y0), u0
 
     def _receding(self, pyramid_at, shape, scen: Scenario, n_steps: int):
         """Receding-horizon loop; ``pyramid_at(step)`` gives each step's
@@ -757,8 +801,9 @@ class VisualServoMPC:
         s = self._seed_duals(scen)
         u0s, cost_seq = [], []
         for idx in range(n_steps):
-            sol = self._solve_pyramid(pyramid_at(idx), shape, s)
-            s, u0 = self._advance(s, sol)
+            with span("mpc.step", on=s.p0, step=idx):
+                sol = self._solve_pyramid(pyramid_at(idx), shape, s)
+                s, u0 = self._advance(s, sol)
             u0s.append(u0)
             cost_seq.append(sol.cost)
         return torch.stack(u0s), torch.stack(cost_seq), s
@@ -780,16 +825,18 @@ class VisualServoMPC:
         y_l = lanes(y0, 3) if dual_carry else None
         u0s, cost_seq = [], []
         for idx in range(n_steps):
-            sw = _SweepLanes(pyramid_at(idx), shape, cfg)
-            z_l, ps_final_l, _, y_out = sw.solve(p0_l, target_l, izd_l,
-                                                 us_l, y_l)
-            cost_seq.append(sw.final_cost(z_l, ps_final_l, target_l))
-            u0_l = z_l[0]                               # (c, B)
-            u0s.append(u0_l)
-            p0_l = sweep._dyn_step(p0_l, u0_l, izd_l, cfg.dt, sw.m)
-            us_l = _shift_tail_zero(z_l, 0)
-            y_l = (cfg.dual_decay * _shift_tail_zero(y_out, 0)
-                   if dual_carry else None)
+            with span("mpc.step", on=p0_l, step=idx):
+                sw = _SweepLanes(pyramid_at(idx), shape, cfg)
+                z_l, ps_final_l, _, y_out = sw.solve(p0_l, target_l, izd_l,
+                                                     us_l, y_l)
+                cost_seq.append(sw.final_cost(z_l, ps_final_l, target_l))
+                with span("mpc.advance", on=p0_l):
+                    u0_l = z_l[0]                           # (c, B)
+                    u0s.append(u0_l)
+                    p0_l = sweep._dyn_step(p0_l, u0_l, izd_l, cfg.dt, sw.m)
+                    us_l = _shift_tail_zero(z_l, 0)
+                    y_l = (cfg.dual_decay * _shift_tail_zero(y_out, 0)
+                           if dual_carry else None)
         scen_out = scen._replace(
             p0=_from_split(unlanes(p0_l, 1)),
             us0=unlanes(us_l, 2),
@@ -819,6 +866,5 @@ class VisualServoMPC:
         Returns ``(u0s (n_steps, B, c), costs (n_steps, B), scen')``."""
         self._check(frames, *scen)
         n_ring = frames.shape[0]
-        return self._receding(
-            lambda i: costs.build_cost_pyramid_from_frame(frames[i % n_ring]),
-            frames.shape[2:], scen, n_steps)
+        return self._receding(lambda i: _perceive(frames[i % n_ring]),
+                              frames.shape[2:], scen, n_steps)

@@ -1,7 +1,7 @@
 """Timing and profiling utilities (port of
 ``openmp_parallel_computing_tpu.utils.timing``).
 
-The reference's three timing mechanisms, on the card:
+Two of the reference's timing mechanisms, on the card:
 
 - kernel-region timing (``clock_gettime`` around the compute loop,
   ``monolithic/src/main.c:31-39``) -> ``device_time``: wall-clock around a
@@ -9,10 +9,11 @@ The reference's three timing mechanisms, on the card:
   first use) excluded;
 - process-level ``/usr/bin/time`` stats -> ``Measurement``, mean and
   sigma over runs as the bench scripts' awk loop accumulates them
-  (``bench_and_plot_monolithic.sh:50-62``);
-- service spans (``X-Elapsed``) -> ``Stopwatch`` for host-side spans.
+  (``bench_and_plot_monolithic.sh:50-62``).
 
-``trace`` wraps ``torch.profiler`` and writes a Chrome trace.
+``trace`` wraps ``torch.profiler`` and writes a Chrome trace; while it
+records, the program's spans (``utils.metrics.Metrics.span``) appear in
+it as ``user_annotation`` ranges.
 """
 
 from __future__ import annotations
@@ -69,18 +70,6 @@ class Measurement:
     @property
     def throughput(self) -> float:
         return 1.0 / self.mean_s if self.mean_s > 0 else math.inf
-
-
-class Stopwatch:
-    """Host-side span timer (the ``X-Elapsed`` analogue)."""
-
-    def __enter__(self):
-        self.t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        self.elapsed_s = time.perf_counter() - self.t0
-        return False
 
 
 def device_time(fn: Callable, *args, runs: int = 5, warmup: int = 1,

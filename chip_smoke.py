@@ -12,7 +12,8 @@ Any failure raises and the script exits non-zero.
    seconds it took and each kernel's ptxas register/spill report; fails
    if ptxas reports spill stores for an instance (m = 2, 4, 8) of the
    group-sweep kernels (multi_sweep, full_solve, and the unified, backward
-   and forward kernels of csrc/sweep.cu), (n = 4, 8, 16) of the batched
+   and forward kernels of csrc/sweep.cu) or for the rollout kernel of
+   csrc/sweep.cu, (n = 4, 8, 16) of the batched
    Riccati kernel, or of the row-streaming stencils (conv3x3's twelve
    type/mode instances and its blur instance; the edge pass for C = 1
    (also Sobel), 3, 4; the perception kernel for one and three planes
@@ -48,10 +49,18 @@ Any failure raises and the script exits non-zero.
    MULTI_SWEEP_TOL at MULTI_SHAPES and on the NaN batch, the two forms
    bit-equal, also at LONG_H_FITS; at TOO_LONG_H (where the wrapper takes
    the global form) the backward within MULTI_SWEEP_TOL and the unified
-   sweep within the larger of that and its plain version's own card-vs-CPU
-   difference; the forward sweep within MULTI_SWEEP_TOL at MULTI_SHAPES
+   sweep held to the float64 plain version within the larger of that and
+   LONG_H_LOSS times the float32 plain version's own distance from it
+   (on the card and on the CPU); the forward sweep within MULTI_SWEEP_TOL at MULTI_SHAPES
    and on the NaN batch, and backward + forward against unified; rows
-   10-12 timed at B=4096 and 256. The image kernels
+   10-12 timed at B=4096 and 256; the rollout kernel against its plain
+   version (the ``_dyn_step`` loop) on the card within ROLLOUT_TOL at
+   ROLLOUT_HORIZONS x ROLLOUT_FEATURES x ROLLOUT_BATCHES with controls
+   over the whole box, at H=50 on states at the clip and on NaN controls
+   (NaNs where the plain version has them), the witness beyond the box
+   logged (ROLLOUT_WITNESS), bit-equal to candidate 0 of the zero-gain forward sweep at m=8 on
+   ROLLOUT_SAME_BATCHES, timed (CUDA events and the profiler) at m=8 on
+   ROLLOUT_TIMED. The image kernels
    (grayscale, sobel, edge, conv3x3) bit-exact with their plain versions
    on the ring, the half-mega and 6MP photos, odd and 1-3-row frames and
    grey frames (C = 1) of them, at passes 1 and 3, both borders and every
@@ -78,7 +87,9 @@ Any failure raises and the script exits non-zero.
 4. The main MPC path: ``VisualServoMPC.receding_horizon_frames`` at H=20,
    m=8, edge_refresh="solve" on the 8-frame 1080p ring at B=4096 and
    B=256 (solves/s), launch counts of every MPC kernel checked against
-   the steps and gate decisions, outputs finite, and a 32-scenario loop
+   the steps and gate decisions (two rollout launches a solve, read from
+   the metrics registry's ``mpc.rollout_kernel``), outputs
+   finite, and a 32-scenario loop
    compared between the card and the port's CPU path: step by step from
    the same state within STEP_TOL, free-running costs within
    LOOP_COST_RTOL.
@@ -87,11 +98,13 @@ Any failure raises and the script exits non-zero.
    every sweep, the sampler's value mode once a step), the same card vs
    CPU checks; B=256 with the split backward + forward pair, step by step
    against the unified kernel; B=16384, where the nominal and final
-   rollouts are the zero-gain forward sweep.
+   rollouts are rollout launches as at every batch.
 4c. Measurement only: the main path with edge_sampler "analytic" and
-   "pallas" in turns at B=4096 and 256 (solves/s); the two nominal
-   rollout forms timed at B=256, 4096 and 16384; a torch.profiler split
-   of the per-sweep path at B=4096.
+   "pallas" in turns at B=4096 and 256 (solves/s); the three rollout
+   forms (the ``_dyn_step`` loop on the card, the zero-gain forward sweep
+   and the rollout kernel), each called directly and timed in turns at
+   B=256, 4096 and 16384; a torch.profiler split of the per-sweep path
+   at B=4096.
 4d. The one-launch solve: the loop with full_solve=True,
    edge_refresh="solve", admm_iters=5, admm_iters_extra=0 at B=4096 and
    256 (one full_solve launch a step, no multi_sweep), the card vs CPU
@@ -125,7 +138,7 @@ Any failure raises and the script exits non-zero.
 8. The headline bench, ``bench.headline.run`` at HEADLINE_RUN (bench.py's
    batches, fewer steps and trials): its JSON line, finite positive
    rates, the perception and multi_sweep launches of every step and gated
-   solve, no other MPC kernel.
+   solve, two rollout launches a solve, no other MPC kernel.
 9. The runtime: ``MPCRuntime`` and ``AdaptiveRuntime`` (plant on true
    depths, prior z0 = 8) at RUNTIME_BATCH on the ring, a checkpoint a
    frame in a temporary directory; the frame-RESUME_AT checkpoint
@@ -243,11 +256,12 @@ Any failure raises and the script exits non-zero.
    window, STUDY_TRIALS trial, its rows printed with the card's name and
    power limit; the trace study's tables must give the multi_sweep kernel
    device time in every window, edge_pyramid in the per-step perception
-   window and the zero-gain forward sweep in the STUDY_BIG window; the pod model's footprint by axis as phase 12's
+   window and the rollout kernel in the STUDY_BIG window; the pod
+   model's footprint by axis as phase 12's
    (the band psum's bytes on the model axis, at most 64 B on the data
    axis). The quality studies at QUALITY_RUN on the card against the
-   CPU (``quality_close``). The studies' launches of rows 1, 2, 5, 9, 10
-   and 13 (``launches_studies``), each at least one. Every row goes to
+   CPU (``quality_close``). The studies' launches of rows 1, 2, 5, 9, 13
+   and 15 (``launches_studies``), each at least one. Every row goes to
    chiprun_out/studies.json. Its lines start ``[studies]``.
 
 The last three lines of standard output are the card's name and power
@@ -300,13 +314,30 @@ POOL_FRAME, POOL_MAX, POOL_BIG = (3, 75, 130), 128, (200, 1000)
 # The per-sweep path (phase 4b) and the measurements of phase 4c.
 ILQR_BATCHES = ((4096, 10), (256, 20))     # (scenarios, timed steps)
 SPLIT_BATCH, SPLIT_STEPS = 256, 4          # backward + forward pair
-BIG_BATCH, BIG_STEPS = 16384, 2            # zero-gain forward rollouts
+BIG_BATCH, BIG_STEPS = 16384, 2            # the batch above 8192
 AB_BATCHES = ((4096, 10), (256, 20))       # sampler A/B, main path
 # The sampler's checks: rollout batches (999: one point a thread, B odd),
 # and the levels of a 4800 x 6400 map at s = 16 and 64 (480 KB and 30 KB).
 SAMPLER_BATCHES = (4096, 256, 999)
 BIG_LEVELS, BIG_MAP = ((300, 400), (75, 100)), (4800, 6400)
-ROLLOUT_BATCHES = (256, 4096, 16384)
+# The rollout kernel (any feature count) against its plain version at
+# ROLLOUT_HORIZONS x ROLLOUT_FEATURES x ROLLOUT_BATCHES (999: a ragged last
+# block), controls over the whole control box, within ROLLOUT_TOL (rtol,
+# atol: nvcc contracts the step into FMAs), and bit for bit against the
+# zero-gain forward sweep's candidate 0 (the same sweep::dyn_feature) at
+# m=8 on ROLLOUT_SAME_BATCHES; timed at m=8 on ROLLOUT_TIMED (B, H); the
+# rollout forms' A/B at ROLLOUT_AB_BATCHES. Controls ROLLOUT_WITNESS times
+# the box drive most states into the clip, where the step amplifies
+# rounding: there the kernel, the plain loop and the float64 loop are
+# logged side by side (the witness), not held to ROLLOUT_TOL.
+ROLLOUT_HORIZONS = (H, 50)
+ROLLOUT_FEATURES = (2, 3, M)
+ROLLOUT_BATCHES = (256, 999, 4096, 16384)
+ROLLOUT_WITNESS = 20.0
+ROLLOUT_SAME_BATCHES = (4096, 16384)
+ROLLOUT_TOL = (1e-5, 1e-6)
+ROLLOUT_TIMED = tuple((b, h) for h in (H, 50) for b in (256, 4096, 16384))
+ROLLOUT_AB_BATCHES = (256, 4096, 16384)
 PROFILE_STEPS = 5
 # (m, H, B) of the sweep kernels' checks: the main path, and two smaller
 # instances of the other feature counts the kernels are built for.
@@ -320,6 +351,10 @@ MULTI_SHAPES = SWEEP_SHAPES + ((M, H, 999), (M, H, 1), (4, 8, 254))
 # LONG_BATCH scenarios; and a batch with NaNs in g at three scenarios
 # (nan_sweep_inputs).
 TOO_LONG_H, LONG_BATCH = 400, 64
+# The unified sweep at TOO_LONG_H may part from the float64 plain version
+# by up to this many times the float32 plain version's own distance from
+# it (three bits).
+LONG_H_LOSS = 8.0
 LONG_H_FITS = 200                # the longest checked that fits at m=8
 NAN_BATCH, NAN_SCENARIOS = 256, (5, 77, 200)
 # The group kernels, the row-streaming stencils and the image and
@@ -337,7 +372,8 @@ NO_SPILL = {"multi_sweep": {"multi_sweep_kernel": SWEEP_MS},
             "full_solve": {"full_solve_kernel": SWEEP_MS},
             "sweep": {"unified_sweep_kernel": SWEEP_MS,
                       "backward_sweep_kernel": SWEEP_MS,
-                      "forward_sweep_kernel": SWEEP_MS},
+                      "forward_sweep_kernel": SWEEP_MS,
+                      "rollout_kernel": 1},
             "riccati": {"riccati_kernel": RICCATI_NS},
             "conv3x3": {"conv3x3_kernel": 12, "blur_kernel": 1},
             "stencil": {"edge_kernel": {1, 3, 4}},
@@ -353,6 +389,8 @@ MPC_ROWS = {   # kernel -> (source, TPU kernel it replaces)
     "unified_sweep": ("csrc/sweep.cu", "models/mpc/sweep_pallas.py:460"),
     "backward_sweep": ("csrc/sweep.cu", "models/mpc/sweep_pallas.py:225"),
     "forward_sweep": ("csrc/sweep.cu", "models/mpc/sweep_pallas.py:256"),
+    # none: the JAX package's rollout is an XLA scan of `_dyn_step`
+    "rollout": ("csrc/sweep.cu", "models/mpc/solver.py:739"),
 }
 
 # The one-launch solve (phase 4d) and the fused backend (phase 4e).
@@ -553,7 +591,7 @@ AUDIT_PATHS = {   # label -> MPCConfig fields
 # the main path's width (H, M, 1080p) at STUDY_BATCH, 8 steps a window
 # (the studies' floor), STUDY_TRIALS trial; the ceiling probe also at 256;
 # the trace study's windows STUDY_TRACE_STEPS long, its big window at
-# STUDY_BIG (the zero-gain forward sweep's regime); the pod anchor at 1
+# STUDY_BIG (the device-bound regime); the pod anchor at 1
 # and 2 logical shards of cuda:0, STUDY_BATCH / 2 a shard; the pod
 # model's footprint at POD's mesh. The quality studies at QUALITY_RUN on
 # the card and on the CPU, every cost and error within AUDIT_CROSS_COST
@@ -1002,31 +1040,39 @@ def nan_sweep_inputs(frame):
     return (*args[:5], g, *args[6:]), kw
 
 
-def check_nan_batch(what: str, names, got, ref, tol: float) -> None:
+def check_nan_batch(what: str, names, got, ref, tol: float,
+                    atol: float | None = None) -> float:
     """Hold outputs of inputs with NaNs to the plain version's: NaNs in the
-    same places, every other entry within rtol = atol = ``tol``."""
+    same places, every other entry within rtol = ``tol`` and atol = ``atol``
+    (``tol`` when None). Returns the largest absolute error elsewhere."""
     import torch
 
+    worst = 0.0
     for name, g_, p_ in zip(names, got, ref):
         if not torch.equal(torch.isnan(g_), torch.isnan(p_)):
             raise AssertionError(f"{what} {name}: NaNs not where the plain "
                                  f"version has them")
-        ok = torch.isclose(g_, p_, rtol=tol, atol=tol, equal_nan=True)
+        ok = torch.isclose(g_, p_, rtol=tol,
+                           atol=tol if atol is None else atol, equal_nan=True)
         n_bad = int((~ok).any(dim=tuple(range(ok.dim() - 1))).sum())
         both = torch.isfinite(g_) & torch.isfinite(p_)
         err = (g_ - p_)[both].abs().max().item()
+        worst = max(worst, err)
         log(f"[kernel] {what} NaN batch {name}: {int(torch.isnan(p_).sum())} "
             f"NaNs in the same places, max abs err elsewhere {err:.3e}, "
             f"scenarios out of tolerance {n_bad}")
         if n_bad:
             raise AssertionError(f"{what} NaN batch {name} differs beyond "
                                  f"{tol}")
+    return worst
 
 
-def sweep_inputs(frame, m: int, h: int, b: int):
-    """multi_sweep inputs as the solver forms them: scenarios from a seed,
-    random warm-start controls rolled out from p0, the edge gradient of
-    that rollout, z = clip(us + noise), small duals."""
+def sweep_inputs(frame, m: int, h: int, b: int, seed: int | None = None):
+    """multi_sweep inputs as the solver forms them: scenarios from a seed
+    (1234 + m by default), random warm-start controls rolled out from p0
+    as the solver's nominal rollout does (on the card the rollout kernel),
+    the edge gradient of that rollout, z = clip(us + noise), small
+    duals."""
     import torch
 
     from openmp_parallel_computing_tpu_torch.models.mpc import costs
@@ -1036,14 +1082,14 @@ def sweep_inputs(frame, m: int, h: int, b: int):
 
     dev = frame.device
     cfg = MPCConfig(horizon=h, num_features=m, edge_refresh="solve")
-    gen = torch.Generator().manual_seed(1234 + m)
+    gen = torch.Generator().manual_seed(1234 + m if seed is None else seed)
     scen = VisualServoMPC(cfg, dev).random_scenarios(b, gen)
     us0 = (torch.rand(scen.us0.shape, generator=gen) - 0.5).to(dev)
     scen = scen._replace(us0=us0)
     pyramid = costs.build_cost_pyramid_from_frame(frame)
     sw = _SweepLanes(pyramid, frame.shape[1:], cfg)
     p0_l, target_l, izd_l, us_l = sw.lanes_scenario(scen)
-    ps_l = sw.rollout(p0_l, us_l, izd_l)
+    ps_l = sw.rollout_nominal(p0_l, us_l, us_l, us_l, target_l, izd_l)
     g_l = sw.edge_grads(ps_l)
     noise = (0.2 * (torch.rand(us_l.shape, generator=gen) - 0.5)).to(dev)
     z_l = torch.clamp(us_l + noise, -cfg.u_limit, cfg.u_limit).contiguous()
@@ -1285,7 +1331,145 @@ def phase_mpc_kernels(frames) -> dict:
         log(f"[kernel] {name} m={M} H={H} B=256: kernel {ms:.4f} ms (device "
             f"{dev} us)")
         rows[name].update(ms_b256=ms, device_us_b256=dev)
+    rows["rollout"] = check_rollout(frame)
     return rows
+
+
+def rollout_inputs(m: int, h: int, b: int, scale: float = 1.0):
+    """The rollout's inputs as the solver forms them: p0 (n, B) and
+    inv_depth (m, B) of seeded scenarios, controls (H, c, B) uniform over
+    ``scale`` times the control box (+-u_limit), on the card."""
+    import torch
+
+    from openmp_parallel_computing_tpu_torch.models.mpc.solver import (
+        VisualServoMPC, _SweepLanes)
+    from openmp_parallel_computing_tpu_torch.utils.config import MPCConfig
+
+    cfg = MPCConfig(horizon=h, num_features=m)
+    gen = torch.Generator().manual_seed(4321 + 7 * m + b)
+    scen = VisualServoMPC(cfg, "cuda").random_scenarios(b, gen)
+    p0, _, izd, us = _SweepLanes.lanes_scenario(scen)
+    box = scale * cfg.u_limit
+    us = (box * (2 * torch.rand(us.shape, generator=gen) - 1)).cuda()
+    return p0, us, izd
+
+
+def check_rollout(frame) -> dict:
+    """The rollout kernel (row 15) against its plain version on the card,
+    bit-equal to the zero-gain forward sweep's candidate 0, and timed;
+    its row of the summary (launches filled in by phase 4)."""
+    import torch
+
+    from openmp_parallel_computing_tpu_torch.models.mpc import sweep
+
+    dt = 1.0 / 30.0
+    worst = 0.0
+    for h in ROLLOUT_HORIZONS:
+        for m in ROLLOUT_FEATURES:
+            for b in ROLLOUT_BATCHES:
+                p0, us, izd = rollout_inputs(m, h, b)
+                worst = max(worst, check_nan_batch(
+                    f"rollout m={m} H={h} B={b}", ("ps",),
+                    (sweep.rollout(p0, us, izd, m=m, dt=dt),),
+                    (sweep.rollout_plain(p0, us, izd, m=m, dt=dt),),
+                    *ROLLOUT_TOL))
+    # Sixteen scenarios start at the edge of the state box, so states reach
+    # the clip at +-4; NaN controls of two scenarios (one from step 3 on,
+    # one throughout) stay NaN.
+    p0, us, izd = rollout_inputs(M, 50, 999)
+    p0[:, :8], p0[:, 8:16] = 3.95, -3.95
+    us[3:, 1, 20] = float("nan")
+    us[:, :, 500] = float("nan")
+    got = sweep.rollout(p0, us, izd, m=M, dt=dt)
+    ref = sweep.rollout_plain(p0, us, izd, m=M, dt=dt)
+    clipped = int((ref.abs() == 4.0).sum())
+    if not clipped:
+        raise AssertionError("rollout: no state reached the clip")
+    worst = max(worst, check_nan_batch(
+        f"rollout m={M} H=50 B=999, states at the clip and NaN controls "
+        f"({clipped} entries at the clip),", ("ps",), (got,), (ref,),
+        *ROLLOUT_TOL))
+    rollout_witness(dt)
+    for b in ROLLOUT_SAME_BATCHES:
+        p0, us, izd = rollout_inputs(M, H, b)
+        cand0 = zero_gain_forward(p0, us, izd)()[0][:, 0]
+        if not torch.equal(sweep.rollout(p0, us, izd, m=M, dt=dt), cand0):
+            raise AssertionError(f"rollout B={b}: not bit-equal to the "
+                                 f"zero-gain forward sweep's candidate 0")
+        log(f"[kernel] rollout m={M} H={H} B={b}: bit-equal to the zero-gain "
+            f"forward sweep's candidate 0")
+    times = {}
+    for b, h in ROLLOUT_TIMED:
+        p0, us, izd = rollout_inputs(M, h, b)
+        call = functools.partial(sweep.rollout, p0, us, izd, m=M, dt=dt)
+        out = call()
+        bnd = bound(nbytes(p0, us, izd, out))
+        plain_ms = cuda_time_ms(
+            functools.partial(sweep.rollout_plain, p0, us, izd, m=M, dt=dt), 5)
+        times[b, h] = dict(ms=cuda_time_ms(call, 20),
+                           device_us=device_us(call, "rollout_kernel", 10),
+                           plain_ms=plain_ms, **bnd)
+        log(f"[kernel] rollout m={M} H={h} B={b}: kernel "
+            f"{times[b, h]['ms']:.4f} ms (device {times[b, h]['device_us']} "
+            f"us), plain {plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+            f"({bnd['bound_by']}, {nbytes(p0, us, izd, out)} bytes)")
+    main = times[4096, H]
+    return kernel_row(
+        "rollout", *MPC_ROWS["rollout"], worst, main["ms"], main["plain_ms"],
+        {k: main[k] for k in ("bound_ms", "bound_by")},
+        device_us=main["device_us"],
+        timed={f"B={b} H={h}": t for (b, h), t in times.items()})
+
+
+def rollout_witness(dt: float) -> None:
+    """Log how far the kernel, the plain loop on the card and on the CPU
+    part from the float64 loop where controls ROLLOUT_WITNESS times the
+    box drive most states into the clip (edge states as above)."""
+    import torch
+
+    from openmp_parallel_computing_tpu_torch.models.mpc import sweep
+
+    p0, us, izd = rollout_inputs(M, 50, 999, ROLLOUT_WITNESS)
+    p0[:, :8], p0[:, 8:16] = 3.95, -3.95
+    forms = {"kernel": sweep.rollout(p0, us, izd, m=M, dt=dt),
+             "plain": sweep.rollout_plain(p0, us, izd, m=M, dt=dt),
+             "plain on the CPU": sweep.rollout_plain(
+                 p0.cpu(), us.cpu(), izd.cpu(), m=M, dt=dt)}
+    f64 = sweep.rollout_plain(p0.double(), us.double(), izd.double(), m=M,
+                              dt=dt).cpu()
+
+    def apart(a, ref):
+        a, ref = a.cpu().double(), ref.cpu().double()
+        close = torch.isclose(a, ref, rtol=ROLLOUT_TOL[0], atol=ROLLOUT_TOL[1])
+        return (f"{(a - ref).abs().max().item():.3e} "
+                f"({int((~close).any(0).any(0).sum())} scenarios)")
+
+    clipped = int((forms["plain"].abs() == 4.0).sum())
+    log(f"[kernel] rollout witness m={M} H=50 B=999, controls "
+        f"{ROLLOUT_WITNESS:g} x the box ({clipped} entries at the clip), max "
+        f"abs diff (scenarios beyond ROLLOUT_TOL): kernel vs plain "
+        f"{apart(forms['kernel'], forms['plain'])}; plain vs plain on the "
+        f"CPU {apart(forms['plain'], forms['plain on the CPU'])}; vs the "
+        f"float64 loop: " + ", ".join(
+            f"{k} {apart(v, f64)}" for k, v in forms.items()))
+
+
+def zero_gain_forward(p0, us, izd):
+    """The zero-gain forward sweep on the rollout's inputs (zero nominal,
+    gains, edge gradient, ADMM pair and target): a callable returning its
+    outputs; candidate 0 is the rollout of ``us``."""
+    import torch
+
+    from openmp_parallel_computing_tpu_torch.models.mpc import sweep
+
+    h, c, b = us.shape
+    n = p0.shape[0]
+    zeros = functools.partial(torch.zeros, device=p0.device)
+    kw = dict(m=n // 2, q=1.0, r=1e-2, rho=0.1, qe=0.1, dt=1.0 / 30.0)
+    return functools.partial(sweep.forward_sweep, p0, zeros((h + 1, n, b)),
+                             us, zeros((h, c, n, b)), zeros((h, c, b)),
+                             zeros((h, c, b)), zeros((h, c, b)),
+                             zeros((h + 1, n, b)), zeros((n, b)), izd, **kw)
 
 
 def check_same_forms(tag: str, smem, glob) -> None:
@@ -1299,17 +1483,25 @@ def check_same_forms(tag: str, smem, glob) -> None:
     log(f"[kernel] unified_sweep {tag}: both forms bit-equal")
 
 
+def rel_err(got, ref) -> float:
+    """The least tol with |got - ref| <= tol (1 + |ref|) at every entry
+    (``check_close``'s rule), in float64."""
+    got, ref = got.double().cpu(), ref.double().cpu()
+    return ((got - ref).abs() / (1 + ref.abs())).max().item()
+
+
 def check_long_horizon(frame, cand) -> None:
     """The per-sweep kernels at LONG_H_FITS, where the unified sweep's
     gains still fit shared memory (its two forms bit-equal), and at
     TOO_LONG_H, where the wrapper keeps them in global memory, on
     LONG_BATCH scenarios. The backward is held to MULTI_SWEEP_TOL at both.
-    Along 400 steps the float32 rounding of any order of operations grows
-    past MULTI_SWEEP_TOL in the forward (the plain version on the card and
-    on the CPU differ by more than the kernel and the plain version on the
-    card), so there the unified sweep is held to the larger of
-    MULTI_SWEEP_TOL and that card-vs-CPU difference of the plain version,
-    output by output."""
+    Along 400 steps the forward's float32 rounding grows past
+    MULTI_SWEEP_TOL in any order of operations: the plain version on the
+    card and on the CPU part from the float64 plain version by up to 1e-2
+    on some inputs, and from each other by as much. So there the unified
+    sweep is held to the float64 plain version, output by output, within
+    the larger of MULTI_SWEEP_TOL and LONG_H_LOSS times the float32 plain
+    versions' own distance from it."""
     from openmp_parallel_computing_tpu_torch.models.mpc import sweep
 
     for h in (LONG_H_FITS, TOO_LONG_H):
@@ -1331,11 +1523,17 @@ def check_long_horizon(frame, cand) -> None:
             continue
         plain = sweep.unified_sweep_plain(*args, **kw)
         cpu = sweep.unified_sweep_plain(*[a.cpu() for a in args], **kw)
-        for name, g_, p_, c_ in zip(cand, got, plain, cpu):
-            spread = (p_.cpu() - c_).abs().max().item()
-            check_close(f"unified_sweep {tag} (the plain version on the card "
-                        f"vs the CPU: max abs diff {spread:.3e})", (name,),
-                        (g_,), (p_,), max(MULTI_SWEEP_TOL, spread))
+        f64 = sweep.unified_sweep_plain(*[a.cpu().double() for a in args],
+                                        **kw)
+        for name, g_, p_, c_, d_ in zip(cand, got, plain, cpu, f64):
+            own = max(rel_err(p_, d_), rel_err(c_, d_))
+            check_close(
+                f"unified_sweep {tag} vs the float64 plain version (the "
+                f"float32 plain version on the card / CPU from it "
+                f"{rel_err(p_, d_):.3e} / {rel_err(c_, d_):.3e}; the kernel "
+                f"from the card's {rel_err(g_, p_):.3e})", (name,),
+                (g_.double().cpu(),), (d_,),
+                max(MULTI_SWEEP_TOL, LONG_H_LOSS * own))
 
 
 def device_us(fn, key: str, iters: int, per_call: bool = False):
@@ -1432,22 +1630,11 @@ def fused_riccati_inputs(frame, batch: int, m: int = M, h: int = H):
 
 
 def zero_gain_rollout(frame, m: int, h: int, b: int):
-    """The zero-gain forward sweep as ``_SweepLanes.rollout_nominal`` calls
-    it above ROLLOUT_SCAN_MAX_BP (zero nominal, gains and edge gradient), on
-    ``sweep_inputs``'s scenarios: a callable returning its outputs."""
-    import functools
-
-    import torch
-
-    from openmp_parallel_computing_tpu_torch.models.mpc import sweep
-
-    args, kw = sweep_inputs(frame, m, h, b)
-    kw.pop("sweeps")
-    p0, ps, us, z, y, g, tgt, izd = args
-    K0 = torch.zeros((h, us.shape[1], 2 * m, b), device=frame.device)
-    return functools.partial(sweep.forward_sweep, p0, torch.zeros_like(ps),
-                             us, K0, torch.zeros_like(us), z, y,
-                             torch.zeros_like(g), tgt, izd, **kw)
+    """The zero-gain forward sweep (``zero_gain_forward``) on
+    ``sweep_inputs``'s scenarios and controls: a callable returning its
+    outputs."""
+    (p0, _, us, *_, izd), _ = sweep_inputs(frame, m, h, b)
+    return zero_gain_forward(p0, us, izd)
 
 
 def random_riccati(rng, b: int, h: int, n: int, c: int):
@@ -1645,16 +1832,30 @@ def counters() -> dict:
             "riccati_backward": riccati_lanes.backward_batched}
 
 
+def rollout_launches() -> int:
+    """The rollout kernel's launches: the metrics registry's
+    ``mpc.rollout_kernel``."""
+    from openmp_parallel_computing_tpu_torch.utils.metrics import registry
+
+    return int(registry.snapshot()["counters"].get("mpc.rollout_kernel", 0))
+
+
+_ROLLOUT_AT_RESET = [0]
+
+
 def reset_counts() -> None:
     for w in counters().values():
         w.launches = 0
     counters()["sampler"].vg_launches = 0
+    _ROLLOUT_AT_RESET[0] = rollout_launches()
 
 
 def read_counts() -> dict:
+    """The launches since ``reset_counts``."""
     out = {k: w.launches for k, w in counters().items()}
     vg = counters()["sampler"].vg_launches
     out["sampler_vg"], out["sampler_vals"] = vg, out.pop("sampler") - vg
+    out["rollout"] = rollout_launches() - _ROLLOUT_AT_RESET[0]
     return out
 
 
@@ -1667,16 +1868,14 @@ def expected_launches(cfg, batch: int, steps: int, fired: int,
     edge_refresh "solve"), else per ADMM iteration
     one multi_sweep launch (edge_refresh admm/solve) or ilqr_iters
     per-sweep launches; the gather sampler once per linearization and once
-    a step for the final cost; and a zero-gain forward sweep for each
-    nominal and final rollout above ROLLOUT_SCAN_MAX_BP scenarios (the
-    full_solve kernel does its own final rollout)."""
-    from openmp_parallel_computing_tpu_torch.models.mpc import solver
-
+    a step for the final cost; and a rollout launch for each nominal and
+    final rollout, at every batch (the full_solve kernel does its own
+    final rollout)."""
     admm = steps * cfg.admm_iters + fired * cfg.admm_iters_extra
     want = dict.fromkeys(("edge_pyramid", "multi_sweep", "unified_sweep",
                           "backward_sweep", "forward_sweep", "full_solve",
-                          "riccati_backward", "sampler_vg", "sampler_vals"),
-                         0)
+                          "riccati_backward", "rollout", "sampler_vg",
+                          "sampler_vals"), 0)
     want["edge_pyramid"] = steps
     full = cfg.full_solve and cfg.edge_refresh == "solve"
     if cfg.backend in ("reference", "assoc"):
@@ -1697,8 +1896,7 @@ def expected_launches(cfg, batch: int, steps: int, fired: int,
         want["sampler_vg"] = {"ilqr": cfg.ilqr_iters * admm, "admm": admm,
                               "solve": steps}[cfg.edge_refresh]
         want["sampler_vals"] = steps
-    if batch > solver.ROLLOUT_SCAN_MAX_BP:
-        want["forward_sweep"] += (1 if full else 2) * steps
+    want["rollout"] = (1 if full else 2) * steps
     return want
 
 
@@ -1814,7 +2012,7 @@ def phase_slice(frames, rows: dict) -> dict:
     for batch, steps in BATCHES:
         rates[batch], launches = run_loop(cfg, frames, batch, steps, "slice")
         if batch == BATCHES[0][0]:
-            for k in ("edge_pyramid", "multi_sweep"):
+            for k in ("edge_pyramid", "multi_sweep", "rollout"):
                 rows[k]["launches"] = launches[k]
     card_vs_cpu(frames, cfg, "slice")
     return rates
@@ -1872,20 +2070,17 @@ def phase_ilqr(frames, rows: dict) -> dict:
     rows["backward_sweep"]["launches"] = split["backward_sweep"]
     rows["forward_sweep"]["launches"] = split["forward_sweep"]
 
-    # Above ROLLOUT_SCAN_MAX_BP the rollouts are zero-gain forward sweeps.
-    rates[BIG_BATCH], launches = run_loop(cfg, frames, BIG_BATCH, BIG_STEPS,
-                                          "ilqr")
-    rows["forward_sweep"]["launches"] += launches["forward_sweep"]
+    # Above ROLLOUT_SCAN_MAX_BP the rollouts are rollout launches too.
+    rates[BIG_BATCH], _ = run_loop(cfg, frames, BIG_BATCH, BIG_STEPS, "ilqr")
     return rates
 
 
 def phase_ab(frames) -> None:
     """Measurement only: the main path's solves/s with each sampler, in
-    turns; the two nominal rollout forms."""
+    turns; the three rollout forms, each called directly, in turns."""
     import torch
 
-    from openmp_parallel_computing_tpu_torch.models.mpc import (
-        VisualServoMPC, costs, solver)
+    from openmp_parallel_computing_tpu_torch.models.mpc import sweep
     from openmp_parallel_computing_tpu_torch.utils.config import MPCConfig
 
     for batch, steps in AB_BATCHES:
@@ -1898,33 +2093,28 @@ def phase_ab(frames) -> None:
         log(f"[ab] sampler A/B, main path B={batch}: solves/s analytic "
             f"{rates['analytic']}, pallas {rates['pallas']}")
 
-    cfg = MPCConfig(horizon=H, num_features=M, edge_refresh="ilqr",
-                    edge_sampler="pallas")
-    pyramid = costs.build_cost_pyramid_from_frame(frames[0])
-    for batch in ROLLOUT_BATCHES:
-        gen = torch.Generator().manual_seed(batch)
-        scen = VisualServoMPC(cfg, "cuda").random_scenarios(batch, gen)
-        sw = solver._SweepLanes(pyramid, frames.shape[2:], cfg)
-        p0_l, target_l, izd_l, us_l = sw.lanes_scenario(scen)
-        us_l = (torch.rand(us_l.shape, generator=gen) - 0.5).cuda()
-        y_l = torch.zeros_like(us_l)
-        forms = {}
-        for form, limit in (("loop", 1 << 30), ("kernel", 0)):
-            old = solver.ROLLOUT_SCAN_MAX_BP
-            solver.ROLLOUT_SCAN_MAX_BP = limit
-            try:
-                call = lambda: sw.rollout_nominal(p0_l, us_l, us_l, y_l,
-                                                  target_l, izd_l)
-                out = call()
-                forms[form] = (cuda_time_ms(call, 10), out)
-            finally:
-                solver.ROLLOUT_SCAN_MAX_BP = old
-        err = (forms["loop"][1] - forms["kernel"][1]).abs().max().item()
+    dt = 1.0 / 30.0
+    for batch in ROLLOUT_AB_BATCHES:
+        p0, us, izd = rollout_inputs(M, H, batch)
+        zero_gain = zero_gain_forward(p0, us, izd)
+        forms = {
+            "loop": functools.partial(sweep.rollout_plain, p0, us, izd, m=M,
+                                      dt=dt),
+            "zero-gain forward_sweep": lambda: zero_gain()[0][:, 0],
+            "rollout kernel": functools.partial(sweep.rollout, p0, us, izd,
+                                                m=M, dt=dt)}
+        outs = {name: call() for name, call in forms.items()}
+        times = {name: [] for name in forms}
+        for name in (*forms, *reversed(forms)):
+            times[name].append(cuda_time_ms(forms[name], 10))
+        err = max((outs[name] - outs["loop"]).abs().max().item()
+                  for name in forms)
         if err > STEP_TOL:
             raise AssertionError(f"rollout forms differ by {err} at {batch}")
-        log(f"[ab] nominal rollout B={batch}: _dyn_step loop "
-            f"{forms['loop'][0]:.4f} ms, zero-gain forward_sweep "
-            f"{forms['kernel'][0]:.4f} ms; max abs diff {err:.3e}")
+        log(f"[ab] rollout forms m={M} H={H} B={batch}, ms a rollout in "
+            f"turns: " + ", ".join(f"{name} {[round(t, 4) for t in ts]}"
+                                   for name, ts in times.items())
+            + f"; max abs diff {err:.3e}; {torch.cuda.get_device_name(0)}")
 
 
 def phase_profile(frames, cfg, label: str,
@@ -2462,7 +2652,8 @@ def phase_headline() -> None:
     """The headline bench at HEADLINE_RUN, its launches counted: one
     perception launch a step (one a window on the fixed-frame ceiling),
     admm_iters multi_sweep launches a solve and admm_iters_extra more on
-    each gated solve, no other MPC kernel."""
+    each gated solve, two rollout launches a solve, no other MPC
+    kernel."""
     import math
 
     import torch
@@ -2487,6 +2678,7 @@ def phase_headline() -> None:
     want["edge_pyramid"] = loop_steps + 1 + k["trials"]
     want["multi_sweep"] = (solves * cfg.admm_iters
                            + sum(gates.fired) * cfg.admm_iters_extra)
+    want["rollout"] = 2 * solves
     if launches != want or len(gates.fired) != solves:
         raise AssertionError(f"headline: launch counts {launches} != {want} "
                              f"({len(gates.fired)} gated solves of {solves})")
@@ -4546,7 +4738,7 @@ def phase_studies(rows: dict) -> None:
             ("headline_frames_256", ("multi_sweep_kernel",
                                      "edge_pyramid_kernel")),
             (f"big_batch_{STUDY_BIG}", ("multi_sweep_kernel",
-                                        "forward_sweep_kernel"))):
+                                        "rollout_kernel"))):
         got = {r["op"]: r["total_us"] for r in traced[name]["ops"]}
         if not all(got.get(k, 0) > 0 for k in kernels):
             raise AssertionError(f"[studies] trace {name}: {got} lacks device "
@@ -4559,8 +4751,8 @@ def phase_studies(rows: dict) -> None:
               "multi_sweep": launches["multi_sweep"],
               "edge": launches["edge"],
               "sampler": launches["sampler_vg"] + launches["sampler_vals"],
-              "forward_sweep": launches["forward_sweep"],
-              "full_solve": launches["full_solve"]}
+              "full_solve": launches["full_solve"],
+              "rollout": launches["rollout"]}
     for name, n in counts.items():
         if not n:
             raise AssertionError(f"[studies] kernel {name} was not launched "

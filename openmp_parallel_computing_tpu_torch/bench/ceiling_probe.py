@@ -20,8 +20,8 @@ Three loops a batch, on the card:
 Each row gives solves/s and ms/solve for the three loops and the
 per-solve glue cost. A flat ``kernel`` row with a growing ``full -
 noedge`` puts the falloff on the sampling glue; a sagging ``kernel`` row
-on the kernel. Above ``solver.ROLLOUT_SCAN_MAX_BP`` scenarios the loops'
-nominal and final rollouts are the zero-gain ``forward_sweep`` kernel.
+on the kernel. On the card the loops' nominal and final rollouts are one
+``sweep.rollout`` kernel launch each, at every batch.
 
 Usage::
 

@@ -9,8 +9,9 @@ gains in global memory: ``*_global``), ``sweep.backward_sweep`` and
 ``sweep.forward_sweep`` (on the backward's gains); the batched Riccati
 backward ``riccati_lanes.backward_batched`` on the fused backend's own
 inputs (n = 2m); ``sweep.full_solve`` at B=4096 (5 ADMM iterations x 1
-sweep, relax 1.3); the zero-gain ``sweep.forward_sweep`` at B=16384,
-the nominal rollout's kernel form (``forward_sweep_zero_*``); and the
+sweep, relax 1.3); the zero-gain ``sweep.forward_sweep`` at B=16384
+(``forward_sweep_zero_*``: the JAX package's rollout form above 8192
+scenarios, which the card's solver no longer takes); and the
 gather sampler ``sampler.sample`` on the rollout's points of the 1080p
 pyramid, in the gradient mode at each batch (``sampler_vg_*``) and in the
 value mode at B=4096 (``sampler_vals_*``). Each by CUDA

@@ -7,8 +7,7 @@ Captures ``torch.profiler`` traces (CPU and CUDA activity) of:
   edge_refresh="solve"): the solver-only loop;
 - ``receding_horizon_frames`` at the same configuration: perception on
   every step, on a ring of four distinct frames;
-- a large-batch ``receding_horizon`` window (default 16384 scenarios,
-  where the nominal and final rollouts are the zero-gain forward sweep):
+- a large-batch ``receding_horizon`` window (default 16384 scenarios):
   the regime whose falloff ``ceiling_probe`` decomposes.
 
 Each capture's Chrome trace is read for device time only: the kernel,
@@ -43,7 +42,8 @@ PORT_KERNELS = (
     "conv3x3_kernel", "edge_kernel", "edge_pyramid_kernel",
     "edge_pyramid_s_kernel", "forward_sweep_kernel", "full_solve_kernel",
     "gray_minmax_kernel", "grayscale_kernel", "multi_sweep_kernel",
-    "riccati_kernel", "sample_kernel", "unified_sweep_kernel")
+    "riccati_kernel", "rollout_kernel", "sample_kernel",
+    "unified_sweep_kernel")
 _PORT = re.compile(r"\b(" + "|".join(PORT_KERNELS) + r")\b")
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 WINDOW = "trace_study_window"      # the profiled range of the window

@@ -1,7 +1,8 @@
 // One iLQR sweep: the per-sweep path of the sweep backend
 // (edge_refresh="ilqr", where the edge term is linearized again before
 // every sweep, so the sweeps of an ADMM iteration cannot share one launch
-// as in csrc/multi_sweep.cu), and the zero-gain rollout.
+// as in csrc/multi_sweep.cu); and the nominal rollout (rollout_launch, at
+// the end of this file).
 //
 // Replaces three TPU kernels of
 // openmp_parallel_computing_tpu/models/mpc/sweep_pallas.py:
@@ -11,8 +12,9 @@
 //   backward_sweep_launch <- `_backward_sweep_kernel` (via `backward_sweep`):
 //       the backward alone, the gains K, k as outputs;
 //   forward_sweep_launch  <- `_forward_sweep_kernel` (via `forward_sweep`):
-//       the forward alone, the gains as inputs (with zero gains it is the
-//       nominal rollout of the controls, candidate 0).
+//       the forward alone, the gains as inputs (with zero gains candidate 0
+//       is the rollout of the controls: the nominal rollout of a CPU batch
+//       above ROLLOUT_SCAN_MAX_BP scenarios).
 // The forward writes every candidate's states ps_c (H+1, A, n, B), row 0 =
 // p0 for every candidate, its controls us_c (H, A, c, B) and its cost
 // J (A, B) with the terminal terms, non-finite costs as they come; the
@@ -219,4 +221,100 @@ extern "C" int forward_sweep_launch(
     case 8: return launch_forward<8>(X, Kf, kf, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The nominal rollout: ps[0] = p0, ps[t+1] = clip(ps[t] + dt L(ps[t]) us[t])
+// for t < H, each feature's step by sweep::dyn_feature, so the dynamics
+// keep one source and the rows are those of candidate 0 of a zero-gain
+// forward sweep, bit for bit. Replaces no TPU kernel: the JAX package's
+// rollout is an XLA scan of `_dyn_step`, which the port ran as a host loop
+// of ~35 elementwise launches a step (~1,400 a solve at H = 20).
+//
+// Arrays (float32, scenario last): p0 (n, B), us (H, 6, B), inv_depth
+// (m, B), ps (H+1, n, B), n = 2m, m any positive count (a run-time
+// argument: no instance to refuse a feature count).
+//
+// What bounds it on Hopper: bytes. p0, iz and us read once and ps written
+// once are (n + m + 6H + n(H+1)) B floats: 7.9 MB at m = 8, H = 20,
+// B = 4096 (2.35 us at 3.35 TB/s), 18.7 MB at H = 50 (5.6 us), 31.5 MB at
+// B = 16384 (9.4 us); at B = 256 the launch itself. A feature's step reads
+// only its own (x, y), its own iz and the scenario's six controls, so the
+// design is one thread a (feature j, scenario b), b the fast index of a
+// warp, j a row of blocks of the one-dimensional grid: m B threads (32,768
+// at B = 4096) with no exchange between them, every load and the two
+// stores a step coalesced along b; the m threads of a scenario read its
+// controls through L1. The control loads do not depend on the state chain,
+// so the thread loads the next kRolloutStage steps' controls into
+// registers before it runs the current ones: the H-step chain waits on
+// arithmetic, not on memory.
+
+namespace {
+
+constexpr int kRolloutThreads = 128;
+constexpr int kRolloutStage = 4;
+
+// Controls of steps t0 .. t0 + kRolloutStage - 1 of scenario b (0 past H).
+__device__ __forceinline__ void load_controls(const float* __restrict__ us,
+                                              int t0, int H, size_t B,
+                                              int b,
+                                              float (&u)[kRolloutStage]
+                                                        [sweep::C]) {
+#pragma unroll
+  for (int s = 0; s < kRolloutStage; ++s)
+#pragma unroll
+    for (int c = 0; c < sweep::C; ++c)
+      u[s][c] = t0 + s < H
+                    ? __ldg(us + ((size_t)(t0 + s) * sweep::C + c) * B + b)
+                    : 0.0f;
+}
+
+__global__ void __launch_bounds__(kRolloutThreads)
+rollout_kernel(const float* __restrict__ p0, const float* __restrict__ us,
+               const float* __restrict__ iz, float* __restrict__ ps, int m,
+               int H, int B, float dt) {
+  const unsigned row_blocks = (B + kRolloutThreads - 1) / kRolloutThreads;
+  const int b = blockIdx.x % row_blocks * kRolloutThreads + threadIdx.x;
+  if (b >= B) return;
+  const size_t Bs = B, n = 2 * (size_t)m, j = blockIdx.x / row_blocks;
+  const size_t rx = j * Bs + b, ry = (m + j) * Bs + b;   // row offsets
+  float x = __ldg(p0 + rx), y = __ldg(p0 + ry);
+  const float izj = __ldg(iz + rx);
+  ps[rx] = x;
+  ps[ry] = y;
+  float u[kRolloutStage][sweep::C], next[kRolloutStage][sweep::C];
+  load_controls(us, 0, H, Bs, b, u);
+  for (int t0 = 0; t0 < H; t0 += kRolloutStage) {
+    load_controls(us, t0 + kRolloutStage, H, Bs, b, next);
+#pragma unroll
+    for (int s = 0; s < kRolloutStage; ++s) {
+      const int t = t0 + s;
+      if (t < H) {
+        sweep::dyn_feature(x, y, u[s], izj, dt, x, y);
+        float* row = ps + (size_t)(t + 1) * n * Bs;
+        row[rx] = x;
+        row[ry] = y;
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < kRolloutStage; ++s)
+#pragma unroll
+      for (int c = 0; c < sweep::C; ++c) u[s][c] = next[s][c];
+  }
+}
+
+}  // namespace
+
+extern "C" int rollout_launch(int m, const void* p0, const void* us,
+                              const void* inv_depth, void* ps, int H, int B,
+                              float dt, void* stream) {
+  if (m < 0 || H < 0 || B < 0) return (int)cudaErrorInvalidValue;
+  if (m == 0 || B == 0) return 0;                  // nothing to write
+  const long long blocks =
+      (long long)m * ((B + kRolloutThreads - 1) / kRolloutThreads);
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)blocks);
+  rollout_kernel<<<grid, kRolloutThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)p0, (const float*)us, (const float*)inv_depth, (float*)ps,
+      m, H, B, dt);
+  return (int)cudaGetLastError();
 }

@@ -57,9 +57,11 @@ per scenario (levels (B, Hf, Wf): ``solve_batch_multi``,
 analytic sampler in float32, whatever ``edge_sampler`` and
 ``sampler_dtype`` say, as in the JAX package.
 
-The nominal rollouts are a Python loop of ``sweep._dyn_step`` up to
-``ROLLOUT_SCAN_MAX_BP`` scenarios, and the zero-gain ``forward_sweep``
-kernel above it (the JAX package's two forms and threshold).
+On the card every nominal and final rollout is one ``sweep.rollout``
+kernel launch, at every batch size. On the CPU the rollouts keep the JAX
+package's two forms and threshold: the plain ``_dyn_step`` loop
+(``sweep.rollout``'s plain version) up to ``ROLLOUT_SCAN_MAX_BP``
+scenarios, and the zero-gain ``forward_sweep`` above it.
 
 Solver state stays in the kernels' lanes layout — batch last, state axis
 in split order — for the whole solve, and across control steps in the
@@ -107,9 +109,10 @@ SPANS = ("mpc.step", "mpc.perception", "mpc.layout", "mpc.rollout",
          "mpc.final_cost", "mpc.advance")
 span = registry.span
 
-# Nominal-rollout form threshold (scenarios): up to this batch the rollout
-# is a loop of _dyn_step, above it the zero-gain forward_sweep kernel. The
-# JAX package's value, kept until the port's own rollout A/B decides it.
+# Nominal-rollout form threshold (scenarios) of a CPU batch: up to this
+# batch the rollout is the _dyn_step loop, above it the zero-gain
+# forward_sweep. The JAX package's value. A batch on the card always takes
+# the rollout kernel.
 ROLLOUT_SCAN_MAX_BP = 8192
 
 # The fused and reference backends' line-search candidates (the sweep
@@ -315,25 +318,17 @@ class _SweepLanes:
 
     # -- solve ---------------------------------------------------------------
 
-    def rollout(self, p0_l, us_l, izd_l) -> torch.Tensor:
-        """Trajectory (h+1, n, B) of ``us_l`` from ``p0_l``: a loop of
-        ``_dyn_step``."""
-        ps = [p0_l]
-        for t in range(us_l.shape[0]):
-            ps.append(sweep._dyn_step(ps[-1], us_l[t], izd_l, self.cfg.dt,
-                                      self.m))
-        return torch.stack(ps, dim=0)
-
     def rollout_nominal(self, p0_l, us_l, z_l, y_l, target_l,
                         izd_l) -> torch.Tensor:
-        """Trajectory (h+1, n, B) of ``us_l`` from ``p0_l``, in the form
-        the batch selects: the ``_dyn_step`` loop up to
-        ``ROLLOUT_SCAN_MAX_BP`` scenarios, else candidate 0 of a zero-gain
-        ``forward_sweep`` launch (the JAX package's two forms; the ADMM
-        pair only enters the discarded costs)."""
+        """Trajectory (h+1, n, B) of ``us_l`` from ``p0_l``: one
+        ``sweep.rollout`` kernel launch on the card; on the CPU the
+        ``_dyn_step`` loop up to ``ROLLOUT_SCAN_MAX_BP`` scenarios, else
+        candidate 0 of a zero-gain ``forward_sweep`` (the JAX package's two
+        forms; the ADMM pair only enters the discarded costs)."""
         with span("mpc.rollout", on=p0_l):
-            if us_l.shape[-1] <= ROLLOUT_SCAN_MAX_BP:
-                return self.rollout(p0_l, us_l, izd_l)
+            if p0_l.is_cuda or us_l.shape[-1] <= ROLLOUT_SCAN_MAX_BP:
+                return sweep.rollout(p0_l, us_l, izd_l, m=self.m,
+                                     dt=self.cfg.dt)
             zeros = torch.zeros_like
             h, c, B = us_l.shape
             n = p0_l.shape[0]

@@ -2,7 +2,7 @@
 sweep kernels' wrappers (PyTorch port of
 ``openmp_parallel_computing_tpu.models.mpc.sweep_pallas``: ``multi_sweep``,
 ``full_solve``, ``unified_sweep``, ``backward_sweep`` and
-``forward_sweep``).
+``forward_sweep``), and the nominal rollout's kernel (``rollout``).
 
 Layout: scenario batch B last everywhere — ps (H+1, n, B), us/z/y
 (H, c, B), gains K (H, c, n, B). The state axis is in SPLIT order
@@ -21,6 +21,8 @@ full_solve with the gains in shared memory and no global scratch, the
 backward with the gains written to its outputs, the unified sweep in
 shared memory where ``group_sweep_fits`` admits it and in global scratch
 otherwise, the forward reading the gains it is given from global memory.
+``rollout``, the fourth entry point of ``csrc/sweep.cu``, runs a thread a
+(feature, scenario) for any feature count.
 """
 
 from __future__ import annotations
@@ -43,9 +45,10 @@ from openmp_parallel_computing_tpu_torch.models.mpc.riccati_lanes import (
     _mv,
     _spd_solve_lanes,
 )
+from openmp_parallel_computing_tpu_torch.utils.metrics import registry
 
 ALPHAS = (0.0, 1.0, 0.5, 0.25)
-KERNEL_FEATURES = (2, 4, 8)    # m values the CUDA kernel is built for
+KERNEL_FEATURES = (2, 4, 8)    # m values the group-sweep kernels are built for
 
 
 def _features(p: torch.Tensor, m: int):
@@ -110,6 +113,14 @@ def _dyn_step(p, u, inv_depth, dt: float, m: int):
     lim = STATE_LIMIT
     return torch.cat([torch.clamp(x + dt * xdot, -lim, lim),
                       torch.clamp(y + dt * ydot, -lim, lim)], dim=0)
+
+
+def rollout_plain(p0, us, inv_depth, *, m: int, dt: float):
+    """Plain version of ``rollout``: the loop of ``_dyn_step``."""
+    rows = [p0]
+    for t in range(us.shape[0]):
+        rows.append(_dyn_step(rows[-1], us[t], inv_depth, dt, m))
+    return torch.stack(rows)
 
 
 def _eye(k: int, like: torch.Tensor) -> torch.Tensor:
@@ -294,17 +305,16 @@ def full_solve_plain(p0, ps, us, g, target, inv_depth, *, m: int, q: float,
         ps, us = multi_sweep_plain(p0, ps, us, z, y, g, target, inv_depth,
                                    **kw)
         z, y = admm_update(us, z, y, relax, u_limit)
-    rows = [p0]
-    for t in range(us.shape[0]):
-        rows.append(_dyn_step(rows[-1], z[t], inv_depth, dt, m))
-    return torch.stack(rows), z, us
+    return rollout_plain(p0, z, inv_depth, m=m, dt=dt), z, us
 
 
-def _on_card(what: str, m: int, arrays: dict) -> bool:
+def _on_card(what: str, m: int, arrays: dict,
+             built_for=KERNEL_FEATURES) -> bool:
     """Check a sweep wrapper's inputs, ``{name: (tensor, shape)}``: every
     shape, float32, one device. False for CPU tensors (the plain version
     runs); True for CUDA tensors, after checking that the kernel is built
-    for ``m`` and every input is contiguous."""
+    for ``m`` (``built_for``; None: any m) and every input is
+    contiguous."""
     dev = next(iter(arrays.values()))[0].device
     for name, (t, shape) in arrays.items():
         if tuple(t.shape) != shape:
@@ -318,9 +328,9 @@ def _on_card(what: str, m: int, arrays: dict) -> bool:
         return False
     if dev.type != "cuda":
         raise ValueError(f"{what}: unsupported device {dev}")
-    if m not in KERNEL_FEATURES:
+    if built_for is not None and m not in built_for:
         raise ValueError(f"{what} kernel is built for m in "
-                         f"{KERNEL_FEATURES}, not {m}")
+                         f"{built_for}, not {m}")
     for name, (t, _) in arrays.items():
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
@@ -540,3 +550,28 @@ def forward_sweep(p0, ps, us, K, k, z, y, g, target, inv_depth, *, m: int,
 
 
 forward_sweep.launches = 0
+
+
+def rollout(p0, us, inv_depth, *, m: int, dt: float):
+    """The trajectory of the controls ``us`` from ``p0``: ps (H+1, n, B)
+    with ps[0] = p0 and ps[t+1] the clipped Euler step of ps[t] under
+    us[t]. p0 (n, B), us (H, c, B), inv_depth (m, B), float32. CPU tensors
+    run the plain version; CUDA tensors launch ``rollout_launch`` of
+    ``csrc/sweep.cu`` (any m), counted in ``rollout.launches`` and in the
+    metrics registry's ``mpc.rollout_kernel``."""
+    H, B = us.shape[0], us.shape[-1]
+    if not _on_card("rollout", m, _lanes_shapes(
+            m, H, B, p0=p0, us=us, inv_depth=inv_depth), built_for=None):
+        return rollout_plain(p0, us, inv_depth, m=m, dt=dt)
+    ps = torch.empty((H + 1, 2 * m, B), dtype=torch.float32,
+                     device=p0.device)
+    fn = _build.function("sweep", "rollout_launch",
+                         [_INT] + [_PTR] * 4 + [_INT] * 2 + [_F32] + [_PTR])
+    _build.launch(fn, "rollout", p0, m, p0.data_ptr(), us.data_ptr(),
+                  inv_depth.data_ptr(), ps.data_ptr(), H, B, dt)
+    rollout.launches += 1
+    registry.inc("mpc.rollout_kernel")
+    return ps
+
+
+rollout.launches = 0

@@ -168,5 +168,27 @@ def test_rollout_forms_give_the_same_solution(monkeypatch, edge_refresh):
         assert ps_l.shape == (H + 1, 2 * M, B) and ps_l.is_contiguous()
 
 
+@pytest.mark.parametrize("limit, rollouts, forwards", [
+    (B, 1, 0), (0, 0, 1)])
+def test_rollout_nominal_form_on_a_cpu_batch(monkeypatch, limit, rollouts,
+                                             forwards):
+    """On a CPU batch ``rollout_nominal`` calls ``sweep.rollout`` once and
+    ``forward_sweep`` never up to ROLLOUT_SCAN_MAX_BP, and the reverse
+    above it; both forms give the same trajectory."""
+    edge, arrs = _problem(seed=29)
+    cfg = convert.config(JaxConfig(horizon=H, num_features=M))
+    sw = solver._SweepLanes(None, (64, 128), cfg)
+    p0_l, target_l, izd_l, us_l = sw.lanes_scenario(
+        convert.scenario(JaxScenario(**arrs)))
+    calls = _Calls(monkeypatch, rollout=(sweep, "rollout"),
+                   forward=(sweep, "forward_sweep"))
+    monkeypatch.setattr(solver, "ROLLOUT_SCAN_MAX_BP", limit)
+    ps_l = sw.rollout_nominal(p0_l, us_l, us_l, us_l, target_l, izd_l)
+    assert calls.n == {"rollout": rollouts, "forward": forwards}
+    ref = sweep.rollout_plain(p0_l, us_l, izd_l, m=M, dt=cfg.dt)
+    np.testing.assert_allclose(ps_l.numpy(), ref.numpy(), rtol=1e-6,
+                               atol=1e-7)
+
+
 def test_rollout_threshold_is_the_jax_packages():
     assert solver.ROLLOUT_SCAN_MAX_BP == jax_solver.ROLLOUT_SCAN_MAX_BP == 8192

@@ -302,6 +302,92 @@ def test_zero_gain_forward_sweep_is_the_rollout():
         assert torch.equal(ps_c[:, a], torch.stack(rows))
 
 
+def _rollout_inputs(m, H, B, seed):
+    """p0 (n, B), controls (H, c, B) and inv_depth (m, B) in the solver's
+    ranges; scenarios 0 and 1 start at the edge of the state box, so some
+    states reach the clip, and two scenarios' controls hold NaNs."""
+    rng = np.random.default_rng(seed)
+    p0 = rng.uniform(-0.6, 0.6, (2 * m, B)).astype(np.float32)
+    p0[:, 0], p0[:, 1] = 3.95, -3.95
+    us = rng.uniform(-0.5, 0.5, (H, sweep.CONTROL_DIM, B)).astype(np.float32)
+    us[2:, 1, 3] = np.nan
+    us[:, :, B - 1] = np.nan
+    izd = (1.0 / rng.uniform(1.0, 5.0, (m, B))).astype(np.float32)
+    return p0, us, izd
+
+
+@pytest.mark.parametrize("m", [2, 3, 8, 16])
+def test_rollout_matches_jax_scan(m):
+    """``sweep.rollout`` on the CPU (its plain version) against the JAX
+    package's scan of ``_dyn_step``, at any feature count and a ragged
+    batch: NaNs where JAX has them, every other state within rtol 1e-6."""
+    import jax
+
+    H, B = 12, 37
+    p0, us, izd = _rollout_inputs(m, H, B, seed=40 + m)
+    got = sweep.rollout(*map(torch.from_numpy, (p0, us, izd)), m=m,
+                        dt=KW["dt"]).numpy()
+
+    def body(p, u):
+        nxt = jax_sp._dyn_step(p, u, jnp.asarray(izd), KW["dt"], m)
+        return nxt, nxt
+
+    _, tail = jax.lax.scan(body, jnp.asarray(p0), jnp.asarray(us))
+    ref = np.concatenate([p0[None], np.asarray(tail)])
+    assert got.shape == (H + 1, 2 * m, B)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(ref))
+    assert np.isnan(got[3:, :, 3]).any() and np.isnan(got[1:, :, B - 1]).all()
+    assert (np.abs(got) == dynamics.STATE_LIMIT).any()       # the clip hit
+    np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("m", [2, 3, 8])
+def test_rollout_is_the_zero_gain_forward_candidate(m):
+    """``sweep.rollout`` gives candidate 0 of a zero-gain
+    ``forward_sweep_plain`` bit for bit (the two rollout forms)."""
+    H, B = 7, 37
+    p0, _, us, *_, izd = map(torch.from_numpy, _inputs(m, H, B, seed=50 + m))
+    n, c = 2 * m, sweep.CONTROL_DIM
+    zeros = torch.zeros
+    ps_c, _, _ = sweep.forward_sweep_plain(
+        p0, zeros((H + 1, n, B)), us, zeros((H, c, n, B)), zeros((H, c, B)),
+        zeros((H, c, B)), zeros((H, c, B)), zeros((H + 1, n, B)),
+        zeros((n, B)), izd, m=m, **KW)
+    assert torch.equal(sweep.rollout(p0, us, izd, m=m, dt=KW["dt"]),
+                       ps_c[:, 0])
+
+
+def test_rollout_wrapper_checks_inputs():
+    """The rollout wrapper raises on a wrong shape, dtype or device; on
+    the CPU it launches nothing and counts nothing in the registry."""
+    from openmp_parallel_computing_tpu_torch.utils.metrics import registry
+
+    m, H, B = 3, 4, 9
+    p0, us, izd = map(torch.from_numpy, _rollout_inputs(m, H, B, seed=5))
+    kw = dict(m=m, dt=KW["dt"])
+    with pytest.raises(ValueError, match="us has shape"):
+        sweep.rollout(p0, us[:, :5], izd, **kw)
+    with pytest.raises(ValueError, match="inv_depth has shape"):
+        sweep.rollout(p0, us, izd[:2], **kw)
+    with pytest.raises(ValueError, match="p0 has shape"):
+        sweep.rollout(p0, us, izd, m=4, dt=KW["dt"])
+    with pytest.raises(TypeError, match="float64"):
+        sweep.rollout(p0, us.double(), izd, **kw)
+    with pytest.raises(ValueError, match="is on meta"):
+        sweep.rollout(p0, us.to("meta"), izd, **kw)
+    with pytest.raises(ValueError, match="unsupported device"):
+        sweep.rollout(*(t.to("meta") for t in (p0, us, izd)), **kw)
+
+    def count():
+        return (sweep.rollout.launches,
+                registry.snapshot()["counters"].get("mpc.rollout_kernel", 0))
+
+    before = count()
+    ps = sweep.rollout(p0, us, izd, **kw)
+    assert ps.shape == (H + 1, 2 * m, B) and torch.equal(ps[0], p0)
+    assert count() == before                      # CPU: no launches
+
+
 def test_sweep_wrappers_check_inputs():
     p0, ps, us, z, y, g, target, izd = map(torch.from_numpy,
                                            _inputs(2, 3, 8, seed=2))

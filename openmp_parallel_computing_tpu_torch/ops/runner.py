@@ -9,6 +9,9 @@ choices are read from, and ``make_runner``, which repeats a kernel
 cache: ``run(img)`` calls the op on the tensor's own device (the kernels
 on a CUDA tensor, their plain versions on a CPU tensor), or, sharded, on
 each shard's device.
+
+A run is the span ``image.passes`` (``IMAGE_SPANS``) and adds the passes
+it computes, sharded or not, to the always-on counter ``image.passes``.
 """
 
 from __future__ import annotations
@@ -21,6 +24,14 @@ import torch
 from openmp_parallel_computing_tpu_torch.ops.conv import gaussian_blur
 from openmp_parallel_computing_tpu_torch.ops.grayscale import grayscale
 from openmp_parallel_computing_tpu_torch.ops.pipeline import edge_pipeline
+from openmp_parallel_computing_tpu_torch.utils.metrics import registry
+
+# The image tier's spans: ``image.job``, the root of one
+# ``process_image_on`` call, carrying the job's id; inside it
+# ``image.upload`` (HWC -> CHW on the host and the copy to the device),
+# ``image.passes`` (a runner's call) and ``image.fetch`` (the result to
+# the host and CHW -> HWC).
+IMAGE_SPANS = ("image.job", "image.upload", "image.passes", "image.fetch")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,18 +91,26 @@ def make_runner(kernel: str, passes: int = 1, devices: int = 1,
     devices = min(devices, max(1, torch.cuda.device_count()))
     if devices <= 1 or spec.sharded is None:
         fn = spec.fn
-        return lambda img: fn(img, passes)
 
-    from openmp_parallel_computing_tpu_torch.parallel import mesh as _mesh
+        def repeat(img: torch.Tensor) -> torch.Tensor:
+            return fn(img, passes)
+    else:
+        from openmp_parallel_computing_tpu_torch.parallel import mesh as _mesh
 
-    mesh = _mesh.make_mesh(data=1, model=devices,
-                           devices=_mesh.default_devices()[:devices])
-    sharded = spec.sharded
+        mesh = _mesh.make_mesh(data=1, model=devices,
+                               devices=_mesh.default_devices()[:devices])
+        sharded = spec.sharded
+
+        def repeat(img: torch.Tensor) -> torch.Tensor:
+            for _ in range(passes):
+                img = sharded(img, mesh, orig_h=orig_h)
+            return img
 
     def run(img: torch.Tensor) -> torch.Tensor:
-        for _ in range(passes):
-            img = sharded(img, mesh, orig_h=orig_h)
-        return img
+        with registry.span("image.passes", on=img):
+            out = repeat(img)
+        registry.inc("image.passes", passes)
+        return out
 
     return run
 

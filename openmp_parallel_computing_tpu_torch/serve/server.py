@@ -36,6 +36,7 @@ import collections
 import email.parser
 import email.policy
 import functools
+import itertools
 import json
 import math
 import queue as queue_mod
@@ -233,7 +234,12 @@ _device_slots = threading.BoundedSemaphore(ServeConfig.max_inflight)
 # else is a 400.
 ALLOWED_HORIZONS = (5, 10, 20, 50)
 MAX_FEATURES = 16
-MAX_PASSES = 100
+# The upstream service's documented request (microservices/README.md:
+# 48-50) asks for 1000 passes.
+MAX_PASSES = 1000
+
+# The job ids that ``image.job`` spans carry.
+_job_ids = itertools.count()
 
 
 def _device_count(device: torch.device) -> int:
@@ -256,23 +262,33 @@ def process_image_on(device, data_hwc: np.ndarray, kernel: str, passes: int,
     compute seconds). With ``devices > 1`` the rows are padded to a
     multiple of it, split over that many cards, and the result cropped to
     the image (callers clamp ``devices`` to the cards first). The frame
-    is on the device before the span starts; the span ends with the
+    is on the device before the compute time starts; it ends with the
     result on the host. Raises ``ValueError`` for a frame the kernel
-    refuses."""
+    refuses.
+
+    Under a profiler the call is one ``image.job`` span carrying a job
+    id, over ``image.upload``, the runner's ``image.passes`` and
+    ``image.fetch`` (``ops.runner.IMAGE_SPANS``)."""
     device = torch.device(device)
-    chw, orig_h = pad_rows(torch.from_numpy(np.ascontiguousarray(
-        np.transpose(data_hwc, (2, 0, 1)))).to(device), devices)
-    # orig_h is part of the key: the sharded border mask depends on it, so
-    # two images padding to the same shape warm separately.
-    key = (kernel, tuple(chw.shape), passes, devices, orig_h, str(device))
-    run = make_runner(kernel, passes, devices, orig_h=orig_h)
-    if warm:
-        _ensure_warm(key, lambda: run(chw).cpu())
-    with _device_slots:
-        t0 = time.perf_counter()
-        out = run(chw).cpu().numpy()
-        compute_s = time.perf_counter() - t0
-    return np.transpose(out[:, :orig_h], (1, 2, 0)), compute_s
+    with metrics.span("image.job", on=device, step=next(_job_ids)):
+        with metrics.span("image.upload", on=device):
+            chw, orig_h = pad_rows(torch.from_numpy(np.ascontiguousarray(
+                np.transpose(data_hwc, (2, 0, 1)))).to(device), devices)
+        # orig_h is part of the key: the sharded border mask depends on
+        # it, so two images padding to the same shape warm separately.
+        key = (kernel, tuple(chw.shape), passes, devices, orig_h,
+               str(device))
+        run = make_runner(kernel, passes, devices, orig_h=orig_h)
+        if warm:
+            _ensure_warm(key, lambda: run(chw).cpu())
+        with _device_slots:
+            t0 = time.perf_counter()
+            out = run(chw)
+            with metrics.span("image.fetch", on=device):
+                out_hwc = np.transpose(out.cpu().numpy()[:, :orig_h],
+                                       (1, 2, 0))
+            compute_s = time.perf_counter() - t0
+    return out_hwc, compute_s
 
 
 def _parse_multipart(content_type: str, body: bytes,

@@ -33,7 +33,7 @@ from openmp_parallel_computing_tpu.serve import server as jax_srv
 from openmp_parallel_computing_tpu.utils import config as jax_config
 from openmp_parallel_computing_tpu.utils import httpguard as jax_httpguard
 from openmp_parallel_computing_tpu.utils import metrics as jax_metrics
-from openmp_parallel_computing_tpu_torch import imgio
+from openmp_parallel_computing_tpu_torch import imgio, ops
 from openmp_parallel_computing_tpu_torch.models.mpc import (
     MPCRuntime,
     Scenario,
@@ -426,7 +426,7 @@ def test_status_codes_equal_the_jax_servers(servers, monkeypatch):
         "p0 size": ("/control", dict(_fields(s), p0="0.1"), png),
         "deadline nan": ("/control", _fields(s, deadline_ms="nan"), png),
         "bad session": ("/control", _fields(s, session="../x"), png),
-        "passes > 100": ("/grayscale", {"passes": "101"}, png),
+        "passes > 1000": ("/grayscale", {"passes": "1001"}, png),
         "image endpoint, no image": ("/edge", {"passes": "1"}, None),
         "unknown kernel": ("/sharpen", {}, png),
     }
@@ -470,6 +470,23 @@ def test_shed_request_is_a_503_with_retry_after_on_both(servers,
         assert status == 503
         assert float(headers["Retry-After"]) > 0
         assert json.loads(body)["predicted_wait_s"] > 0.05
+
+
+def test_the_upstream_documented_passes_are_served(servers):
+    """``passes=1000``, the upstream service's documented request
+    (``microservices/README.md:48-50``), is served: the port's cap is
+    1000 (the JAX server keeps 100)."""
+    frame = _frames(1, seed=11)[0]
+    png = {"image": ("f.png", _png(frame))}
+    status, _, body = client.post(servers[0] + "/edge", {"passes": "1000"},
+                                  png)
+    assert status == 200
+    with tempfile.TemporaryDirectory() as td:
+        path = Path(td) / "out.png"
+        path.write_bytes(body)
+        got = imgio.load(path)
+    want = ops.edge_pipeline(torch.from_numpy(frame), passes=1000)
+    assert np.array_equal(got, want.permute(1, 2, 0).numpy())
 
 
 def test_two_channel_frame_is_a_400_on_the_port(servers):

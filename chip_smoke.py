@@ -99,8 +99,8 @@ Any failure raises and the script exits non-zero.
    CPU checks; B=256 with the split backward + forward pair, step by step
    against the unified kernel; B=16384, where the nominal and final
    rollouts are rollout launches as at every batch.
-4c. Measurement only: the main path with edge_sampler "analytic" and
-   "pallas" in turns at B=4096 and 256 (solves/s); the three rollout
+4c. Measurement only: the main path on the edge term's kernel route and
+   its dense route in turns at B=4096 and 256 (solves/s); the three rollout
    forms (the ``_dyn_step`` loop on the card, the zero-gain forward sweep
    and the rollout kernel), each called directly and timed in turns at
    B=256, 4096 and 16384; a torch.profiler split of the per-sweep path
@@ -113,6 +113,18 @@ Any failure raises and the script exits non-zero.
 4e. The fused backend: the loop with backend="fused" at B=4096 and 256
    (ilqr_iters x ADMM iterations batched Riccati launches a step), the
    card vs CPU checks, and a torch.profiler split at B=4096.
+4f. The analytic edge term's two routes on the card (``solver.edge_route``:
+   the gather sampler kernel, and the dense sampler it replaces on a
+   shared float32 pyramid) on the same card inputs at EDGE_ROUTE_CASES
+   (the benchmark cells' horizons and batches, the 1080p frame, a nominal
+   rollout of random controls): value within EDGE_VAL and gradient within
+   EDGE_GRAD (tests/test_torch_sampler.py's VAL and GRAD), each route's
+   device ms a call; one ``VisualServoMPC.control_step`` on each route,
+   the same gate decision, its first controls within EDGE_ROUTE_GAP of
+   each other (the H=20 cells' ``step_gap_p90`` limit, read as the
+   benchmark reads it: a scenario's largest difference over the batch's
+   largest magnitude, the 90th percentile over the batch); and the
+   registry's ``mpc.edge_kernel`` / ``mpc.edge_dense`` counts of each.
 5. The image entry point: ``cli.main`` for grayscale, edge and blur at
    CLI_PASSES passes on the 1080p frame (launch counts = warm-up + timed
    run), the staged grayscale -> sobel driver and ``EdgeBatchRunner`` on
@@ -299,6 +311,12 @@ LOOP_COST_RTOL = 1e-3            # free-running costs (measured 1.7e-4)
 # Steps of the card-vs-CPU loops (solve and per-sweep paths, one-launch
 # solve, fused backend), cut for the time limit: their CPU solves set it.
 LOOP_STEPS, FULL_LOOP_STEPS, FUSED_LOOP_STEPS = 6, 6, 4
+# The edge term's kernel route against its dense route (phase 4f):
+# (horizon, scenarios) of the benchmark cells; the sampler tests'
+# tolerances (rtol, atol); the H=20 cells' step_gap_p90 limit.
+EDGE_ROUTE_CASES = ((20, 256), (20, 4096), (20, 16384), (50, 4096))
+EDGE_VAL, EDGE_GRAD = (1e-5, 1e-6), (1e-4, 1e-6)
+EDGE_ROUTE_GAP = 2.5e-5
 
 H, M = 20, 8
 BATCHES = ((4096, 20), (256, 40))  # (scenarios, timed steps)
@@ -1860,17 +1878,21 @@ def read_counts() -> dict:
 
 
 def expected_launches(cfg, batch: int, steps: int, fired: int,
-                      unified: bool = True) -> dict:
+                      unified: bool = True, batched: bool = False) -> dict:
     """Launches of a receding-horizon run: one perception launch a step;
     the reference backends: nothing else; the fused backend: ilqr_iters
     batched Riccati launches per ADMM iteration and nothing else; the
     sweep backend: one full_solve launch a step (full_solve with
     edge_refresh "solve"), else per ADMM iteration
     one multi_sweep launch (edge_refresh admm/solve) or ilqr_iters
-    per-sweep launches; the gather sampler once per linearization and once
-    a step for the final cost; and a rollout launch for each nominal and
+    per-sweep launches; where the edge term takes the kernel route
+    (``solver.edge_route`` on the card; ``batched``: a pyramid per
+    scenario) the gather sampler once per linearization and once a step
+    for the final cost; and a rollout launch for each nominal and
     final rollout, at every batch (the full_solve kernel does its own
     final rollout)."""
+    from openmp_parallel_computing_tpu_torch.models.mpc import solver
+
     admm = steps * cfg.admm_iters + fired * cfg.admm_iters_extra
     want = dict.fromkeys(("edge_pyramid", "multi_sweep", "unified_sweep",
                           "backward_sweep", "forward_sweep", "full_solve",
@@ -1892,7 +1914,7 @@ def expected_launches(cfg, batch: int, steps: int, fired: int,
             want[k] = sweeps
     else:
         want["multi_sweep"] = admm
-    if cfg.edge_sampler == "pallas":
+    if solver.edge_route(cfg, batched, "cuda") == "kernel":
         want["sampler_vg"] = {"ilqr": cfg.ilqr_iters * admm, "admm": admm,
                               "solve": steps}[cfg.edge_refresh]
         want["sampler_vals"] = steps
@@ -2076,22 +2098,24 @@ def phase_ilqr(frames, rows: dict) -> dict:
 
 
 def phase_ab(frames) -> None:
-    """Measurement only: the main path's solves/s with each sampler, in
-    turns; the three rollout forms, each called directly, in turns."""
+    """Measurement only: the main path's solves/s on each route of the
+    edge term, in turns; the three rollout forms, each called directly, in
+    turns."""
     import torch
 
     from openmp_parallel_computing_tpu_torch.models.mpc import sweep
     from openmp_parallel_computing_tpu_torch.utils.config import MPCConfig
 
+    cfg = MPCConfig(horizon=H, num_features=M, edge_refresh="solve")
+    routes = {"kernel": contextlib.nullcontext, "dense": dense_route}
     for batch, steps in AB_BATCHES:
-        rates = {"analytic": [], "pallas": []}
-        for name in ("analytic", "pallas", "pallas", "analytic"):
-            cfg = MPCConfig(horizon=H, num_features=M, edge_refresh="solve",
-                            edge_sampler=name)
-            rate, _ = run_loop(cfg, frames, batch, steps, f"ab {name}")
+        rates = {name: [] for name in routes}
+        for name in ("kernel", "dense", "dense", "kernel"):
+            with routes[name]():
+                rate, _ = run_loop(cfg, frames, batch, steps, f"ab {name}")
             rates[name].append(rate)
-        log(f"[ab] sampler A/B, main path B={batch}: solves/s analytic "
-            f"{rates['analytic']}, pallas {rates['pallas']}")
+        log(f"[ab] edge route A/B, main path B={batch}: solves/s kernel "
+            f"{rates['kernel']}, dense {rates['dense']}")
 
     dt = 1.0 / 30.0
     for batch in ROLLOUT_AB_BATCHES:
@@ -2115,6 +2139,111 @@ def phase_ab(frames) -> None:
             f"turns: " + ", ".join(f"{name} {[round(t, 4) for t in ts]}"
                                    for name, ts in times.items())
             + f"; max abs diff {err:.3e}; {torch.cuda.get_device_name(0)}")
+
+
+@contextlib.contextmanager
+def dense_route():
+    """While the block runs, the sweep backend takes the dense analytic
+    sampler for the edge term (the route ``solver.edge_route`` gives the
+    CPU and bfloat16 storage) on every pyramid: the card's analytic path
+    as it was before the kernel route."""
+    from openmp_parallel_computing_tpu_torch.models.mpc import solver
+
+    route = solver.edge_route
+    solver.edge_route = lambda cfg, batched, device: "dense"
+    try:
+        yield
+    finally:
+        solver.edge_route = route
+
+
+def edge_counts() -> tuple:
+    """The registry's (``mpc.edge_kernel``, ``mpc.edge_dense``)."""
+    from openmp_parallel_computing_tpu_torch.utils.metrics import registry
+
+    c = registry.snapshot()["counters"]
+    return int(c.get("mpc.edge_kernel", 0)), int(c.get("mpc.edge_dense", 0))
+
+
+def route_gap(got, want) -> dict:
+    """The benchmark's gap of one field (leading axis B): per scenario the
+    largest absolute difference over the batch's largest magnitude of
+    ``want``; its 90th percentile and largest over the batch."""
+    import torch
+
+    got, want = got.double().reshape(got.shape[0], -1), want.double()
+    scale = max(want.abs().max().item(), 1e-3)
+    g = ((got - want.reshape(got.shape)).abs().amax(dim=1) / scale).cpu()
+    return {"p90": torch.quantile(g, 0.9).item(), "max": g.max().item()}
+
+
+def phase_edge_routes(frames) -> dict:
+    """The analytic edge term's kernel route against its dense route on
+    the card (docstring item 4f). Returns the readings by case."""
+    import torch
+
+    from openmp_parallel_computing_tpu_torch.models.mpc import (
+        VisualServoMPC, costs, solver)
+    from openmp_parallel_computing_tpu_torch.utils.config import MPCConfig
+
+    frame = frames[0]
+    shape = tuple(frame.shape[1:])
+    pyramid = costs.build_cost_pyramid_from_frame(frame)
+    out = {}
+    for h, b in EDGE_ROUTE_CASES:
+        cfg = MPCConfig(horizon=h, num_features=M, edge_refresh="solve")
+        args, _ = sweep_inputs(frame, M, h, b)
+        ps_l = args[1]
+        mpc = VisualServoMPC(cfg, "cuda")
+        scen = mpc.random_scenarios(b, torch.Generator().manual_seed(11 + h))
+        res = {}
+        for route, ctx in (("kernel", contextlib.nullcontext),
+                           ("dense", dense_route)):
+            with ctx(), GateLog(solver) as gates:
+                sw = solver._SweepLanes(pyramid, shape, cfg)
+                if sw.route != route:
+                    raise AssertionError(f"H={h} B={b}: route {sw.route}, "
+                                         f"not {route}")
+                c0 = edge_counts()
+                g, v = sw.edge_grads(ps_l), sw.edge_vals(ps_l)
+                torch.cuda.synchronize()
+                c1 = edge_counts()
+                ms = cuda_time_ms(lambda: sw.edge_grads(ps_l), 5)
+                c2 = edge_counts()
+                u0, sol = mpc.control_step(frame, scen)
+                torch.cuda.synchronize()
+                c3 = edge_counts()
+            res[route] = dict(g=g, v=v, u0=u0, cost=sol.cost, ms=ms,
+                              gate=gates.fired,
+                              counts=(c1[0] - c0[0], c1[1] - c0[1]),
+                              solve_counts=(c3[0] - c2[0], c3[1] - c2[1]))
+        k, d = res["kernel"], res["dense"]
+        row = {"points": (h + 1) * M * b, "grad_ms_kernel": round(k["ms"], 4),
+               "grad_ms_dense": round(d["ms"], 4)}
+        for what, tol in (("v", EDGE_VAL), ("g", EDGE_GRAD)):
+            ok = torch.isclose(k[what], d[what], rtol=tol[0], atol=tol[1])
+            row[f"{what}_max_abs_err"] = (k[what] - d[what]).abs().max().item()
+            row[f"{what}_out_of_tol"] = int((~ok).sum())
+        row.update({f"{key}_{r}": res[r][key] for r in res
+                    for key in ("counts", "solve_counts", "gate")})
+        row.update(u0_gap=route_gap(k["u0"], d["u0"]),
+                   cost_gap=route_gap(k["cost"], d["cost"]))
+        out[f"H{h}_B{b}"] = row
+        log(f"[edge route] H={h} B={b}, kernel vs dense: {json.dumps(row)}")
+        bad = []
+        if row["v_out_of_tol"] or row["g_out_of_tol"]:
+            bad.append("value or gradient out of tolerance")
+        if not (k["counts"] == k["solve_counts"] == (2, 0)
+                and d["counts"] == d["solve_counts"] == (0, 2)):
+            bad.append("edge counts")
+        if k["gate"] != d["gate"]:
+            bad.append("gate decisions")
+        if not row["u0_gap"]["p90"] <= EDGE_ROUTE_GAP:
+            bad.append(f"first controls' gap p90 past {EDGE_ROUTE_GAP}")
+        if bad:
+            raise AssertionError(f"[edge route] H={h} B={b}: "
+                                 f"{'; '.join(bad)}")
+    return out
 
 
 def phase_profile(frames, cfg, label: str,
@@ -2652,8 +2781,9 @@ def phase_headline() -> None:
     """The headline bench at HEADLINE_RUN, its launches counted: one
     perception launch a step (one a window on the fixed-frame ceiling),
     admm_iters multi_sweep launches a solve and admm_iters_extra more on
-    each gated solve, two rollout launches a solve, no other MPC
-    kernel."""
+    each gated solve, two rollout launches a solve, the edge term's two
+    sampler launches a solve (its kernel route: one linearization, one
+    final cost), no other MPC kernel."""
     import math
 
     import torch
@@ -2679,6 +2809,7 @@ def phase_headline() -> None:
     want["multi_sweep"] = (solves * cfg.admm_iters
                            + sum(gates.fired) * cfg.admm_iters_extra)
     want["rollout"] = 2 * solves
+    want["sampler_vg"] = want["sampler_vals"] = solves
     if launches != want or len(gates.fired) != solves:
         raise AssertionError(f"headline: launch counts {launches} != {want} "
                              f"({len(gates.fired)} gated solves of {solves})")
@@ -3339,7 +3470,7 @@ def serve_control(url: str, frames, pngs, problem, rows: dict) -> float:
         reset_counts()
         replies = post_together(f"{url}/control", reqs)
         launches = read_counts()
-        want = expected_launches(cfg, b, 1, 0)
+        want = expected_launches(cfg, b, 1, 0, batched=True)
         want["edge_pyramid"] = b
         if launches != want:
             raise AssertionError(f"/control B={b}: launch counts {launches} "
@@ -4802,6 +4933,7 @@ def main() -> int:
             ("slice", lambda: phase_slice(frames, rows)),
             ("ilqr", lambda: phase_ilqr(frames, rows)),
             ("ab", lambda: phase_ab(frames)),
+            ("edge routes", lambda: phase_edge_routes(frames)),
             ("profile", lambda: phase_profile(frames, ilqr, "ilqr/pallas")),
             ("full", lambda: phase_full(frames, rows)),
             ("fused", lambda: phase_fused(frames, rows)),

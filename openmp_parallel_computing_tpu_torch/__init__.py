@@ -2,8 +2,8 @@
 
 Two paths: the closed-loop visual-servo MPC step on the ``"sweep"``
 backend (the fused perception kernel ``csrc/edge_pyramid.cu``, the
-analytic edge linearization, the multi-sweep iLQR kernel
-``csrc/multi_sweep.cu``), and the image-kernel entry point (the CLI and
+analytic edge linearization on the gather sampler ``csrc/sampler.cu``,
+the multi-sweep iLQR kernel ``csrc/multi_sweep.cu``), and the image-kernel entry point (the CLI and
 kernel registry over ``csrc/grayscale.cu``, ``csrc/stencil.cu`` and
 ``csrc/conv3x3.cu``), with the reductions (``csrc/reductions.cu``), the
 capability probe, the headline MPC bench and the bench surfaces, the

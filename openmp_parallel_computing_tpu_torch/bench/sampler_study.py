@@ -8,7 +8,9 @@ closed-loop windows (port of
 The samplers keep the JAX names: ``"xla"`` is the dense sampler with its
 gradient by autograd, ``"analytic"`` the dense sampler with its gradient
 in closed form, ``"pallas"`` the CUDA gather kernel (``csrc/sampler.cu``).
-The windows are ``ceiling_probe``'s (fixed frame, median of trials, each
+On the card the solver computes the ``"analytic"`` term of the study's
+shared float32 pyramid on that kernel too (``solver.edge_route``), so
+those two columns time one route. The windows are ``ceiling_probe``'s (fixed frame, median of trials, each
 ended by a synchronize and a fetch of its last controls). One JSON row
 per (horizon, batch), with each sampler's solves/s and its ratio to the
 first sampler listed.

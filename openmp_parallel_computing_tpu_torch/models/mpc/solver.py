@@ -42,20 +42,33 @@ on the closures and the strict ``J < j0`` pick. The JAX package vmaps a
 per-scenario solve; here every op takes the scenario axis leading. The
 adaptive gate stays batch-global.
 
-The edge linearization is the value + gradient of the pyramid edge cost:
-the dense analytic sampler (``costs.edge_vg_pyramid_xy``,
-``edge_sampler="analytic"``), the same dense sampler's value with its
-gradient by ``torch.autograd`` (``edge_sampler="xla"``) or the gather
-sampler kernel (``sampler.edge_vg_lanes``, ``edge_sampler="pallas"``),
+The edge linearization is the value + gradient of the pyramid edge cost,
 taken once per ADMM iteration (``edge_refresh="admm"``), once per solve
 at the warm-start trajectory (``"solve"``) or before every sweep
-(``"ilqr"``). With ``sampler_dtype="bfloat16"`` the sweep backend's dense
-samplers store their weights and the mean-centred levels in bfloat16 and
-accumulate in float32. A pyramid
-per scenario (levels (B, Hf, Wf): ``solve_batch_multi``,
-``control_step_multi``, the serving micro-batch) always takes the dense
-analytic sampler in float32, whatever ``edge_sampler`` and
-``sampler_dtype`` say, as in the JAX package.
+(``"ilqr"``). On the sweep backend ``edge_route`` picks its form from
+what the solve can see:
+
+- ``"kernel"``: on the card, a shared pyramid under
+  ``edge_sampler="pallas"``, or under ``"analytic"`` with float32 storage,
+  takes the gather sampler kernel (``sampler.sample``, ``csrc/sampler.cu``):
+  one launch for the value and gradient, one for the value. Its two-texel
+  lerps are the dense sampler's one-hot-pair contractions written out, so
+  ``"analytic"`` keeps its mathematics and drops its dense weight products;
+- ``"gather"``: ``"pallas"`` on the CPU, the same sampler's plain version;
+- ``"autograd"``: ``"xla"`` on a shared pyramid, the dense sampler's value
+  with its gradient by ``torch.autograd``;
+- ``"dense"``: the dense analytic sampler (``costs.edge_vg_pyramid_xy``):
+  ``"analytic"`` on the CPU (held there to the JAX package), with
+  ``sampler_dtype="bfloat16"`` (weights and mean-centred levels stored in
+  bfloat16, accumulation in float32), and every pyramid per scenario
+  (levels (B, Hf, Wf): ``solve_batch_multi``, ``control_step_multi``, the
+  serving micro-batch), in float32 whatever ``edge_sampler`` and
+  ``sampler_dtype`` say, as in the JAX package.
+
+Each edge evaluation is counted in the metrics registry, always on:
+``mpc.edge_kernel`` one on the kernel, ``mpc.edge_dense`` one on a dense
+form (the CPU's plain gather counts in neither). The fused and reference
+backends keep their own dense samplers.
 
 On the card every nominal and final rollout is one ``sweep.rollout``
 kernel launch, at every batch size. On the CPU the rollouts keep the JAX
@@ -118,6 +131,29 @@ ROLLOUT_SCAN_MAX_BP = 8192
 # The fused and reference backends' line-search candidates (the sweep
 # kernels use sweep.ALPHAS = (0, 1, 0.5, 0.25)).
 _ALPHAS = (1.0, 0.5, 0.25)
+
+
+def edge_route(cfg: MPCConfig, batched: bool, device) -> str:
+    """The form the sweep backend takes for the edge term of a pyramid on
+    ``device``, shared or per scenario (``batched``): ``"kernel"``,
+    ``"gather"``, ``"autograd"`` or ``"dense"`` (module docstring)."""
+    if batched:
+        return "dense"
+    if cfg.edge_sampler == "xla":
+        return "autograd"
+    on_card = torch.device(device).type == "cuda"
+    if cfg.edge_sampler == "pallas":
+        return "kernel" if on_card else "gather"
+    return ("kernel" if on_card and cfg.sampler_dtype == "float32"
+            else "dense")
+
+
+def _count_edge(route: str) -> None:
+    """One edge evaluation into the registry's counter of its route."""
+    if route == "kernel":
+        registry.inc("mpc.edge_kernel")
+    elif route != "gather":
+        registry.inc("mpc.edge_dense")
 
 
 def _to_split(a: torch.Tensor) -> torch.Tensor:
@@ -240,6 +276,7 @@ class _SweepLanes:
         self.sampler_dt = (torch.bfloat16 if cfg.sampler_dtype == "bfloat16"
                            and not self.batched else None)
         dev = pyramid[0].device if pyramid else torch.device("cpu")
+        self.route = edge_route(cfg, self.batched, dev)
         self.use_multi = (cfg.edge_refresh in ("admm", "solve")
                           and sweep.group_sweep_fits(
                               "multi_sweep", self.m, cfg.horizon, dev))
@@ -275,15 +312,17 @@ class _SweepLanes:
     # -- edge term ----------------------------------------------------------
 
     def gather(self) -> bool:
-        """True when the edge term goes through the gather sampler kernel:
-        ``edge_sampler="pallas"`` on a shared pyramid (a per-scenario
-        pyramid takes the dense sampler, as in the JAX package)."""
-        return self.cfg.edge_sampler == "pallas" and not self.batched
+        """True when the edge term goes through the gather sampler: its
+        kernel on the card (``"pallas"``, or ``"analytic"`` in float32, on
+        a shared pyramid) or its plain version on the CPU (``"pallas"``);
+        see ``edge_route``."""
+        return self.route in ("kernel", "gather")
 
     def edge_vals(self, ps_l: torch.Tensor) -> torch.Tensor:
         """Pyramid edge cost along a lanes trajectory -> (h+1, B)."""
         m = self.m
         with span("mpc.edge", on=ps_l):
+            _count_edge(self.route)
             if self.gather():
                 return sampler.edge_vals_lanes(self.pyramid, ps_l[:, :m],
                                                ps_l[:, m:], *self.shape)
@@ -293,24 +332,25 @@ class _SweepLanes:
 
     def edge_grads(self, ps_l: torch.Tensor) -> torch.Tensor:
         """Gradient of the summed edge cost along a lanes trajectory,
-        (h+1, n, B), by the gather sampler kernel (one launch), by
-        ``torch.autograd`` of ``edge_vals`` (``edge_sampler="xla"``: the
-        solves run under ``torch.no_grad()``, so the graph is built on a
-        copy inside ``torch.enable_grad()``) or by the dense analytic
-        sampler."""
+        (h+1, n, B), by the gather sampler (one launch on the card), by
+        ``torch.autograd`` of ``edge_vals`` (``"autograd"``: the solves run
+        under ``torch.no_grad()``, so the graph is built on a copy inside
+        ``torch.enable_grad()``; ``edge_vals`` counts the evaluation) or by
+        the dense analytic sampler."""
         if not self.qe:
             return torch.zeros_like(ps_l)
         m = self.m
         with span("mpc.edge", on=ps_l):
-            if self.gather():
-                _, g = sampler.sample(self.pyramid, ps_l[:, :m], ps_l[:, m:],
-                                      *self.shape, grads=True)
-                return g * (1.0 / (m * len(self.pyramid)))
-            if self.cfg.edge_sampler == "xla" and not self.batched:
+            if self.route == "autograd":
                 with torch.enable_grad():
                     p = ps_l.detach().requires_grad_()
                     (g,) = torch.autograd.grad(self.edge_vals(p).sum(), p)
                 return g
+            _count_edge(self.route)
+            if self.gather():
+                _, g = sampler.sample(self.pyramid, ps_l[:, :m], ps_l[:, m:],
+                                      *self.shape, grads=True)
+                return g * (1.0 / (m * len(self.pyramid)))
             _, gx, gy = costs.edge_vg_pyramid_xy(self.pyramid, ps_l[:, :m],
                                                  ps_l[:, m:], *self.shape,
                                                  dtype=self.sampler_dt)

@@ -53,7 +53,9 @@ class MPCConfig:
     # per solve at the warm-start trajectory; "ilqr": before every sweep.
     edge_refresh: str = "admm"
     # "analytic": dense separable sampler (torch matmuls) with its
-    # gradient in closed form; "xla" keeps the JAX package's name: the
+    # gradient in closed form; on the card the sweep backend computes the
+    # same mathematics on a shared float32 pyramid with the CUDA gather
+    # sampler (solver.edge_route); "xla" keeps the JAX package's name: the
     # same dense sampler, its gradient by torch.autograd; "pallas" keeps
     # the JAX package's name and selects the CUDA gather sampler
     # (models/mpc/sampler.py, csrc/sampler.cu).

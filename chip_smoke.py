@@ -87,8 +87,8 @@ Any failure raises and the script exits non-zero.
 4. The main MPC path: ``VisualServoMPC.receding_horizon_frames`` at H=20,
    m=8, edge_refresh="solve" on the 8-frame 1080p ring at B=4096 and
    B=256 (solves/s), launch counts of every MPC kernel checked against
-   the steps and gate decisions (two rollout launches a solve, read from
-   the metrics registry's ``mpc.rollout_kernel``), outputs
+   the steps and gate decisions (two rollout launches a solve; every
+   count is read from the metrics registry's ``launch.<kernel>``), outputs
    finite, and a 32-scenario loop
    compared between the card and the port's CPU path: step by step from
    the same state within STEP_TOL, free-running costs within
@@ -124,7 +124,8 @@ Any failure raises and the script exits non-zero.
    each other (the H=20 cells' ``step_gap_p90`` limit, read as the
    benchmark reads it: a scenario's largest difference over the batch's
    largest magnitude, the 90th percentile over the batch); and the
-   registry's ``mpc.edge_kernel`` / ``mpc.edge_dense`` counts of each.
+   sampler kernel's launches and the registry's ``mpc.edge_dense`` of
+   each.
 5. The image entry point: ``cli.main`` for grayscale, edge and blur at
    CLI_PASSES passes on the 1080p frame (launch counts = warm-up + timed
    run), the staged grayscale -> sobel driver and ``EdgeBatchRunner`` on
@@ -964,11 +965,8 @@ def check_horizon_too_large(frame, kw) -> None:
     a one-launch solve of LONG_BATCH scenarios runs the per-sweep path to
     finite controls; a direct launch of either kernel raises, and the next
     CUDA call is unharmed."""
-    import ctypes
-
     import torch
 
-    from openmp_parallel_computing_tpu_torch import _build
     from openmp_parallel_computing_tpu_torch.models.mpc import costs, sweep
     from openmp_parallel_computing_tpu_torch.models.mpc.solver import (
         VisualServoMPC, _SweepLanes)
@@ -979,11 +977,7 @@ def check_horizon_too_large(frame, kw) -> None:
         cfg = MPCConfig(horizon=h, num_features=M, edge_refresh="solve",
                         full_solve=True, admm_iters_extra=0)
         sw = _SweepLanes(pyramid, frame.shape[1:], cfg)
-        need = {k: _build.function(lib, f"{k}_smem_bytes",
-                                   [ctypes.c_int] * 2)(M, h)
-                for k, lib in (("multi_sweep", "multi_sweep"),
-                               ("full_solve", "full_solve"),
-                               ("unified_sweep", "sweep"))}
+        need = {k: q(M, h) for k, q in sweep.SMEM_BYTES.items()}
         fits = {k: sweep.group_sweep_fits(k, M, h, frame.device)
                 for k in need}
         log(f"[kernel] H={h}: shared memory a block {need} B, the card's "
@@ -994,17 +988,15 @@ def check_horizon_too_large(frame, kw) -> None:
         if ((sw.use_multi, sw.use_full) != ((h == H),) * 2
                 or set(fits.values()) != {h == H}):
             raise AssertionError(f"group-sweep admission wrong at H={h}")
-    before = (sweep.multi_sweep.launches, sweep.full_solve.launches,
-              sweep.unified_sweep.launches)
+    before = launch_mark("multi_sweep", "full_solve", "unified_sweep")
     mpc = VisualServoMPC(cfg, "cuda")
     scen = mpc.random_scenarios(LONG_BATCH, torch.Generator().manual_seed(5))
     u0, sol = mpc.control_step(frame, scen)
-    after = (sweep.multi_sweep.launches, sweep.full_solve.launches,
-             sweep.unified_sweep.launches)
+    got = launches_since(before)
     log(f"[kernel] one-launch solve at H={TOO_LONG_H}, B={LONG_BATCH}: "
-        f"launches (multi_sweep, full_solve, unified_sweep) {before} -> "
-        f"{after}, cost finite {bool(torch.isfinite(sol.cost).all())}")
-    if after[:2] != before[:2] or after[2] == before[2]:
+        f"launches {got}, cost finite "
+        f"{bool(torch.isfinite(sol.cost).all())}")
+    if got["multi_sweep"] or got["full_solve"] or not got["unified_sweep"]:
         raise AssertionError("the long horizon did not take the per-sweep "
                              "path")
     if not (torch.isfinite(u0).all() and torch.isfinite(sol.cost).all()):
@@ -1638,7 +1630,6 @@ def fused_riccati_inputs(frame, batch: int, m: int = M, h: int = H):
         seen.append(args)
         return orig(*args, **kw)
 
-    watch.launches = 0      # the wrapper counts on its module-level name
     riccati_lanes.backward_batched = watch
     try:
         mpc.control_step(frame, scen)
@@ -1835,46 +1826,23 @@ class GateLog:
         self.mod._adaptive_extra = self.orig
 
 
-def counters() -> dict:
-    """The launch counters of the MPC kernels' wrappers, by kernel."""
-    from openmp_parallel_computing_tpu_torch.models.mpc import (
-        riccati_lanes, sampler, sweep)
-    from openmp_parallel_computing_tpu_torch.ops import pipeline
-
-    return {"edge_pyramid": pipeline.edge_pyramid_base, "sampler": sampler.sample,
-            "multi_sweep": sweep.multi_sweep,
-            "unified_sweep": sweep.unified_sweep,
-            "backward_sweep": sweep.backward_sweep,
-            "forward_sweep": sweep.forward_sweep,
-            "full_solve": sweep.full_solve,
-            "riccati_backward": riccati_lanes.backward_batched}
+# The MPC kernels, as the metrics registry counts their launches
+# (``launch.<kernel>``): the keys of ``expected_launches``.
+MPC_KERNELS = ("edge_pyramid", "multi_sweep", "unified_sweep",
+               "backward_sweep", "forward_sweep", "full_solve",
+               "riccati_backward", "rollout", "sample_vg", "sample")
 
 
-def rollout_launches() -> int:
-    """The rollout kernel's launches: the metrics registry's
-    ``mpc.rollout_kernel``."""
-    from openmp_parallel_computing_tpu_torch.utils.metrics import registry
-
-    return int(registry.snapshot()["counters"].get("mpc.rollout_kernel", 0))
+def launch_mark(*kernels: str) -> dict:
+    """The registry's launch counters of ``kernels`` (the MPC kernels when
+    none are named) now, for ``launches_since``."""
+    return _build().launch_counts(*(kernels or MPC_KERNELS))
 
 
-_ROLLOUT_AT_RESET = [0]
-
-
-def reset_counts() -> None:
-    for w in counters().values():
-        w.launches = 0
-    counters()["sampler"].vg_launches = 0
-    _ROLLOUT_AT_RESET[0] = rollout_launches()
-
-
-def read_counts() -> dict:
-    """The launches since ``reset_counts``."""
-    out = {k: w.launches for k, w in counters().items()}
-    vg = counters()["sampler"].vg_launches
-    out["sampler_vg"], out["sampler_vals"] = vg, out.pop("sampler") - vg
-    out["rollout"] = rollout_launches() - _ROLLOUT_AT_RESET[0]
-    return out
+def launches_since(mark: dict) -> dict:
+    """The launches of ``mark``'s kernels since ``launch_mark`` read it."""
+    now = _build().launch_counts(*mark)
+    return {k: now[k] - n for k, n in mark.items()}
 
 
 def expected_launches(cfg, batch: int, steps: int, fired: int,
@@ -1894,10 +1862,7 @@ def expected_launches(cfg, batch: int, steps: int, fired: int,
     from openmp_parallel_computing_tpu_torch.models.mpc import solver
 
     admm = steps * cfg.admm_iters + fired * cfg.admm_iters_extra
-    want = dict.fromkeys(("edge_pyramid", "multi_sweep", "unified_sweep",
-                          "backward_sweep", "forward_sweep", "full_solve",
-                          "riccati_backward", "rollout", "sampler_vg",
-                          "sampler_vals"), 0)
+    want = dict.fromkeys(MPC_KERNELS, 0)
     want["edge_pyramid"] = steps
     full = cfg.full_solve and cfg.edge_refresh == "solve"
     if cfg.backend in ("reference", "assoc"):
@@ -1915,28 +1880,29 @@ def expected_launches(cfg, batch: int, steps: int, fired: int,
     else:
         want["multi_sweep"] = admm
     if solver.edge_route(cfg, batched, "cuda") == "kernel":
-        want["sampler_vg"] = {"ilqr": cfg.ilqr_iters * admm, "admm": admm,
-                              "solve": steps}[cfg.edge_refresh]
-        want["sampler_vals"] = steps
+        want["sample_vg"] = {"ilqr": cfg.ilqr_iters * admm, "admm": admm,
+                             "solve": steps}[cfg.edge_refresh]
+        want["sample"] = steps
     want["rollout"] = (1 if full else 2) * steps
     return want
 
 
 def drive(mpc, frames, scen, steps: int):
-    """One counted run of the closed loop: counts set to 0 just before,
-    read just after. Returns (u0s, costs, scen', launches, fired, wall)."""
+    """One counted run of the closed loop: the launches between a mark just
+    before and a read just after. Returns (u0s, costs, scen', launches,
+    fired, wall)."""
     import torch
 
     from openmp_parallel_computing_tpu_torch.models.mpc import solver
 
     torch.cuda.synchronize()
-    reset_counts()
+    mark = launch_mark()
     with GateLog(solver) as gates:
         t0 = time.perf_counter()
         u0s, cost_seq, scen = mpc.receding_horizon_frames(frames, scen, steps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    return u0s, cost_seq, scen, read_counts(), sum(gates.fired), wall
+    return u0s, cost_seq, scen, launches_since(mark), sum(gates.fired), wall
 
 
 def run_loop(cfg, frames, batch: int, steps: int, label: str,
@@ -2055,8 +2021,8 @@ def phase_ilqr(frames, rows: dict) -> dict:
     for batch, steps in ILQR_BATCHES:
         rates[batch], launches = run_loop(cfg, frames, batch, steps, "ilqr")
         if batch == ILQR_BATCHES[0][0]:
-            rows["sampler"]["launches"] = (launches["sampler_vg"]
-                                           + launches["sampler_vals"])
+            rows["sampler"]["launches"] = (launches["sample_vg"]
+                                           + launches["sample"])
             rows["unified_sweep"]["launches"] = launches["unified_sweep"]
     card_vs_cpu(frames, cfg, "ilqr")
 
@@ -2158,11 +2124,11 @@ def dense_route():
 
 
 def edge_counts() -> tuple:
-    """The registry's (``mpc.edge_kernel``, ``mpc.edge_dense``)."""
+    """(the sampler kernel's launches, the registry's ``mpc.edge_dense``)."""
     from openmp_parallel_computing_tpu_torch.utils.metrics import registry
 
-    c = registry.snapshot()["counters"]
-    return int(c.get("mpc.edge_kernel", 0)), int(c.get("mpc.edge_dense", 0))
+    dense = registry.snapshot()["counters"].get("mpc.edge_dense", 0)
+    return sum(launch_mark("sample_vg", "sample").values()), int(dense)
 
 
 def route_gap(got, want) -> dict:
@@ -2723,7 +2689,7 @@ def sum_values(dtype, n: int, gen):
 
 def phase_reductions(frames, rows: dict) -> None:
     """The reductions' path: the public ops API over the ring and the
-    legacy input, counts set to 0 just before and read just after; each
+    legacy input, its launches counted; each
     result against its plain version, the legacy golden bit for bit."""
     import numpy as np
     import torch
@@ -2733,13 +2699,12 @@ def phase_reductions(frames, rows: dict) -> None:
 
     legacy_img, legacy = legacy_input("cuda")
     torch.cuda.synchronize()
-    ops.channel_sum.launches = ops.grayscale_mean_minmax.launches = 0
+    mark = launch_mark("channel_sum", "gray_minmax")
     outs = [(ops.channel_mean(f), ops.channel_sum(f),
              ops.grayscale_mean_minmax(f)) for f in frames]
     gray, mn, mx = ops.grayscale_mean_minmax(legacy_img)
     torch.cuda.synchronize()
-    got = {"channel_sum": ops.channel_sum.launches,
-           "gray_minmax": ops.grayscale_mean_minmax.launches}
+    got = launches_since(mark)
     # channel_sum: one launch a call, two calls a frame; gray_minmax: one
     # a frame and one for the legacy input.
     want = {"channel_sum": 2 * frames.shape[0],
@@ -2797,19 +2762,19 @@ def phase_headline() -> None:
     loop_steps = windows * (k["steps"] + k["steps_small"])
     solves = loop_steps + (1 + k["trials"]) * k["steps"]
     torch.cuda.synchronize()
-    reset_counts()
+    mark = launch_mark()
     with GateLog(solver) as gates:
         t0 = time.perf_counter()
         out = headline.run(**k)
         wall = time.perf_counter() - t0
-    launches = read_counts()
+    launches = launches_since(mark)
     cfg = MPCConfig(horizon=20, num_features=8, edge_refresh="solve")
     want = {n: 0 for n in launches}
     want["edge_pyramid"] = loop_steps + 1 + k["trials"]
     want["multi_sweep"] = (solves * cfg.admm_iters
                            + sum(gates.fired) * cfg.admm_iters_extra)
     want["rollout"] = 2 * solves
-    want["sampler_vg"] = want["sampler_vals"] = solves
+    want["sample_vg"] = want["sample"] = solves
     if launches != want or len(gates.fired) != solves:
         raise AssertionError(f"headline: launch counts {launches} != {want} "
                              f"({len(gates.fired)} gated solves of {solves})")
@@ -2864,30 +2829,25 @@ def phase_image_cli(frames, photos, rows: dict) -> None:
     from openmp_parallel_computing_tpu_torch.ops.pipeline import (
         edge_pipeline_plain)
 
-    # Each image kernel's wrapper, which carries its launch count.
-    wrappers = {"grayscale": ops.grayscale, "sobel": ops.sobel,
-                "edge": ops.edge_pipeline, "conv3x3": ops.conv3x3}
+    # The image kernels, as the registry counts their launches.
+    kernels = ("grayscale", "sobel", "edge", "conv3x3")
     via = {"grayscale": "grayscale", "edge": "edge", "blur": "conv3x3"}
     out_dir = ROOT / "build" / "chip_smoke"
     out_dir.mkdir(parents=True, exist_ok=True)
-    totals = dict.fromkeys(wrappers, 0)
+    totals = dict.fromkeys(kernels, 0)
 
-    def reset():
-        for w in wrappers.values():
-            w.launches = 0
-
-    def read(want: dict, what: str):
-        got = {n: w.launches for n, w in wrappers.items()}
+    def read(mark: dict, want: dict, what: str):
+        got = launches_since(mark)
         if got != want:
             raise AssertionError(f"{what}: launch counts {got} != {want}")
         for n, c in got.items():
             totals[n] += c
 
     # The main path: the command line, then the staged driver and the
-    # batch runner. Counts are set to 0 just before each run and read
-    # just after it.
-    for kernel, wrapper in via.items():
-        reset()
+    # batch runner. Each run's launches are counted from a mark just
+    # before it to a read just after it.
+    for kernel, counted in via.items():
+        mark = launch_mark(*kernels)
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             rc = cli.main([str(data.frame_path()),
@@ -2896,15 +2856,15 @@ def phase_image_cli(frames, photos, rows: dict) -> None:
         log(f"[cli] --kernel {kernel}: {buf.getvalue().strip()}")
         if rc != 0:
             raise AssertionError(f"cli --kernel {kernel} returned {rc}")
-        read({n: 2 * CLI_PASSES if n == wrapper else 0 for n in wrappers},
-             f"cli --kernel {kernel}")
+        read(mark, {n: 2 * CLI_PASSES if n == counted else 0
+                    for n in kernels}, f"cli --kernel {kernel}")
     frame = frames[0]
-    reset()
+    mark = launch_mark(*kernels)
     staged = ops.sobel(ops.grayscale(frame)[0])
     batch = EdgeBatchRunner()(frames)
     torch.cuda.synchronize()
-    read({"grayscale": 1, "sobel": 1, "edge": frames.shape[0],
-          "conv3x3": 0}, "staged driver and batch runner")
+    read(mark, {"grayscale": 1, "sobel": 1, "edge": frames.shape[0],
+                "conv3x3": 0}, "staged driver and batch runner")
     for name, n in totals.items():
         rows[name]["launches"] = n
     log(f"[cli] launches on the image path: {totals}")
@@ -2952,21 +2912,21 @@ def runtime_start(batch: int, seed: int = 0):
 
 
 def counted(fn):
-    """``fn()`` with the MPC kernels' counts set to 0 just before and read
-    just after, the gate's decisions logged: (result, launches, gates
-    fired, wall seconds)."""
+    """``fn()`` with the MPC kernels' launches counted from a mark just
+    before to a read just after, the gate's decisions logged: (result,
+    launches, gates fired, wall seconds)."""
     import torch
 
     from openmp_parallel_computing_tpu_torch.models.mpc import solver
 
     torch.cuda.synchronize()
-    reset_counts()
+    mark = launch_mark()
     with GateLog(solver) as gates:
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    return out, read_counts(), sum(gates.fired), wall
+    return out, launches_since(mark), sum(gates.fired), wall
 
 
 def check_launches(label: str, cfg, batch: int, steps: int, launches: dict,
@@ -3186,7 +3146,7 @@ def phase_bench_surfaces(frames, rows: dict) -> None:
 
     import torch
 
-    from openmp_parallel_computing_tpu_torch import data, imgio, ops
+    from openmp_parallel_computing_tpu_torch import data, imgio
     from openmp_parallel_computing_tpu_torch.bench import (
         chains, device_loop, harness, image_set, sysid_loop_study)
     from openmp_parallel_computing_tpu_torch.utils.config import MPCConfig
@@ -3220,13 +3180,10 @@ def phase_bench_surfaces(frames, rows: dict) -> None:
                    fired)
     log(f"[bench] sysid price: {json.dumps(price)} ({wall:.1f} s)")
 
-    # The image harness; its kernels' wrappers carry the counts.
-    wrappers = {"grayscale": ops.grayscale, "edge": ops.edge_pipeline,
-                "conv3x3": ops.conv3x3, "sobel": ops.sobel}
+    # The image harness, its kernels' launches counted.
     out_dir = ROOT / "chiprun_out" / "bench_surfaces"
     torch.cuda.synchronize()
-    for w in wrappers.values():
-        w.launches = 0
+    mark = launch_mark("grayscale", "edge", "conv3x3", "sobel")
     t0 = time.perf_counter()
     gray = harness.bench_kernel(data.frame_path(), runs=k["runs"],
                                 passes=k["passes"], kernel="grayscale",
@@ -3237,7 +3194,7 @@ def phase_bench_surfaces(frames, rows: dict) -> None:
                                      passes=k["passes"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    got = {n: w.launches for n, w in wrappers.items()}
+    got = launches_since(mark)
     per = (1 + k["runs"]) * k["passes"]        # warm-up + runs, each passes
     want = {"grayscale": per, "edge": per * len(data.fixture_set()),
             "conv3x3": per, "sobel": 0}
@@ -3377,19 +3334,17 @@ def serve_images(url: str, tmp, rows: dict) -> None:
     png = data.frame_path().read_bytes()
     cpu = torch.from_numpy(np.ascontiguousarray(
         np.transpose(imgio.load(data.frame_path()), (2, 0, 1))))
-    wrappers = {"grayscale": ("grayscale", ops.grayscale),
-                "edge": ("edge", ops.edge_pipeline),
-                "blur": ("conv3x3", ops.conv3x3)}
-    for kernel, (row, wrapper) in wrappers.items():
+    rows_of = {"grayscale": "grayscale", "edge": "edge", "blur": "conv3x3"}
+    for kernel, row in rows_of.items():
         rows[row]["launches_serve"] = 0
         for passes in SERVE_PASSES:
             fields = {"passes": str(passes)}
             post_ok(f"{url}/{kernel}", fields, png, "frame_1080p.png")
             torch.cuda.synchronize()
-            wrapper.launches = 0
+            mark = launch_mark(row)
             headers, body = post_ok(f"{url}/{kernel}", fields, png,
                                     "frame_1080p.png")
-            got = wrapper.launches
+            got = launches_since(mark)[row]
             if got != passes:
                 raise AssertionError(f"/{kernel} passes={passes}: {got} "
                                      f"launches of {row}")
@@ -3467,9 +3422,9 @@ def serve_control(url: str, frames, pngs, problem, rows: dict) -> float:
                 for i in range(b)]
         post_together(f"{url}/control", reqs)   # the bucket's warm-up
         torch.cuda.synchronize()
-        reset_counts()
+        mark = launch_mark()
         replies = post_together(f"{url}/control", reqs)
-        launches = read_counts()
+        launches = launches_since(mark)
         want = expected_launches(cfg, b, 1, 0, batched=True)
         want["edge_pyramid"] = b
         if launches != want:
@@ -3690,16 +3645,15 @@ def dist_stencils(frame, rows: dict) -> None:
 
     mesh = logical_mesh(1, DIST_SHARDS)
     gray = ops.grayscale(frame)[0].contiguous()
-    cases = {   # name -> (sharded, unsharded pass, wrapper, row, input)
-        "grayscale": (parallel.sharded_grayscale, ops.grayscale,
-                      ops.grayscale, "grayscale", frame),
-        "sobel": (parallel.sharded_sobel, ops.sobel, ops.sobel, "sobel",
-                  gray),
+    cases = {   # name -> (sharded, unsharded pass, kernel row, input)
+        "grayscale": (parallel.sharded_grayscale, ops.grayscale, "grayscale",
+                      frame),
+        "sobel": (parallel.sharded_sobel, ops.sobel, "sobel", gray),
         "edge_pipeline": (parallel.sharded_edge_pipeline, ops.edge_pipeline,
-                          ops.edge_pipeline, "edge", frame),
+                          "edge", frame),
         "gaussian_blur": (parallel.sharded_gaussian_blur, ops.gaussian_blur,
-                          ops.conv3x3, "conv3x3", frame)}
-    for name, (sharded, single, wrapper, row, img) in cases.items():
+                          "conv3x3", frame)}
+    for name, (sharded, single, row, img) in cases.items():
         crop = img[..., :DIST_CROP, :].contiguous()
         padded, orig_h = pad_rows(crop[None] if crop.dim() == 2 else crop,
                                   DIST_SHARDS)
@@ -3710,14 +3664,14 @@ def dist_stencils(frame, rows: dict) -> None:
         sharded(img, mesh)                  # warm-up, not counted or timed
         for passes, x, oh in runs:
             torch.cuda.synchronize()
-            wrapper.launches = 0
+            mark = launch_mark(row)
             t0 = time.perf_counter()
             out = x
             for _ in range(passes):
                 out = sharded(out, mesh, orig_h=oh)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            got = wrapper.launches
+            got = launches_since(mark)[row]
             if got != passes * DIST_SHARDS:
                 raise AssertionError(f"sharded_{name} passes={passes}: {got} "
                                      f"launches of {row}")
@@ -3761,14 +3715,14 @@ def dist_solve(cfg, frame, batch: int, mesh_shape, label: str, rows: dict,
         batch, torch.Generator().manual_seed(0))
     dmpc.solve(frame, scen)                              # warm-up
     torch.cuda.synchronize()
-    reset_counts()
-    ops.edge_pipeline.launches = 0
+    mark = launch_mark(*MPC_KERNELS, "edge")
     with GateLog(solver) as gates:
         t0 = time.perf_counter()
         u0, cost, res = dmpc.solve(frame, scen)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    launches, edge = read_counts(), ops.edge_pipeline.launches
+    launches = launches_since(mark)
+    edge = launches.pop("edge")
     want = expected_launches(cfg, batch // n, n, sum(gates.fired))
     if model > 1:
         want["edge_pyramid"] = 0
@@ -4066,10 +4020,9 @@ class ChunkLog:
         def logged(dmpc, frame, scen):
             if self.die_at is not None and len(self.chunks) + 1 == self.die_at:
                 raise RuntimeError("simulated worker death")
-            before, n_fired = read_counts(), len(self.gates.fired)
+            mark, n_fired = launch_mark(), len(self.gates.fired)
             out = orig(dmpc, frame, scen)
-            after = read_counts()
-            self.chunks.append(({k: after[k] - before[k] for k in after},
+            self.chunks.append((launches_since(mark),
                                 self.gates.fired[n_fired:],
                                 scen.p0.shape[0]))
             return out
@@ -4146,20 +4099,18 @@ def dispatch_images(w, tmp, rows: dict, smi: str) -> None:
     png = data.frame_path().read_bytes()
     cpu = torch.from_numpy(np.ascontiguousarray(
         np.transpose(imgio.load(data.frame_path()), (2, 0, 1))))
-    wrappers = {"grayscale": ("grayscale", ops.grayscale),
-                "edge": ("edge", ops.edge_pipeline),
-                "blur": ("conv3x3", ops.conv3x3)}
-    for kernel, (row, wrapper) in wrappers.items():
+    rows_of = {"grayscale": "grayscale", "edge": "edge", "blur": "conv3x3"}
+    for kernel, row in rows_of.items():
         rows[row]["launches_dispatch"] = 0
         for passes in DISPATCH_PASSES:
             key = w.store.put(f"uploads/{kernel}_p{passes}_frame_1080p.png",
                               png)
             torch.cuda.synchronize()
-            wrapper.launches = 0
+            mark = launch_mark(row)
             wall = run_job(w, {"image_key": key, "threads": [1],
                                "repeat": DISPATCH_REPEAT, "passes": passes,
                                "kernel": kernel})
-            got = wrapper.launches
+            got = launches_since(mark)[row]
             if got != (1 + DISPATCH_REPEAT) * passes:
                 raise AssertionError(f"image job {kernel} passes={passes}: "
                                      f"{got} launches of {row}")
@@ -4204,7 +4155,6 @@ def dispatch_mpc(w, frame, rows: dict, smi: str):
     # the uninterrupted job, counted and its wall time split
     key = w.store.put("uploads/whole_scen.npz", npz)
     torch.cuda.synchronize()
-    reset_counts()
     with GateLog(solver) as gates, ChunkLog(gates) as chunks, Spans() as sp:
         sp.wrap(w, "process_mpc", "other")
         sp.wrap(w, "_load_scenario", "npz parse")
@@ -4266,7 +4216,6 @@ def dispatch_mpc(w, frame, rows: dict, smi: str):
     if int(state["done"]) != DISPATCH_DIE_AFTER or w.jobs.depth() != 1:
         raise AssertionError(f"after the death: done {state['done']}, "
                              f"queue depth {w.jobs.depth()}")
-    reset_counts()
     with GateLog(solver) as gates, ChunkLog(gates) as chunks:
         w.run(stop_when_empty=True)
     resumed = chunks.check(cfg, "resumed job")
@@ -4677,10 +4626,10 @@ def phase_audit(frames, rows: dict) -> None:
     for label, fields in AUDIT_PATHS.items():
         cfg = MPCConfig(horizon=H, num_features=M, ilqr_iters=1, **fields)
         torch.cuda.synchronize()
-        reset_counts()
+        mark = launch_mark()
         card, fired = solve(cfg, "cuda")
         torch.cuda.synchronize()
-        launches = read_counts()
+        launches = launches_since(mark)
         want = expected_launches(cfg, AUDIT_BATCH, 1, fired)
         if launches != want:
             raise AssertionError(f"[audit] {label}: launches {launches} != "
@@ -4811,7 +4760,6 @@ def phase_studies(rows: dict) -> None:
     """The bench studies on the card (docstring item 15)."""
     import torch
 
-    from openmp_parallel_computing_tpu_torch import ops
     from openmp_parallel_computing_tpu_torch.bench import (
         ceiling_probe, dual_budget_study, full_solve_study, pod_anchor,
         pod_model, sampler_dtype_study, sampler_kernel_study, sampler_study,
@@ -4823,8 +4771,7 @@ def phase_studies(rows: dict) -> None:
     out_path.parent.mkdir(parents=True, exist_ok=True)
     B, T = STUDY_BATCH, STUDY_TRIALS
     out = {"device": smi}
-    reset_counts()
-    ops.edge_pipeline.launches = 0
+    mark = launch_mark(*MPC_KERNELS, "edge")
     timing = {
         "ceiling_probe": lambda: ceiling_probe.run([B, 256], 0, H, T,
                                                    device="cuda"),
@@ -4855,8 +4802,7 @@ def phase_studies(rows: dict) -> None:
         log(f"[studies] {label}: {time.perf_counter() - t0:.1f} s ({smi})")
     study_quality(out)
     torch.cuda.synchronize()
-    launches = read_counts()
-    launches["edge"] = ops.edge_pipeline.launches
+    launches = launches_since(mark)
     out["launches"] = launches
     out_path.write_text(json.dumps(out, indent=1))
 
@@ -4881,7 +4827,7 @@ def phase_studies(rows: dict) -> None:
     counts = {"edge_pyramid": launches["edge_pyramid"],
               "multi_sweep": launches["multi_sweep"],
               "edge": launches["edge"],
-              "sampler": launches["sampler_vg"] + launches["sampler_vals"],
+              "sampler": launches["sample_vg"] + launches["sample"],
               "full_solve": launches["full_solve"],
               "rollout": launches["rollout"]}
     for name, n in counts.items():

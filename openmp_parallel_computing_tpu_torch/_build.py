@@ -8,6 +8,10 @@ build happens at first use, never at import. Flags: ``sm_90a``, ``-O3``,
 no fast math (the Sobel's floor(sqrt) must be exact), and ``-Xptxas -v``
 so the register and spill report of every kernel is kept in
 ``lib<name>-<hash>.log`` beside the library.
+
+The wrappers reach ``csrc/`` only through here: an ``Entry`` a C entry
+point, the device gate ``on_card``, and ``Entry.launch``, which counts
+each launch in the metrics registry as ``launch.<kernel>``.
 """
 
 from __future__ import annotations
@@ -21,6 +25,10 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
+from openmp_parallel_computing_tpu_torch.utils.metrics import registry
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -28,6 +36,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+# Every declared entry point, by symbol (filled as the wrappers' modules
+# are imported).
+DECLARED: dict[str, "Entry"] = {}
 
 
 def nvcc_path() -> str:
@@ -127,22 +138,57 @@ def load(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
-def function(name: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
-    """The C entry point ``symbol`` of ``csrc/<name>.cu`` (built at first
-    use), with its argument types set; it returns a ``cudaError_t``."""
-    fn = getattr(load(name), symbol)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return fn
+def on_card(t: torch.Tensor, what: str) -> bool:
+    """The device gate of every kernel wrapper: False for a CPU tensor (the
+    plain version runs), True for a CUDA tensor (the kernel launches);
+    ``ValueError`` naming the kernel ``what`` on any other device."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {t.device}")
+    return t.device.type == "cuda"
 
 
-def launch(fn: ctypes._CFuncPtr, what: str, tensor, *args) -> None:
-    """Call ``fn(*args, stream)`` on ``tensor``'s card and its current
-    stream; raise if the launch returned a CUDA error."""
-    import torch
+def launch_counts(*kernels: str) -> dict[str, int]:
+    """The registry's ``launch.<kernel>`` counters of ``kernels``, 0 for a
+    kernel never launched: read before and after a run, their difference
+    is the run's launches."""
+    counters = registry.snapshot()["counters"]
+    return {k: int(counters.get("launch." + k, 0)) for k in kernels}
 
-    with torch.cuda.device(tensor.device):
-        err = fn(*args, torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+
+class Entry:
+    """A C entry point of ``csrc/<lib>.cu``: its symbol and argument types
+    (for a launch, the trailing stream included), declared once at module
+    level. Its library is built and the symbol resolved at the first call,
+    never at import; it returns an int (a ``cudaError_t`` for a launch)."""
+
+    __slots__ = ("lib", "symbol", "argtypes", "kernel")
+
+    def __init__(self, lib: str, symbol: str, argtypes: list):
+        self.lib, self.symbol, self.argtypes = lib, symbol, tuple(argtypes)
+        self.kernel = symbol.removesuffix("_launch")
+        DECLARED[symbol] = self
+
+    def _fn(self) -> ctypes._CFuncPtr:
+        fn = getattr(_libs.get(self.lib) or load(self.lib), self.symbol)
+        if fn.argtypes is None:           # the library's first use
+            fn.argtypes, fn.restype = self.argtypes, ctypes.c_int
+        return fn
+
+    def __call__(self, *args) -> int:
+        """A host query (``<kernel>_smem_bytes``): no stream, not counted."""
+        return self._fn()(*args)
+
+    def launch(self, tensor: torch.Tensor, *args,
+               kernel: str | None = None) -> None:
+        """Launch on ``tensor``'s card and its current stream (appended to
+        ``args``); raise ``RuntimeError`` on a CUDA error, else count one
+        ``launch.<kernel>`` (the symbol less ``_launch`` unless given)."""
+        fn = self._fn()
+        with torch.cuda.device(tensor.device):
+            err = fn(*args, torch.cuda.current_stream().cuda_stream)
+        kernel = kernel or self.kernel
+        if err:
+            raise RuntimeError(f"{kernel} kernel launch failed: CUDA error "
+                               f"{err}")
+        registry.inc("launch." + kernel)
+

@@ -15,7 +15,8 @@ costs at that size, not the same function), on the 1080p frame and the
 for the RGBA instances): by CUDA events over PASSES passes a call
 (``ms``, a pass) and by torch.profiler device time (``device_us``, a
 pass: the mean device time of a launch times the launches of a pass,
-which are one but for channel_sum's two in earlier packages). One JSON line with the package it
+one, channel_sum's from ``launch.channel_sum`` where the package counts
+launches). One JSON line with the package it
 timed and the card's name and power limit. The frame, its output and the ping-pong buffer stay in the
 card's L2 from pass to pass at 1080p (~19 MB of 50 MB), not at 6 MP.
 ``--root DIR`` imports the package from the checkout at DIR, and
@@ -89,19 +90,20 @@ def measure(smoke, only: str = "") -> dict:
     frames = {"1080p": frame,
               "6mp": smoke.load_planar(data.six_mp_path(), "cuda"),
               "1080p_rgba": torch.cat([frame, frame[:1]])}
-    from openmp_parallel_computing_tpu_torch import ops
+    from openmp_parallel_computing_tpu_torch.utils.metrics import registry
+
+    def sums() -> float:
+        return registry.snapshot()["counters"].get("launch.channel_sum", 0)
 
     found = sweep_kernels.select(cases(smoke, frames), only)
     out = {}
     for key, (call, kernel, iters) in found.items():
-        # Launches a pass: channel_sum's from its counter (two in earlier
-        # packages), one for every other case. The device time of a
-        # launch is the profiler's mean, which a dropped event leaves as
-        # it is.
-        before = ops.channel_sum.launches
+        # Launches a pass: channel_sum's where the package counts them,
+        # else one. The device time of a launch is the profiler's mean,
+        # which a dropped event leaves as it is.
+        before = sums()
         call()
-        launches = (ops.channel_sum.launches - before) / PASSES \
-            if key.startswith("channel_sum") else 1
+        launches = (sums() - before) / PASSES or 1
         us = smoke.device_us(call, kernel, 1)
         out[key] = dict(ms=smoke.cuda_time_ms(call, iters) / PASSES,
                         device_us=None if us is None else us * launches)

@@ -120,6 +120,12 @@ def _strides4(t: torch.Tensor, dims: str) -> list[int]:
     return [s.get(a, 0) for a in "btij"]
 
 
+_RICCATI_BACKWARD = _build.Entry(
+    "riccati", "riccati_backward_launch",
+    [ctypes.c_int] + [ctypes.c_void_p] * 12
+    + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+
+
 def backward_batched(fx, fu, lx, lu, lxx, luu, lux, vx, vxx,
                      reg: float = REG):
     """Batched Riccati backward sweep, batch-first as the JAX package's:
@@ -128,7 +134,7 @@ def backward_batched(fx, fu, lx, lu, lxx, luu, lux, vx, vxx,
     device. Returns (K (B,H,c,n), k (B,H,c)).
 
     CPU tensors run ``backward_batched_plain``. CUDA tensors launch
-    ``csrc/riccati.cu`` (counted in ``backward_batched.launches``); there
+    ``csrc/riccati.cu`` (counted as ``launch.riccati_backward``); there
     the inputs may have any strides, 0 included, so the broadcast cost
     expansions are read without a copy."""
     if fx.dim() != 4 or fu.dim() != 4:
@@ -152,11 +158,9 @@ def backward_batched(fx, fu, lx, lu, lxx, luu, lux, vx, vxx,
         if t.device != fx.device:
             raise ValueError(f"backward_batched: {name} is on {t.device}, "
                              f"fx on {fx.device}")
-    if fx.device.type == "cpu":
+    if not _build.on_card(fx, "backward_batched"):
         return backward_batched_plain(fx, fu, lx, lu, lxx, luu, lux, vx, vxx,
                                       reg)
-    if fx.device.type != "cuda":
-        raise ValueError(f"backward_batched: unsupported device {fx.device}")
     if n not in KERNEL_STATES or c != KERNEL_CONTROLS:
         raise ValueError(f"backward_batched kernel is built for n in "
                          f"{KERNEL_STATES} and c = {KERNEL_CONTROLS}, not "
@@ -165,14 +169,7 @@ def backward_batched(fx, fu, lx, lu, lxx, luu, lux, vx, vxx,
     k = torch.empty((B, H, c), dtype=torch.float32, device=fx.device)
     strides = (ctypes.c_longlong * 36)(
         *(s for t, _, dims in arrays.values() for s in _strides4(t, dims)))
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    fn = _build.function("riccati", "riccati_backward_launch",
-                         [i32] + [ptr] * 12 + [i32, i32, ctypes.c_float, ptr])
-    _build.launch(fn, "riccati_backward", fx, n,
-                  *(t.data_ptr() for t, _, _ in arrays.values()), strides,
-                  K.data_ptr(), k.data_ptr(), B, H, reg)
-    backward_batched.launches += 1
+    _RICCATI_BACKWARD.launch(fx, n,
+                             *(t.data_ptr() for t, _, _ in arrays.values()),
+                             strides, K.data_ptr(), k.data_ptr(), B, H, reg)
     return K, k
-
-
-backward_batched.launches = 0

@@ -128,6 +128,12 @@ def _check(levels, x, y, scales):
             raise ValueError(f"sample: level {i} has shape {tuple(l.shape)}")
 
 
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SAMPLE = _build.Entry("sampler", "sample_launch",
+                       [_P, _P, ctypes.c_longlong, ctypes.c_longlong, _P, _P,
+                        _I, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P])
+
+
 def sample(levels, x: torch.Tensor, y: torch.Tensor, height: int,
            width: int, scales=PYRAMID_SCALES, grads: bool = False):
     """Per-point edge cost ``sum over levels of 1 - bilinear(L)/255`` at
@@ -136,16 +142,13 @@ def sample(levels, x: torch.Tensor, y: torch.Tensor, height: int,
     Returns ``v`` (K, m, B); with ``grads`` also ``g`` (K, 2m, B), the
     per-point gradient of ``v`` with respect to (x, y) stacked in split
     order. CPU tensors run ``sample_plain``; CUDA tensors launch
-    ``csrc/sampler.cu`` (counted in ``sample.launches``, and those with
-    ``grads`` also in ``sample.vg_launches``). On the card x and y may be
+    ``csrc/sampler.cu`` (counted as ``launch.sample``, with ``grads`` as
+    ``launch.sample_vg``). On the card x and y may be
     views whose trailing (m, B) block is contiguous (as ``ps[:, :m]`` of a
     (K, 2m, B) state); the levels must be contiguous."""
     _check(levels, x, y, scales)
-    dev = x.device
-    if dev.type == "cpu":
+    if not _build.on_card(x, "sample"):
         return sample_plain(levels, x, y, height, width, scales, grads)
-    if dev.type != "cuda":
-        raise ValueError(f"sample: unsupported device {dev}")
     if x.dim() != 3:
         raise ValueError(f"sample kernel takes (K, m, B) coordinates, got "
                          f"{tuple(x.shape)}")
@@ -166,27 +169,15 @@ def sample(levels, x: torch.Tensor, y: torch.Tensor, height: int,
     consts = (ctypes.c_float * (4 * n))(
         *(c for l, s in zip(levels, scales)
           for c in _level_consts(l.shape, s, height, width)))
-    f32 = dict(dtype=torch.float32, device=dev)
+    f32 = dict(dtype=torch.float32, device=x.device)
     v = torch.empty((K, m, B), **f32)
     g = torch.empty((K, 2 * m, B), **f32) if grads else None
-    fn = _build.function(
-        "sampler", "sample_launch",
-        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-         ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-         ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-         ctypes.c_float, ctypes.c_void_p])
-    _build.launch(fn, "sample", x, x.data_ptr(), y.data_ptr(), x.stride(0),
-                  y.stride(0), v.data_ptr(), 0 if g is None else g.data_ptr(),
-                  n, ptrs, dims, consts, K, m, B, 0.5 * (width - 1),
-                  0.5 * (height - 1), 1.0 / 255.0)
-    sample.launches += 1
-    sample.vg_launches += grads
+    _SAMPLE.launch(x, x.data_ptr(), y.data_ptr(), x.stride(0), y.stride(0),
+                   v.data_ptr(), 0 if g is None else g.data_ptr(), n, ptrs,
+                   dims, consts, K, m, B, 0.5 * (width - 1),
+                   0.5 * (height - 1), 1.0 / 255.0,
+                   kernel="sample_vg" if grads else "sample")
     return (v, g) if grads else v
-
-
-sample.launches = 0          # every launch
-sample.vg_launches = 0       # launches in the gradient mode
 
 
 def edge_vals_lanes(pyramid, x: torch.Tensor, y: torch.Tensor, height: int,

@@ -65,10 +65,11 @@ what the solve can see:
   serving micro-batch), in float32 whatever ``edge_sampler`` and
   ``sampler_dtype`` say, as in the JAX package.
 
-Each edge evaluation is counted in the metrics registry, always on:
-``mpc.edge_kernel`` one on the kernel, ``mpc.edge_dense`` one on a dense
-form (the CPU's plain gather counts in neither). The fused and reference
-backends keep their own dense samplers.
+Each edge evaluation on a dense form is counted in the metrics registry's
+``mpc.edge_dense``, always on; one on the kernel is a launch,
+``launch.sample_vg`` or ``launch.sample`` (the CPU's plain gather counts
+in neither). The fused and reference backends keep their own dense
+samplers.
 
 On the card every nominal and final rollout is one ``sweep.rollout``
 kernel launch, at every batch size. On the CPU the rollouts keep the JAX
@@ -149,10 +150,9 @@ def edge_route(cfg: MPCConfig, batched: bool, device) -> str:
 
 
 def _count_edge(route: str) -> None:
-    """One edge evaluation into the registry's counter of its route."""
-    if route == "kernel":
-        registry.inc("mpc.edge_kernel")
-    elif route != "gather":
+    """One edge evaluation on a dense form into the registry's
+    ``mpc.edge_dense`` (the kernel's launches count themselves)."""
+    if route not in ("kernel", "gather"):
         registry.inc("mpc.edge_dense")
 
 

@@ -13,14 +13,15 @@ Line search: candidates alpha = (0, 1, 0.5, 0.25). alpha=0 reproduces the
 nominal, so "did anything improve" is the argmin over the candidates.
 
 Each wrapper launches its kernel on CUDA tensors and runs its ``*_plain``
-version, built from the helpers below, on CPU tensors; each counts its
-launches in ``<wrapper>.launches``. ``csrc/multi_sweep.cu``,
-``csrc/full_solve.cu`` and the three entry points of ``csrc/sweep.cu`` run
-a thread group a scenario on ``csrc/sweep_group.cuh``: multi_sweep and
-full_solve with the gains in shared memory and no global scratch, the
-backward with the gains written to its outputs, the unified sweep in
-shared memory where ``group_sweep_fits`` admits it and in global scratch
-otherwise, the forward reading the gains it is given from global memory.
+version, built from the helpers below, on CPU tensors (``_build.on_card``);
+``_build.Entry.launch`` counts the launches in the metrics registry
+(``launch.<kernel>``). ``csrc/multi_sweep.cu``, ``csrc/full_solve.cu`` and
+the three entry points of ``csrc/sweep.cu`` run a thread group a scenario
+on ``csrc/sweep_group.cuh``: multi_sweep and full_solve with the gains in
+shared memory and no global scratch, the backward with the gains written
+to its outputs, the unified sweep in shared memory where
+``group_sweep_fits`` admits it and in global scratch otherwise, the
+forward reading the gains it is given from global memory.
 ``rollout``, the fourth entry point of ``csrc/sweep.cu``, runs a thread a
 (feature, scenario) for any feature count.
 """
@@ -45,7 +46,6 @@ from openmp_parallel_computing_tpu_torch.models.mpc.riccati_lanes import (
     _mv,
     _spd_solve_lanes,
 )
-from openmp_parallel_computing_tpu_torch.utils.metrics import registry
 
 ALPHAS = (0.0, 1.0, 0.5, 0.25)
 KERNEL_FEATURES = (2, 4, 8)    # m values the group-sweep kernels are built for
@@ -308,14 +308,15 @@ def full_solve_plain(p0, ps, us, g, target, inv_depth, *, m: int, q: float,
     return rollout_plain(p0, z, inv_depth, m=m, dt=dt), z, us
 
 
-def _on_card(what: str, m: int, arrays: dict,
-             built_for=KERNEL_FEATURES) -> bool:
+def _use_kernel(what: str, m: int, arrays: dict,
+                built_for=KERNEL_FEATURES) -> bool:
     """Check a sweep wrapper's inputs, ``{name: (tensor, shape)}``: every
-    shape, float32, one device. False for CPU tensors (the plain version
-    runs); True for CUDA tensors, after checking that the kernel is built
-    for ``m`` (``built_for``; None: any m) and every input is
-    contiguous."""
-    dev = next(iter(arrays.values()))[0].device
+    shape, float32, one device. Then ``_build.on_card``: False for CPU
+    tensors (the plain version runs); True for CUDA tensors, after checking
+    that the kernel is built for ``m`` (``built_for``; None: any m) and
+    every input is contiguous."""
+    first = next(iter(arrays.values()))[0]
+    dev = first.device
     for name, (t, shape) in arrays.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"{what}: {name} has shape {tuple(t.shape)}, "
@@ -324,10 +325,8 @@ def _on_card(what: str, m: int, arrays: dict,
             raise TypeError(f"{what}: {name} is {t.dtype}, not float32")
         if t.device != dev:
             raise ValueError(f"{what}: {name} is on {t.device}, not {dev}")
-    if dev.type == "cpu":
+    if not _build.on_card(first, what):
         return False
-    if dev.type != "cuda":
-        raise ValueError(f"{what}: unsupported device {dev}")
     if built_for is not None and m not in built_for:
         raise ValueError(f"{what} kernel is built for m in "
                          f"{built_for}, not {m}")
@@ -348,9 +347,12 @@ def _lanes_shapes(m: int, H: int, B: int, **arrays) -> dict:
 
 
 _PTR, _INT, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# The CUDA library of each kernel whose gains may live in shared memory,
-# where it is not csrc/<kernel>.cu.
-_SMEM_LIBRARY = {"unified_sweep": "sweep"}
+# ``<kernel>_smem_bytes(m, H)`` of each kernel whose gains may live in
+# shared memory: one block's bytes.
+SMEM_BYTES = {k: _build.Entry(lib, f"{k}_smem_bytes", [_INT, _INT])
+              for k, lib in (("multi_sweep", "multi_sweep"),
+                             ("full_solve", "full_solve"),
+                             ("unified_sweep", "sweep"))}
 
 
 @functools.lru_cache(maxsize=None)
@@ -363,10 +365,14 @@ def group_sweep_fits(kernel: str, m: int, H: int,
     have no such limit."""
     if device.type != "cuda":
         return True
-    need = _build.function(_SMEM_LIBRARY.get(kernel, kernel),
-                           f"{kernel}_smem_bytes", [_INT, _INT])(m, H)
+    need = SMEM_BYTES[kernel](m, H)
     props = torch.cuda.get_device_properties(device)
     return need <= props.shared_memory_per_block_optin
+
+
+_MULTI_SWEEP = _build.Entry("multi_sweep", "multi_sweep_launch",
+                            [_INT] + [_PTR] * 10 + [_INT] * 3 + [_F32] * 6
+                            + [_PTR])
 
 
 def multi_sweep(p0, ps, us, z, y, g, target, inv_depth, *, m: int,
@@ -383,25 +389,22 @@ def multi_sweep(p0, ps, us, z, y, g, target, inv_depth, *, m: int,
     n, c = 2 * m, CONTROL_DIM
     H, B = us.shape[0], us.shape[-1]
     kw = dict(m=m, q=q, r=r, rho=rho, qe=qe, dt=dt, sweeps=sweeps, reg=reg)
-    if not _on_card("multi_sweep", m, _lanes_shapes(
+    if not _use_kernel("multi_sweep", m, _lanes_shapes(
             m, H, B, p0=p0, ps=ps, us=us, z=z, y=y, g=g, target=target,
             inv_depth=inv_depth)):
         return multi_sweep_plain(p0, ps, us, z, y, g, target, inv_depth, **kw)
     f32 = dict(dtype=torch.float32, device=p0.device)
     ps_out = torch.empty((H + 1, n, B), **f32)
     us_out = torch.empty((H, c, B), **f32)
-    fn = _build.function("multi_sweep", "multi_sweep_launch",
-                         [_INT] + [_PTR] * 10 + [_INT] * 3 + [_F32] * 6
-                         + [_PTR])
     ptrs = [t.data_ptr() for t in (p0, ps, us, z, y, g, target, inv_depth,
                                    ps_out, us_out)]
-    _build.launch(fn, "multi_sweep", p0, m, *ptrs, H, B, sweeps, q, r, rho,
-                  qe, dt, reg)
-    multi_sweep.launches += 1
+    _MULTI_SWEEP.launch(p0, m, *ptrs, H, B, sweeps, q, r, rho, qe, dt, reg)
     return ps_out, us_out
 
 
-multi_sweep.launches = 0
+_FULL_SOLVE = _build.Entry("full_solve", "full_solve_launch",
+                           [_INT] + [_PTR] * 9 + [_INT] * 5 + [_F32] * 9
+                           + [_PTR])
 
 
 def full_solve(p0, ps, us, g, target, inv_depth, *, m: int, q: float,
@@ -422,7 +425,7 @@ def full_solve(p0, ps, us, g, target, inv_depth, *, m: int, q: float,
     H, B = us.shape[0], us.shape[-1]
     kw = dict(m=m, q=q, r=r, rho=rho, qe=qe, dt=dt, sweeps=sweeps,
               admm_iters=admm_iters, u_limit=u_limit, reg=reg, relax=relax)
-    if not _on_card("full_solve", m, _lanes_shapes(
+    if not _use_kernel("full_solve", m, _lanes_shapes(
             m, H, B, p0=p0, ps=ps, us=us, g=g, target=target,
             inv_depth=inv_depth)):
         return full_solve_plain(p0, ps, us, g, target, inv_depth, **kw)
@@ -430,19 +433,12 @@ def full_solve(p0, ps, us, g, target, inv_depth, *, m: int, q: float,
     ps_out = torch.empty((H + 1, n, B), **f32)
     z_out = torch.empty((H, c, B), **f32)
     us_out = torch.empty((H, c, B), **f32)
-    fn = _build.function("full_solve", "full_solve_launch",
-                         [_INT] + [_PTR] * 9 + [_INT] * 5 + [_F32] * 9
-                         + [_PTR])
     ptrs = [t.data_ptr() for t in (p0, ps, us, g, target, inv_depth, ps_out,
                                    z_out, us_out)]
-    _build.launch(fn, "full_solve", p0, m, *ptrs, H, B, sweeps, admm_iters,
-                  int(relax != 1.0), q, r, rho, qe, dt, reg, u_limit, relax,
-                  1.0 - relax)
-    full_solve.launches += 1
+    _FULL_SOLVE.launch(p0, m, *ptrs, H, B, sweeps, admm_iters,
+                       int(relax != 1.0), q, r, rho, qe, dt, reg, u_limit,
+                       relax, 1.0 - relax)
     return ps_out, z_out, us_out
-
-
-full_solve.launches = 0
 
 
 def _candidates_out(H: int, n: int, B: int, dev):
@@ -452,6 +448,11 @@ def _candidates_out(H: int, n: int, B: int, dev):
     return (torch.empty((H + 1, A, n, B), **f32),
             torch.empty((H, A, CONTROL_DIM, B), **f32),
             torch.empty((A, B), **f32))
+
+
+_UNIFIED_SWEEP = _build.Entry("sweep", "unified_sweep_launch",
+                              [_INT] + [_PTR] * 13 + [_INT] * 2 + [_F32] * 6
+                              + [_PTR])
 
 
 def unified_sweep(p0, ps, us, z, y, g, target, inv_depth, *, m: int,
@@ -467,7 +468,7 @@ def unified_sweep(p0, ps, us, z, y, g, target, inv_depth, *, m: int,
     n, c = 2 * m, CONTROL_DIM
     H, B = us.shape[0], us.shape[-1]
     kw = dict(m=m, q=q, r=r, rho=rho, qe=qe, dt=dt, reg=reg)
-    if not _on_card("unified_sweep", m, _lanes_shapes(
+    if not _use_kernel("unified_sweep", m, _lanes_shapes(
             m, H, B, p0=p0, ps=ps, us=us, z=z, y=y, g=g, target=target,
             inv_depth=inv_depth)):
         return unified_sweep_plain(p0, ps, us, z, y, g, target, inv_depth,
@@ -479,19 +480,16 @@ def unified_sweep(p0, ps, us, z, y, g, target, inv_depth, *, m: int,
                                device=p0.device),
                    torch.empty((H, c, B), dtype=torch.float32,
                                device=p0.device)]
-    fn = _build.function("sweep", "unified_sweep_launch",
-                         [_INT] + [_PTR] * 13 + [_INT] * 2 + [_F32] * 6
-                         + [_PTR])
     ptrs = [t.data_ptr() for t in (p0, ps, us, z, y, g, target, inv_depth,
                                    *out)]
     ptrs += [None if t is None else t.data_ptr() for t in scratch]
-    _build.launch(fn, "unified_sweep", p0, m, *ptrs, H, B, q, r, rho, qe, dt,
-                  reg)
-    unified_sweep.launches += 1
+    _UNIFIED_SWEEP.launch(p0, m, *ptrs, H, B, q, r, rho, qe, dt, reg)
     return out
 
 
-unified_sweep.launches = 0
+_BACKWARD_SWEEP = _build.Entry("sweep", "backward_sweep_launch",
+                               [_INT] + [_PTR] * 9 + [_INT] * 2 + [_F32] * 6
+                               + [_PTR])
 
 
 def backward_sweep(ps, us, z, y, g, target, inv_depth, *, m: int, q: float,
@@ -503,24 +501,21 @@ def backward_sweep(ps, us, z, y, g, target, inv_depth, *, m: int, q: float,
     writes the gains straight to these outputs (any horizon)."""
     n, c = 2 * m, CONTROL_DIM
     H, B = us.shape[0], us.shape[-1]
-    if not _on_card("backward_sweep", m, _lanes_shapes(
+    if not _use_kernel("backward_sweep", m, _lanes_shapes(
             m, H, B, ps=ps, us=us, z=z, y=y, g=g, target=target,
             inv_depth=inv_depth)):
         return backward_sweep_plain(ps, us, z, y, g, target, inv_depth, m=m,
                                     q=q, r=r, rho=rho, qe=qe, dt=dt, reg=reg)
     K = torch.empty((H, c, n, B), dtype=torch.float32, device=ps.device)
     k = torch.empty((H, c, B), dtype=torch.float32, device=ps.device)
-    fn = _build.function("sweep", "backward_sweep_launch",
-                         [_INT] + [_PTR] * 9 + [_INT] * 2 + [_F32] * 6
-                         + [_PTR])
     ptrs = [t.data_ptr() for t in (ps, us, z, y, g, target, inv_depth, K, k)]
-    _build.launch(fn, "backward_sweep", ps, m, *ptrs, H, B, q, r, rho, qe, dt,
-                  reg)
-    backward_sweep.launches += 1
+    _BACKWARD_SWEEP.launch(ps, m, *ptrs, H, B, q, r, rho, qe, dt, reg)
     return K, k
 
 
-backward_sweep.launches = 0
+_FORWARD_SWEEP = _build.Entry("sweep", "forward_sweep_launch",
+                              [_INT] + [_PTR] * 13 + [_INT] * 2 + [_F32] * 5
+                              + [_PTR])
 
 
 def forward_sweep(p0, ps, us, K, k, z, y, g, target, inv_depth, *, m: int,
@@ -533,23 +528,20 @@ def forward_sweep(p0, ps, us, K, k, z, y, g, target, inv_depth, *, m: int,
     n = 2 * m
     H, B = us.shape[0], us.shape[-1]
     kw = dict(m=m, q=q, r=r, rho=rho, qe=qe, dt=dt)
-    if not _on_card("forward_sweep", m, _lanes_shapes(
+    if not _use_kernel("forward_sweep", m, _lanes_shapes(
             m, H, B, p0=p0, ps=ps, us=us, K=K, k=k, z=z, y=y, g=g,
             target=target, inv_depth=inv_depth)):
         return forward_sweep_plain(p0, ps, us, K, k, z, y, g, target,
                                    inv_depth, **kw)
     out = _candidates_out(H, n, B, p0.device)
-    fn = _build.function("sweep", "forward_sweep_launch",
-                         [_INT] + [_PTR] * 13 + [_INT] * 2 + [_F32] * 5
-                         + [_PTR])
     ptrs = [t.data_ptr() for t in (p0, ps, us, K, k, z, y, g, target,
                                    inv_depth, *out)]
-    _build.launch(fn, "forward_sweep", p0, m, *ptrs, H, B, q, r, rho, qe, dt)
-    forward_sweep.launches += 1
+    _FORWARD_SWEEP.launch(p0, m, *ptrs, H, B, q, r, rho, qe, dt)
     return out
 
 
-forward_sweep.launches = 0
+_ROLLOUT = _build.Entry("sweep", "rollout_launch",
+                        [_INT] + [_PTR] * 4 + [_INT] * 2 + [_F32] + [_PTR])
 
 
 def rollout(p0, us, inv_depth, *, m: int, dt: float):
@@ -557,21 +549,13 @@ def rollout(p0, us, inv_depth, *, m: int, dt: float):
     with ps[0] = p0 and ps[t+1] the clipped Euler step of ps[t] under
     us[t]. p0 (n, B), us (H, c, B), inv_depth (m, B), float32. CPU tensors
     run the plain version; CUDA tensors launch ``rollout_launch`` of
-    ``csrc/sweep.cu`` (any m), counted in ``rollout.launches`` and in the
-    metrics registry's ``mpc.rollout_kernel``."""
+    ``csrc/sweep.cu`` (any m)."""
     H, B = us.shape[0], us.shape[-1]
-    if not _on_card("rollout", m, _lanes_shapes(
+    if not _use_kernel("rollout", m, _lanes_shapes(
             m, H, B, p0=p0, us=us, inv_depth=inv_depth), built_for=None):
         return rollout_plain(p0, us, inv_depth, m=m, dt=dt)
     ps = torch.empty((H + 1, 2 * m, B), dtype=torch.float32,
                      device=p0.device)
-    fn = _build.function("sweep", "rollout_launch",
-                         [_INT] + [_PTR] * 4 + [_INT] * 2 + [_F32] + [_PTR])
-    _build.launch(fn, "rollout", p0, m, p0.data_ptr(), us.data_ptr(),
-                  inv_depth.data_ptr(), ps.data_ptr(), H, B, dt)
-    rollout.launches += 1
-    registry.inc("mpc.rollout_kernel")
+    _ROLLOUT.launch(p0, m, p0.data_ptr(), us.data_ptr(), inv_depth.data_ptr(),
+                    ps.data_ptr(), H, B, dt)
     return ps
-
-
-rollout.launches = 0

@@ -7,6 +7,8 @@ from typing import Callable
 
 import torch
 
+from openmp_parallel_computing_tpu_torch import _build
+
 # The channel counts of the frame ops (grayscale, the edge pass, the
 # perception kernel, the channel-mean grayscale): a grey frame (C = 1,
 # read as R = G = B, as the JAX kernels read it), RGB and RGBA. A grey +
@@ -21,16 +23,14 @@ class FrameChannelsError(ValueError):
     completion, as the server answers it with a 400."""
 
 
-def on_card(t: torch.Tensor) -> bool:
-    """True for a CUDA tensor (the kernel runs), False for a CPU tensor
-    (the plain version runs); raises for any other device, and for a
-    CUDA tensor the kernel cannot take as it is laid out."""
-    if t.device.type == "cpu":
+def use_kernel(t: torch.Tensor, what: str) -> bool:
+    """``_build.on_card``: True for a CUDA tensor (the kernel ``what``
+    runs), False for a CPU tensor (the plain version runs); and for a CUDA
+    tensor, raise unless it is contiguous, as the kernels read it."""
+    if not _build.on_card(t, what):
         return False
-    if t.device.type != "cuda":
-        raise ValueError(f"unsupported device {t.device}")
     if not t.is_contiguous():
-        raise ValueError("tensor must be contiguous")
+        raise ValueError(f"{what}: tensor must be contiguous")
     return True
 
 

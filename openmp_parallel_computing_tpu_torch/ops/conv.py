@@ -17,6 +17,10 @@ from openmp_parallel_computing_tpu_torch import _build
 from openmp_parallel_computing_tpu_torch.ops import _wrap, xla_ref
 
 _DTYPE_CODE = {torch.uint8: 0, torch.int32: 1, torch.float32: 2}
+_CONV3X3 = _build.Entry("conv3x3", "conv3x3_launch",
+                        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
+                        + [ctypes.c_void_p] * 2
+                        + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
 
 
 def _first_input(img: torch.Tensor, integer: bool, clamp_u8: bool,
@@ -60,15 +64,10 @@ def conv3x3(img: torch.Tensor, taps=xla_ref.GBLUR_KERNEL,
     _wrap.check_image(img, 3, dtypes=tuple(_DTYPE_CODE))
     _wrap.check_passes(passes)
     taps9, scale = xla_ref.conv_params(taps, norm, integer)
-    if not _wrap.on_card(img):
+    if not _wrap.use_kernel(img, "conv3x3"):
         return conv3x3_plain(img, taps, norm, integer, clamp_u8, passes)
     c, h, w = img.shape
     x, out_dtype = _first_input(img, integer, clamp_u8, passes)
-    fn = _build.function(
-        "conv3x3", "conv3x3_launch",
-        [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 6
-        + [ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float),
-           ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
     flat = [t for row in taps9 for t in row]
     # The kernel reads the int taps and divisor in integer mode, the float
     # taps and factor otherwise.
@@ -77,17 +76,13 @@ def conv3x3(img: torch.Tensor, taps=xla_ref.GBLUR_KERNEL,
     divisor, factor = (scale, 0.0) if integer else (1, scale)
 
     def one(src: torch.Tensor, dst: torch.Tensor) -> None:
-        _build.launch(fn, "conv3x3", img, src.data_ptr(), dst.data_ptr(),
-                      _DTYPE_CODE[src.dtype], c, h, w, int(integer),
-                      int(clamp_u8), c_itaps, c_ftaps, divisor, factor)
-        conv3x3.launches += 1
+        _CONV3X3.launch(img, src.data_ptr(), dst.data_ptr(),
+                        _DTYPE_CODE[src.dtype], c, h, w, int(integer),
+                        int(clamp_u8), c_itaps, c_ftaps, divisor, factor)
 
     return _wrap.ping_pong(
         x, passes, one,
         lambda: torch.empty((c, h, w), dtype=out_dtype, device=img.device))
-
-
-conv3x3.launches = 0
 
 
 def gaussian_blur(img: torch.Tensor, passes: int = 1) -> torch.Tensor:

@@ -18,6 +18,11 @@ from openmp_parallel_computing_tpu_torch import _build
 from openmp_parallel_computing_tpu_torch.ops import _wrap, xla_ref
 
 
+_GRAYSCALE = _build.Entry("grayscale", "grayscale_launch",
+                          [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                           ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+
+
 def grayscale_plain(img: torch.Tensor, passes: int = 1) -> torch.Tensor:
     """Plain version: ``xla_ref.grayscale`` applied ``passes`` times."""
     for _ in range(passes):
@@ -32,20 +37,12 @@ def grayscale(img: torch.Tensor, passes: int = 1) -> torch.Tensor:
     input is never modified."""
     _wrap.check_image(img, 3, channels=_wrap.FRAME_CHANNELS)
     _wrap.check_passes(passes)
-    if not _wrap.on_card(img):
+    if not _wrap.use_kernel(img, "grayscale"):
         return grayscale_plain(img, passes)
     c, h, w = img.shape
-    fn = _build.function("grayscale", "grayscale_launch",
-                         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                          ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     out = torch.empty_like(img)
     src = img
     for _ in range(passes):
-        _build.launch(fn, "grayscale", img, src.data_ptr(), out.data_ptr(),
-                      c, h, w)
-        grayscale.launches += 1
+        _GRAYSCALE.launch(img, src.data_ptr(), out.data_ptr(), c, h, w)
         src = out
     return out
-
-
-grayscale.launches = 0

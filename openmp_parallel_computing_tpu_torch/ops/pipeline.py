@@ -61,6 +61,12 @@ def edge_pyramid_base_plain(img: torch.Tensor, s: int = 16) -> torch.Tensor:
                              device=img.device)
 
 
+_EDGE_PYRAMID = _build.Entry("edge_pyramid", "edge_pyramid_launch",
+                             [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                              ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_void_p])
+
+
 def edge_pyramid_base(img: torch.Tensor, s: int = 16) -> torch.Tensor:
     """Planar (C, H, W) u8 frame, C in {1, 3, 4} -> (ceil(H/s), ceil(W/s))
     float32 block means of the u8 Sobel edge map of its luma, at every
@@ -70,21 +76,12 @@ def edge_pyramid_base(img: torch.Tensor, s: int = 16) -> torch.Tensor:
     _wrap.check_image(img, 3, channels=_wrap.FRAME_CHANNELS)
     c, h, w = img.shape
     check_pool_scale(s, w)
-    if not _wrap.on_card(img):
+    if not _wrap.use_kernel(img, "edge_pyramid"):
         return edge_pyramid_base_plain(img, s)
     out = torch.empty((-(-h // s), -(-w // s)), dtype=torch.float32,
                       device=img.device)
-    fn = _build.function("edge_pyramid", "edge_pyramid_launch",
-                         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                          ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_void_p])
-    _build.launch(fn, "edge_pyramid", img, img.data_ptr(), out.data_ptr(),
-                  c, h, w, s)
-    edge_pyramid_base.launches += 1
+    _EDGE_PYRAMID.launch(img, img.data_ptr(), out.data_ptr(), c, h, w, s)
     return out
-
-
-edge_pyramid_base.launches = 0
 
 
 def edge_pipeline_plain(img: torch.Tensor, border: str = "zero",
@@ -93,6 +90,12 @@ def edge_pipeline_plain(img: torch.Tensor, border: str = "zero",
     for _ in range(passes):
         img = xla_ref.edge_pipeline(img, border)
     return img
+
+
+_EDGE = _build.Entry("stencil", "edge_launch",
+                     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                      ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p])
 
 
 def edge_pipeline(img: torch.Tensor, border: str = "zero",
@@ -106,20 +109,12 @@ def edge_pipeline(img: torch.Tensor, border: str = "zero",
     _wrap.check_image(img, 3, channels=_wrap.FRAME_CHANNELS)
     _wrap.check_passes(passes)
     xla_ref.check_border(border)
-    if not _wrap.on_card(img):
+    if not _wrap.use_kernel(img, "edge"):
         return edge_pipeline_plain(img, border, passes)
     c, h, w = img.shape
-    fn = _build.function("stencil", "edge_launch",
-                         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                          ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_void_p])
 
     def one(src: torch.Tensor, dst: torch.Tensor) -> None:
-        _build.launch(fn, "edge", img, src.data_ptr(), dst.data_ptr(), c, h,
-                      w, int(border == "zero"))
-        edge_pipeline.launches += 1
+        _EDGE.launch(img, src.data_ptr(), dst.data_ptr(), c, h, w,
+                     int(border == "zero"))
 
     return _wrap.ping_pong(img, passes, one, lambda: torch.empty_like(img))
-
-
-edge_pipeline.launches = 0

@@ -36,6 +36,11 @@ SUM_CASTS = {torch.bool: torch.uint8, torch.int64: torch.int32,
 SUM_SLOTS = 1025
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_CHANNEL_SUM = _build.Entry("reductions", "channel_sum_launch",
+                            [_P, _I, _I, _I, _I, _P, _I, ctypes.c_longlong,
+                             _P, _P])
+_GRAY_MINMAX = _build.Entry("reductions", "gray_minmax_launch",
+                            [_P, _I, _I, _I, _P, _P, _P])
 # channel_sum's scratch by (device, stream): tickets zeroed once at
 # allocation, left zero by every call. A call on another stream has its
 # own scratch, and calls on one stream run in order, so no call can see a
@@ -93,8 +98,8 @@ def _check_sum(img: torch.Tensor) -> None:
 
 
 def _sum_kernel(img: torch.Tensor, mean: bool) -> torch.Tensor:
-    """channel_sum's one kernel launch on the card, counted on
-    ``channel_sum``; ``mean`` divides by float32(H*W) in it."""
+    """channel_sum's one kernel launch on the card; ``mean`` divides by
+    float32(H*W) in it."""
     img = _held(img)
     c, h, w = img.shape
     key = (img.device.index, torch.cuda.current_stream(img.device).cuda_stream)
@@ -103,14 +108,10 @@ def _sum_kernel(img: torch.Tensor, mean: bool) -> torch.Tensor:
         slots = torch.zeros(c * SUM_SLOTS, dtype=torch.int64,
                             device=img.device)
         _scratch[key] = slots
-    fn = _build.function("reductions", "channel_sum_launch",
-                         [_P, _I, _I, _I, _I, _P, _I, ctypes.c_longlong, _P,
-                          _P])
     out = torch.empty((c,), dtype=torch.float32, device=img.device)
-    _build.launch(fn, "channel_sum", img, img.data_ptr(), c, h, w,
-                  SUM_DTYPES[img.dtype], slots.data_ptr(), SUM_SLOTS,
-                  h * w if mean else 0, out.data_ptr())
-    channel_sum.launches += 1
+    _CHANNEL_SUM.launch(img, img.data_ptr(), c, h, w, SUM_DTYPES[img.dtype],
+                        slots.data_ptr(), SUM_SLOTS, h * w if mean else 0,
+                        out.data_ptr())
     return out
 
 
@@ -122,7 +123,7 @@ def channel_sum(img: torch.Tensor) -> torch.Tensor:
     PyTorch's cast for uint64 and complex); the same result on every
     run."""
     _check_sum(img)
-    if not _wrap.on_card(img):
+    if not _wrap.use_kernel(img, "channel_sum"):
         return channel_sum_plain(img)
     return _sum_kernel(img, mean=False)
 
@@ -132,7 +133,7 @@ def channel_mean(img: torch.Tensor) -> torch.Tensor:
     ``channel_sum(img) / float32(H*W)``, for channel_sum's dtypes; on the
     card the division is done in channel_sum's launch."""
     _check_sum(img)
-    if not _wrap.on_card(img):
+    if not _wrap.use_kernel(img, "channel_sum"):
         return channel_mean_plain(img)
     return _sum_kernel(img, mean=True)
 
@@ -148,18 +149,11 @@ def grayscale_mean_minmax(img: torch.Tensor):
     int32 tensors on the input's device; a grey frame (C = 1) is read as
     R = G = B, so its gray is its plane. One kernel launch on the card."""
     _wrap.check_image(img, 3, channels=_wrap.FRAME_CHANNELS)
-    if not _wrap.on_card(img):
+    if not _wrap.use_kernel(img, "gray_minmax"):
         return grayscale_mean_minmax_plain(img)
     c, h, w = img.shape
     gray = torch.empty((3, h, w), dtype=torch.int32, device=img.device)
     minmax = torch.empty((2,), dtype=torch.int32, device=img.device)
-    fn = _build.function("reductions", "gray_minmax_launch",
-                         [_P, _I, _I, _I, _P, _P, _P])
-    _build.launch(fn, "gray_minmax", img, img.data_ptr(), c, h, w,
-                  gray.data_ptr(), minmax.data_ptr())
-    grayscale_mean_minmax.launches += 1
+    _GRAY_MINMAX.launch(img, img.data_ptr(), c, h, w, gray.data_ptr(),
+                        minmax.data_ptr())
     return gray, minmax[0], minmax[1]
-
-
-channel_sum.launches = 0
-grayscale_mean_minmax.launches = 0

@@ -16,6 +16,10 @@ from openmp_parallel_computing_tpu_torch import _build
 from openmp_parallel_computing_tpu_torch.ops import _wrap, xla_ref
 from openmp_parallel_computing_tpu_torch.ops.xla_ref import sobel as sobel_plain
 
+_SOBEL = _build.Entry("stencil", "sobel_launch",
+                      [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+
 
 def sobel(gray: torch.Tensor, border: str = "zero") -> torch.Tensor:
     """(H, W) u8 plane -> (H, W) u8 ``min(floor(sqrt(gx^2 + gy^2)), 255)``
@@ -23,17 +27,10 @@ def sobel(gray: torch.Tensor, border: str = "zero") -> torch.Tensor:
     image border to 0; ``border="none"`` computes it like the interior."""
     _wrap.check_image(gray, 2)
     xla_ref.check_border(border)
-    if not _wrap.on_card(gray):
+    if not _wrap.use_kernel(gray, "sobel"):
         return sobel_plain(gray, border)
     h, w = gray.shape
-    fn = _build.function("stencil", "sobel_launch",
-                         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                          ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     out = torch.empty_like(gray)
-    _build.launch(fn, "sobel", gray, gray.data_ptr(), out.data_ptr(), h, w,
+    _SOBEL.launch(gray, gray.data_ptr(), out.data_ptr(), h, w,
                   int(border == "zero"))
-    sobel.launches += 1
     return out
-
-
-sobel.launches = 0

@@ -64,14 +64,14 @@ def test_bench_kernel_writes_the_reference_csv(tmp_path, kernel):
 
 
 def test_bench_kernel_reads_a_path_and_counts_no_launch(tmp_path):
-    from openmp_parallel_computing_tpu_torch import imgio, ops
+    from openmp_parallel_computing_tpu_torch import _build, imgio
 
     src = tmp_path / "in.png"
     imgio.save_png(src, _img(1))
-    before = ops.grayscale.launches
+    before = _build.launch_counts("grayscale")
     rows = harness.bench_kernel(src, runs=1, passes=1, out_dir=tmp_path,
                                 device="cpu")
-    assert len(rows) == 1 and ops.grayscale.launches == before
+    assert len(rows) == 1 and _build.launch_counts("grayscale") == before
 
 
 def test_bench_kernel_refuses_a_sweep_with_no_usable_count(tmp_path):

@@ -1,8 +1,10 @@
 """The sweep backend's choice of edge form (``solver.edge_route``): every
 case of device, pyramid rank, ``sampler_dtype`` and ``edge_sampler``; the
-registry's ``mpc.edge_kernel`` and ``mpc.edge_dense`` counts of a CPU
-solve; and the kernel route's wiring (the gather sampler's plain version
-stands in for the kernel on the CPU) against the dense route.
+registry's counts of a CPU solve, the sampler kernel's launches
+(``launch.sample_vg`` + ``launch.sample``: none on the CPU) and
+``mpc.edge_dense``; and the kernel route's wiring (the gather sampler's
+plain version stands in for the kernel on the CPU) against the dense
+route.
 
 Tolerances are tests/test_torch_sampler.py's: values rtol 1e-5 / atol
 1e-6, gradients rtol 1e-4 / atol 1e-6."""
@@ -11,8 +13,9 @@ import numpy as np
 import pytest
 import torch
 
+from openmp_parallel_computing_tpu_torch import _build
 from openmp_parallel_computing_tpu_torch.models.mpc import (
-    VisualServoMPC, costs, solver)
+    VisualServoMPC, costs, sampler, solver)
 from openmp_parallel_computing_tpu_torch.utils.config import MPCConfig
 from openmp_parallel_computing_tpu_torch.utils.metrics import registry
 
@@ -41,8 +44,10 @@ ROUTES.update({(dev, True, dt, es): "dense"
 
 
 def counts() -> tuple:
-    c = registry.snapshot()["counters"]
-    return c.get("mpc.edge_kernel", 0), c.get("mpc.edge_dense", 0)
+    """(the sampler kernel's launches, the dense edge evaluations)."""
+    launches = _build.launch_counts("sample_vg", "sample")
+    return (sum(launches.values()),
+            registry.snapshot()["counters"].get("mpc.edge_dense", 0))
 
 
 @pytest.mark.parametrize("device,batched,dtype,edge_sampler",
@@ -80,11 +85,19 @@ def test_cpu_solve_counts_its_edge_evaluations(edge_sampler, want):
 
 
 @pytest.mark.parametrize("hh,ww", [(64, 128), (1080, 1920)])
-def test_kernel_route_matches_the_dense_route(hh, ww):
+def test_kernel_route_matches_the_dense_route(hh, ww, monkeypatch):
     """``edge_grads`` and ``edge_vals`` on the kernel route (its plain
     version on the CPU) against the dense route on one trajectory, with
-    states inside, on and outside the frame; each evaluation counted once
-    on its route."""
+    states inside, on and outside the frame; each evaluation once on its
+    route: the kernel route's through the sampler (gradient mode first),
+    with no launch on the CPU, the dense route's in ``mpc.edge_dense``."""
+    plain, grads = sampler.sample_plain, []
+
+    def sample_plain(*args):
+        grads.append(args[6])
+        return plain(*args)
+
+    monkeypatch.setattr(sampler, "sample_plain", sample_plain)
     m, h, B = 8, 6, 33
     edge = torch.from_numpy(np.random.default_rng(5).uniform(
         0, 255, (hh, ww)).astype(np.float32))
@@ -98,9 +111,9 @@ def test_kernel_route_matches_the_dense_route(hh, ww):
     ps_l[0, 0], ps_l[0, m] = -1.0, 1.0
     before = counts()
     g_k, v_k = kern.edge_grads(ps_l), kern.edge_vals(ps_l)
-    assert counts() == (before[0] + 2, before[1])
+    assert counts() == before and grads == [True, False]
     g_d, v_d = dense.edge_grads(ps_l), dense.edge_vals(ps_l)
-    assert counts() == (before[0] + 2, before[1] + 2)
+    assert counts() == (before[0], before[1] + 2) and len(grads) == 2
     assert g_k.shape == g_d.shape == (h + 1, 2 * m, B)
     assert v_k.shape == v_d.shape == (h + 1, B)
     np.testing.assert_allclose(g_k.numpy(), g_d.numpy(), **GRAD)

@@ -58,7 +58,12 @@ def test_reference_equals_the_port(ref, c, hw, passes, border):
         _hwc(*hw, c=c, seed=c * 100 + hw[0]).transpose(2, 0, 1)))
     want = pipeline.edge_pipeline(img, border=border, passes=passes)
     got = ref.edge_passes(img, passes, border)
-    assert got.dtype == torch.uint8 and torch.equal(got, want)
+    assert got.dtype == torch.uint8 and got.shape == want.shape
+    # On a mismatch: how many bytes differ, and the first ones' positions
+    # and values (reference, port).
+    bad = (got != want).nonzero().tolist()
+    assert not bad, (len(bad), [(i, got[tuple(i)].item(),
+                                 want[tuple(i)].item()) for i in bad[:8]])
 
 
 def test_job_spans_nest_under_one_job(tmp_path):

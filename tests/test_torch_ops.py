@@ -191,9 +191,8 @@ def test_plain_helpers_equal_jax():
 
 
 def test_wrappers_reject_bad_input_and_count_no_cpu_launch():
-    wrappers = (ops.grayscale, ops.sobel, ops.edge_pipeline, ops.conv3x3,
-                ops.edge_pyramid_base)
-    before = [w.launches for w in wrappers]
+    before = _build.launch_counts("grayscale", "sobel", "edge", "conv3x3",
+                                  "edge_pyramid")
     u8 = torch.zeros((3, 8, 8), dtype=torch.uint8)
     with pytest.raises(TypeError):
         ops.grayscale(u8.to(torch.int32))
@@ -224,7 +223,7 @@ def test_wrappers_reject_bad_input_and_count_no_cpu_launch():
     ops.edge_pipeline(u8, passes=2)
     ops.conv3x3(u8, passes=2)
     ops.edge_pyramid_base(u8)
-    assert [w.launches for w in wrappers] == before
+    assert _build.launch_counts(*before) == before
 
 
 @pytest.mark.parametrize("header, rebuilt", [

@@ -22,7 +22,7 @@ import jax
 from openmp_parallel_computing_tpu.models.mpc import costs as jax_costs
 from openmp_parallel_computing_tpu.ops import pipeline as jax_pipeline
 from openmp_parallel_computing_tpu.ops import xla_ref as jax_ref
-from openmp_parallel_computing_tpu_torch import data
+from openmp_parallel_computing_tpu_torch import _build, data
 from openmp_parallel_computing_tpu_torch.models.mpc import costs
 from openmp_parallel_computing_tpu_torch.ops import pipeline, xla_ref
 
@@ -147,7 +147,7 @@ def test_sobel_floor_sqrt_of_perfect_squares():
 
 
 def test_wrapper_checks_inputs_and_counts_no_cpu_launch():
-    before = pipeline.edge_pyramid_base.launches
+    before = _build.launch_counts("edge_pyramid")
     with pytest.raises(TypeError):
         pipeline.edge_pyramid_base(torch.zeros((3, 8, 8), dtype=torch.int32))
     with pytest.raises(ValueError):
@@ -161,4 +161,4 @@ def test_wrapper_checks_inputs_and_counts_no_cpu_launch():
     out = pipeline.edge_pyramid_base(torch.zeros((3, 20, 20),
                                                  dtype=torch.uint8))
     assert tuple(out.shape) == (2, 2)
-    assert pipeline.edge_pyramid_base.launches == before
+    assert _build.launch_counts("edge_pyramid") == before

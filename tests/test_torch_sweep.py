@@ -12,6 +12,7 @@ import torch
 from openmp_parallel_computing_tpu.models.mpc import dynamics as jax_dyn
 from openmp_parallel_computing_tpu.models.mpc import riccati_pallas as jax_rp
 from openmp_parallel_computing_tpu.models.mpc import sweep_pallas as jax_sp
+from openmp_parallel_computing_tpu_torch import _build
 from openmp_parallel_computing_tpu_torch.models.mpc import (
     dynamics,
     riccati_lanes,
@@ -195,7 +196,7 @@ def test_select_winner_ignores_nan_losers():
 
 def test_multi_sweep_wrapper_checks_inputs():
     arrs = list(map(torch.from_numpy, _inputs(2, 3, 8, seed=1)))
-    before = sweep.multi_sweep.launches
+    before = _build.launch_counts("multi_sweep")
     with pytest.raises(ValueError, match="shape"):
         sweep.multi_sweep(*arrs, m=4, sweeps=1, **KW)
     bad = list(arrs)
@@ -203,7 +204,7 @@ def test_multi_sweep_wrapper_checks_inputs():
     with pytest.raises(TypeError):
         sweep.multi_sweep(*bad, m=2, sweeps=1, **KW)
     sweep.multi_sweep(*arrs, m=2, sweeps=1, **KW)
-    assert sweep.multi_sweep.launches == before
+    assert _build.launch_counts("multi_sweep") == before
 
 
 SWEEP_KW = dict(KW, m=4)
@@ -360,8 +361,6 @@ def test_rollout_is_the_zero_gain_forward_candidate(m):
 def test_rollout_wrapper_checks_inputs():
     """The rollout wrapper raises on a wrong shape, dtype or device; on
     the CPU it launches nothing and counts nothing in the registry."""
-    from openmp_parallel_computing_tpu_torch.utils.metrics import registry
-
     m, H, B = 3, 4, 9
     p0, us, izd = map(torch.from_numpy, _rollout_inputs(m, H, B, seed=5))
     kw = dict(m=m, dt=KW["dt"])
@@ -378,14 +377,10 @@ def test_rollout_wrapper_checks_inputs():
     with pytest.raises(ValueError, match="unsupported device"):
         sweep.rollout(*(t.to("meta") for t in (p0, us, izd)), **kw)
 
-    def count():
-        return (sweep.rollout.launches,
-                registry.snapshot()["counters"].get("mpc.rollout_kernel", 0))
-
-    before = count()
+    before = _build.launch_counts("rollout")
     ps = sweep.rollout(p0, us, izd, **kw)
     assert ps.shape == (H + 1, 2 * m, B) and torch.equal(ps[0], p0)
-    assert count() == before                      # CPU: no launches
+    assert _build.launch_counts("rollout") == before   # CPU: no launches
 
 
 def test_sweep_wrappers_check_inputs():
@@ -399,13 +394,11 @@ def test_sweep_wrappers_check_inputs():
         sweep.forward_sweep(p0, ps, us, K[:, :, :2], k, *rest, m=2, **KW)
     with pytest.raises(TypeError):
         sweep.backward_sweep(ps.double(), us, *rest, m=2, **KW)
-    counts = (sweep.unified_sweep.launches, sweep.backward_sweep.launches,
-              sweep.forward_sweep.launches)
+    counts = _build.launch_counts("unified_sweep", "backward_sweep",
+                                  "forward_sweep")
     sweep.unified_sweep(p0, ps, us, *rest, m=2, **KW)
     sweep.forward_sweep(p0, ps, us, K, k, *rest, m=2, **KW)
-    assert counts == (sweep.unified_sweep.launches,
-                      sweep.backward_sweep.launches,
-                      sweep.forward_sweep.launches)   # CPU: no launches
+    assert counts == _build.launch_counts(*counts)   # CPU: no launches
 
 
 @pytest.mark.parametrize("header, users", [
